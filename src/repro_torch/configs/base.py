@@ -1,0 +1,137 @@
+"""Model config dataclass (a copy of ``repro.configs.base.ModelConfig``).
+
+Every architecture file (``configs/<id>.py``) exports a ``CONFIG`` (exact
+published dims) and a ``SMOKE`` (reduced same-family config for CPU tests).
+The input-shape registry of ``repro.configs.base`` comes with the slices
+that run those shapes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+__all__ = ["ModelConfig", "pad_to"]
+
+
+def pad_to(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str  # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // n_heads
+
+    # --- attention details ---
+    norm_type: str = "rmsnorm"  # rmsnorm | layernorm | nonparametric_ln
+    qk_norm: bool = False
+    rope_theta: float = 10_000.0
+    sliding_window: int = 0  # 0 = full attention
+    global_layers: tuple[int, ...] = ()  # full-attn layers despite window
+    act: str = "silu"
+    gated_mlp: bool = True
+    tie_embeddings: bool = False
+    logit_softcap: float = 0.0
+
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+
+    # --- SSM branch (hymba-style parallel heads) ---
+    ssm: bool = False
+    ssm_state: int = 16
+    ssm_conv: int = 4
+    d_ssm: int = 0  # inner width of the ssm branch (default d_model)
+
+    # --- xLSTM ---
+    xlstm: bool = False
+    slstm_every: int = 0  # every k-th layer is sLSTM (0 = none)
+    proj_factor: float = 2.0
+
+    # --- structure / stubs ---
+    arch_kind: str = "decoder"  # decoder | encdec
+    n_enc_layers: int = 0
+    enc_seq: int = 0  # stub audio frames (whisper: 1500)
+    num_patches: int = 0  # stub vision patch tokens (vlm)
+
+    # --- long-context applicability ---
+    long_context_ok: bool = False
+
+    # ----- derived -----
+    @property
+    def hd(self) -> int:
+        return self.head_dim or (self.d_model // self.n_heads)
+
+    def n_heads_padded(self, tp: int) -> int:
+        return pad_to(self.n_heads, tp)
+
+    def vocab_padded(self, tp: int) -> int:
+        return pad_to(self.vocab_size, tp)
+
+    @property
+    def moe(self) -> bool:
+        return self.n_experts > 0
+
+    @property
+    def d_ssm_inner(self) -> int:
+        return self.d_ssm or self.d_model
+
+    def slstm_layers(self) -> tuple[int, ...]:
+        if not (self.xlstm and self.slstm_every):
+            return ()
+        return tuple(
+            i for i in range(self.n_layers) if i % self.slstm_every == self.slstm_every - 1
+        )
+
+    def window_for_layer(self, i: int) -> int:
+        """Effective attention window for layer i (0 = full)."""
+        if self.sliding_window and i not in self.global_layers:
+            return self.sliding_window
+        return 0
+
+    def param_count(self) -> int:
+        """Approximate parameter count N (for MODEL_FLOPS = 6 N D)."""
+        d, v = self.d_model, self.vocab_size
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        per_layer = 0
+        hd = self.hd
+        attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
+        if self.xlstm:
+            # mLSTM block: up(d->pf d) + gate(d->pf d) + qkv in pf*d space
+            # + down(pf d->d).  Exact N is counted from init_params shapes at
+            # dry-run time; this estimate only seeds reporting defaults.
+            pf = self.proj_factor
+            per_layer = int(3 * d * pf * d + 3 * (pf * d) * hd * self.n_heads)
+        elif self.moe:
+            mlp_mult = 3 if self.gated_mlp else 2
+            per_layer = attn + self.n_experts * mlp_mult * d * self.d_ff + d * self.n_experts
+        else:
+            mlp_mult = 3 if self.gated_mlp else 2
+            per_layer = attn + mlp_mult * d * self.d_ff
+        if self.ssm:
+            ds = self.d_ssm_inner
+            per_layer += 2 * d * ds + ds * d + ds * self.ssm_conv + 2 * ds * self.ssm_state
+        n_layers = self.n_layers + self.n_enc_layers
+        if self.arch_kind == "encdec":
+            per_layer += attn  # cross attention in decoder layers (approx)
+        return emb + n_layers * per_layer
+
+    def active_param_count(self) -> int:
+        """Active parameters per token (MoE: top_k experts only)."""
+        if not self.moe:
+            return self.param_count()
+        d = self.d_model
+        mlp_mult = 3 if self.gated_mlp else 2
+        full = self.param_count()
+        all_experts = self.n_layers * self.n_experts * mlp_mult * d * self.d_ff
+        active = self.n_layers * self.top_k * mlp_mult * d * self.d_ff
+        return full - all_experts + active

@@ -1,0 +1,120 @@
+"""The Triton body of the fused stage kernel (see :mod:`.kernel`).
+
+Imports ``triton`` at module level, so it is imported only by
+``kernel.fused_stage_launch``, at the first launch: hosts without Triton
+import the rest of the package.
+"""
+
+import triton
+import triton.language as tl
+
+
+@triton.jit
+def fused_stage_kernel(
+    s_ptr, x_ptr, g_ptr, m_ptr, mix_ptr, xp_ptr, mp_ptr,
+    ox_ptr, op_ptr, om_ptr,
+    numel, beta, omb, wd,
+    OP: tl.constexpr,
+    HAS_X: tl.constexpr, HAS_G: tl.constexpr, HAS_M: tl.constexpr,
+    HAS_MIX: tl.constexpr, HAS_PREV: tl.constexpr,
+    NESTEROV: tl.constexpr, COUPLED_WD: tl.constexpr, DECOUPLED_WD: tl.constexpr,
+    CLIP: tl.constexpr, LARS: tl.constexpr,
+    BLOCK: tl.constexpr,
+):
+    # beta, omb (= 1 - beta, rounded on the host as the plain version does)
+    # and wd are the MathCtx constants; s_ptr -> [lr, gs, r, sg]
+    pid = tl.program_id(0).to(tl.int64)
+    offs = pid * BLOCK + tl.arange(0, BLOCK).to(tl.int64)
+    mask = offs < numel
+    lr = tl.load(s_ptr)
+    gs = tl.load(s_ptr + 1)
+    r = tl.load(s_ptr + 2)
+    sg = tl.load(s_ptr + 3)
+    safe_lr = tl.maximum(lr, 1e-12)
+
+    if HAS_X:
+        x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+    if HAS_M:
+        m = tl.load(m_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+    if HAS_MIX:
+        mix = tl.load(mix_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+    if HAS_PREV:
+        xp = tl.load(xp_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+        mp = tl.load(mp_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+    if HAS_G:
+        # g_eff: clip scale, then coupled wd, then the LARS ratio
+        g = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+        if CLIP:
+            g = gs * g
+        if COUPLED_WD:
+            g = wd * x + g
+        if LARS:
+            g = r * g
+
+    # ---- PRE ops: payload (+ momentum) ----
+    if OP == 0:  # grad_step
+        tl.store(op_ptr + offs, x - lr * g, mask=mask)
+    if OP == 1:  # identity_g
+        tl.store(op_ptr + offs, g, mask=mask)
+    if OP == 2:  # momentum_payload
+        m_new = beta * m + g
+        if NESTEROV:
+            tl.store(op_ptr + offs, x - lr * (beta * m_new + g), mask=mask)
+        else:
+            tl.store(op_ptr + offs, x - lr * m_new, mask=mask)
+        tl.store(om_ptr + offs, m_new, mask=mask)
+    if OP == 3:  # momentum_accum
+        m_new = beta * m + g
+        tl.store(op_ptr + offs, m_new, mask=mask)
+        tl.store(om_ptr + offs, m_new, mask=mask)
+    if OP == 4:  # x_minus_lr_m
+        tl.store(op_ptr + offs, x - lr * m, mask=mask)
+    if OP == 5:  # momentum_keep_x
+        tl.store(op_ptr + offs, x, mask=mask)
+        tl.store(om_ptr + offs, beta * m + g, mask=mask)
+    if OP == 6:  # qg_payload
+        tl.store(op_ptr + offs, x - lr * (beta * m + g), mask=mask)
+    if OP == 7:  # d2_payload
+        m_new = beta * m + g
+        tl.store(op_ptr + offs, 2.0 * x - xp - lr * (m_new - mp), mask=mask)
+        tl.store(om_ptr + offs, m_new, mask=mask)
+
+    # ---- POST ops: recombine (x_new gets the decoupled decay) ----
+    if OP == 8:  # assign_x
+        x_new = mix
+    if OP == 9:  # assign_m
+        tl.store(om_ptr + offs, mix, mask=mask)
+    if OP == 10:  # mix_minus_lr_m
+        x_new = mix - lr * m
+    if OP == 11:  # momentum_step
+        m_new = beta * m + mix
+        if NESTEROV:
+            x_new = x - lr * (beta * m_new + mix)
+        else:
+            x_new = x - lr * m_new
+        tl.store(om_ptr + offs, m_new, mask=mask)
+    if OP == 12:  # qg_post
+        m_new = beta * m + tl.math.div_rn(omb * (x - mix), safe_lr)
+        x_new = mix
+        tl.store(om_ptr + offs, m_new, mask=mask)
+    if OP == 13:  # decentlam_post
+        g_tilde = tl.math.div_rn(x - mix, safe_lr)
+        m_new = beta * m + g_tilde
+        if NESTEROV:
+            x_new = x - lr * (beta * m_new + g_tilde)
+        else:
+            x_new = x - lr * m_new
+        tl.store(om_ptr + offs, m_new, mask=mask)
+    if OP == 14:  # decentlam_sa_post
+        drift = tl.math.div_rn(x - mix, safe_lr)
+        m_new = beta * m + (sg * drift + (1.0 - sg) * g)
+        if NESTEROV:
+            x_new = x - lr * (sg * (beta * m_new) + drift)
+        else:
+            x_new = x - lr * (sg * (beta * m) + drift)
+        tl.store(om_ptr + offs, m_new, mask=mask)
+    if OP >= 8:
+        if OP != 9:
+            if DECOUPLED_WD:
+                x_new = x_new - lr * wd * x_new
+            tl.store(ox_ptr + offs, x_new.to(ox_ptr.dtype.element_ty), mask=mask)
