@@ -23,11 +23,28 @@ result line):
 5. the kernel at the main path's leaf shapes: held against its plain
    version, then timed beside its bound (the larger of bytes / 3.35 TB/s and
    f32 operations / 67 TFLOP/s), the plain version's time and, where one
-   PyTorch call computes the stage, that call's time.
+   PyTorch call computes the stage, that call's time;
+6. the CUDA ``flash_attention`` kernel against its plain version on the
+   card: causal x window {0, 100} x GQA group {1, 2, 4} x hd {64, 80, 128} x
+   ragged Sq, Sk in {1, 77, 300} x {f32, bf16}, and the two main-path shapes
+   (qwen3-0.6b prefill, h2o-danube-1.8b with its 4096 window);
+7. the serve main path: ``repro_torch.serve.ServeEngine`` on qwen3-0.6b at
+   full width (28 layers, f32, random weights from seed 0), 8 slots,
+   ``max_prompt`` 2048, ``max_new`` 32, 16 requests of 256..2048 prompt
+   tokens: all complete and the kernel launched exactly 28 times per
+   prefill; prefill ms per wave, decode ms per step, generated tokens/s,
+   peak memory, and where the device time of one prefill wave and of two
+   decode steps goes;
+8. the same engine at 4 layers with ``attn_impl="cuda"`` and ``"torch"``:
+   token-identical, or, where they part, the plain run's top-two logit gap
+   there is below the logit tolerance (a near tie);
+9. the flash kernel at the main-path shape timed beside its bound, its plain
+   version and ``scaled_dot_product_attention``.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Triton kernels compile at first use into
-``build/triton`` inside the checkout.
+``build/triton`` inside the checkout; the CUDA kernel is built by nvcc into
+``build/cuda`` while phases 2-5 run.
 """
 
 from __future__ import annotations
@@ -37,6 +54,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
@@ -53,6 +71,20 @@ BF16_TOL = 1e-2
 # loss trajectories, kernel vs plain tail, 3 steps at 4 layers
 LOSS_RTOL = 1e-5
 MAIN = dict(nodes=4, arch="qwen3-0.6b", steps=5, seq_len=256, per_node_batch=4)
+# flash attention at the main path's shapes, (B, S, H, Hkv, hd, window), causal:
+# the qwen3-0.6b prefill wave of the serve main path, and h2o-danube-1.8b
+# (hd 80) at a length where its 4096 window cuts in
+FA_MAIN_SHAPES = {"qwen3-0.6b prefill": (8, 2048, 16, 8, 64, 0),
+                  "h2o-danube-1.8b": (1, 4608, 32, 8, 80, 4096)}
+# flash attention, kernel vs plain version: the JAX package's tolerances for
+# its own kernel (tests/test_kernels.py)
+FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the serve main path: qwen3-0.6b, 8 slots, 16 requests in two admission waves
+SERVE = dict(arch="qwen3-0.6b", slots=8, max_prompt=2048, max_new=32, requests=16,
+             min_prompt=256)
+# kernel path vs plain path: where the generated tokens part, the plain
+# run's top-two logit gap there must be below this share of max |logit|
+LOGIT_RTOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -206,6 +238,8 @@ def _kernel_class(name: str) -> str:
     n = name.lower()
     if "fused_stage" in n:
         return "fused_update (Triton)"
+    if "flash_fwd" in n:
+        return "flash_attention (CUDA)"
     if "gemm" in n or "cutlass" in n or "xmma" in n or "gemv" in n:
         return "matmul (cuBLAS)"
     if "softmax" in n or "reduce" in n or "norm" in n:
@@ -227,11 +261,8 @@ def _matmul_flops_per_step(cfg, n_nodes) -> float:
     return 3.0 * fwd * n_nodes
 
 
-def _profile_report(torch, events, step_ms, profiled_ms):
-    """Where a main-path step's device time goes, from the profiler's events
-    over 2 steps, against the unprofiled step time ``step_ms``."""
-    from repro_torch.configs import get_config
-
+def _device_kernels(torch, events):
+    """``({kernel name: [launches, ms]}, busy ms)`` from a profiler's events."""
     kernels: dict[str, list] = {}
     for e in events:
         # the scheduled profiler also puts its "ProfilerStep#N" range on the
@@ -244,6 +275,15 @@ def _profile_report(torch, events, step_ms, profiled_ms):
     busy = sum(v[1] for v in kernels.values())
     if busy <= 0.0:
         raise RuntimeError("the profiler recorded no device time")
+    return kernels, busy
+
+
+def _profile_report(torch, events, step_ms, profiled_ms):
+    """Where a main-path step's device time goes, from the profiler's events
+    over 2 steps, against the unprofiled step time ``step_ms``."""
+    from repro_torch.configs import get_config
+
+    kernels, busy = _device_kernels(torch, events)
     classes: dict[str, float] = {}
     for name, (_, ms) in kernels.items():
         classes[_kernel_class(name)] = classes.get(_kernel_class(name), 0.0) + ms
@@ -391,6 +431,334 @@ def _bound(nbytes: int, flops: int) -> tuple[float, str]:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+# ---------------------------------------------------------------------------
+# Serving: the flash-attention CUDA kernel and the engine (phases 6-9)
+# ---------------------------------------------------------------------------
+
+
+def _fa_inputs(torch, b, sq, sk, h, hkv, hd, dtype, gen):
+    q = torch.randn(b, sq, h, hd, device="cuda", generator=gen).to(dtype)
+    k = torch.randn(b, sk, hkv, hd, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(b, sk, hkv, hd, device="cuda", generator=gen).to(dtype)
+    return q, k, v
+
+
+def _fa_compare(torch, q, k, v, causal, window, what):
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_launch
+    from repro_torch.kernels.flash_attention.ref import reference_attention
+
+    got = flash_attention_launch(q, k, v, causal=causal, window=window)
+    want = reference_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    tol = FA_TOL[str(q.dtype).split(".")[-1]]
+    err = float((got.float() - want.float()).abs().max())
+    if not err <= tol:  # also catches NaN
+        raise RuntimeError(f"flash_attention kernel != plain version ({what}): max |diff| "
+                           f"{err:.3g} > {tol}")
+    return err
+
+
+def _fa_live_pairs(b, sq, sk, h, causal, window) -> int:
+    """Live (q, k) pairs of the mask, counted row by row."""
+    import numpy as np
+
+    i = np.arange(sq)
+    hi = np.minimum(i + 1, sk) if causal else np.full(sq, sk)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo, 0).sum()) * b * h
+
+
+def _fa_bound(q, k, causal, window):
+    """(bound ms, bound_by, flops, bytes) for one call: each of q, k, v read
+    once and o written once; 4 * hd f32 operations per live pair."""
+    b, sq, h, hd = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    flops = 4 * hd * _fa_live_pairs(b, sq, sk, h, causal, window)
+    nbytes = q.element_size() * (2 * b * sq * h * hd + 2 * b * sk * hkv * hd)
+    return (*_bound(nbytes, flops), flops, nbytes)
+
+
+def phase_flash_vs_plain(torch, built):
+    import itertools
+
+    so, build_s = built
+    log(f"phase 6: flash_attention CUDA kernel built by nvcc in {build_s:.1f}s ({so.name}); "
+        "ptxas: " + "; ".join(_ptxas_summary(so)))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    n = 0
+    t0 = time.perf_counter()
+    lengths = (1, 77, 300)
+    for causal, window, group, hd, sq, sk, dt in itertools.product(
+            (True, False), (0, 100), (1, 2, 4), (64, 80, 128), lengths, lengths,
+            (torch.float32, torch.bfloat16)):
+        q, k, v = _fa_inputs(torch, 2, sq, sk, 2 * group, 2, hd, dt, gen)
+        err = _fa_compare(torch, q, k, v, causal, window,
+                          f"causal={causal} window={window} group={group} hd={hd} "
+                          f"Sq={sq} Sk={sk} {dt}")
+        key = str(dt).split(".")[-1]
+        worst[key] = max(worst[key], err)
+        n += 1
+    main_err = {}
+    for name, (b, s_, h, hkv, hd, window) in FA_MAIN_SHAPES.items():
+        q, k, v = _fa_inputs(torch, b, s_, s_, h, hkv, hd, torch.float32, gen)
+        main_err[name] = _fa_compare(torch, q, k, v, True, window, name)
+        del q, k, v
+        torch.cuda.empty_cache()
+    log(f"phase 6: flash_attention kernel == plain version on {n} cases (causal x window "
+        f"{{0, 100}} x group {{1, 2, 4}} x hd {{64, 80, 128}} x Sq, Sk in {lengths} x "
+        f"{{f32, bf16}}; worst max |diff| f32 {worst['float32']:.3g} (tol "
+        f"{FA_TOL['float32']}), bf16 {worst['bfloat16']:.3g} (tol {FA_TOL['bfloat16']})) and "
+        f"at the main-path shapes {', '.join(f'{k} {v:.3g}' for k, v in main_err.items())} "
+        f"in {time.perf_counter() - t0:.1f}s")
+
+
+def _ptxas_summary(so):
+    """Registers and spills per kernel from the build's ``-Xptxas -v`` log."""
+    out, name = [], None
+    for line in so.with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            sig = line.split("'")[1]
+            name = sig[sig.find("flash_fwd_kernel"):].split("EEEv")[0]
+        elif "Used" in line and "registers" in line and name:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}")
+        elif "spill" in line and name and not line.strip().startswith("0 bytes stack"):
+            out.append(f"{name}: {line.strip()}")
+    return out
+
+
+def _serve_requests(vocab):
+    import numpy as np
+
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(SERVE["min_prompt"], SERVE["max_prompt"] + 1, SERVE["requests"])
+    return [Request(rid=i, tokens=rng.integers(0, vocab, int(n)).astype(np.int32),
+                    max_new_tokens=SERVE["max_new"]) for i, n in enumerate(lens)]
+
+
+def _engine(torch, cfg, impl, params):
+    from repro_torch.models.transformer import RuntimeConfig
+    from repro_torch.serve import ServeEngine
+
+    return ServeEngine(cfg, slots=SERVE["slots"], max_prompt=SERVE["max_prompt"],
+                       max_new=SERVE["max_new"], params=params,
+                       runtime=RuntimeConfig(dtype="float32", attn_impl=impl))
+
+
+def _timed(torch, fn, times):
+    """``fn`` with each call's wall time (synchronized) appended to ``times``."""
+    def run(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return out
+    return run
+
+
+def _serve_profile(torch, events, what, wall_ms, steps):
+    """Device busy share and time by class of ``steps`` serve calls."""
+    kernels, busy = _device_kernels(torch, events)
+    if busy > wall_ms:
+        raise RuntimeError(f"{what}: device time {busy:.1f} ms exceeds the wall {wall_ms:.1f}")
+    classes: dict[str, float] = {}
+    for name, (_, ms) in kernels.items():
+        classes[_kernel_class(name)] = classes.get(_kernel_class(name), 0.0) + ms
+    launches = sum(v[0] for v in kernels.values())
+    log(f"profile, {what} at full width: {wall_ms / steps:.1f} ms wall per call under the "
+        f"profiler, device busy {busy / steps:.1f} ms ({busy / wall_ms:.1%}, idle "
+        f"{1 - busy / wall_ms:.1%}), {launches // steps} kernel launches per call")
+    for c, ms in sorted(classes.items(), key=lambda kv: -kv[1]):
+        log(f"  {c}: {ms / steps:.2f} ms ({ms / busy:.1%} of device time)")
+    for name, (cnt, ms) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]:
+        log(f"  {ms / steps:8.2f} ms  {cnt // steps:5d} launches  {name[:90]}")
+
+
+def phase_serve_main_path(torch):
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_launch,
+        reset_launches,
+    )
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(SERVE["arch"])
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    eng = _engine(torch, cfg, "cuda", params)
+    prefill, decode = eng.prefill_step, eng.decode_step
+    prefill_s, decode_s = [], []
+    eng.prefill_step = _timed(torch, prefill, prefill_s)
+    eng.decode_step = _timed(torch, decode, decode_s)
+    reqs = _serve_requests(cfg.vocab_size)
+    for r in reqs:
+        eng.submit(r)
+    reset_launches()
+    t0 = time.perf_counter()
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_attention_launch.launches
+    st = eng.stats()
+    peak = torch.cuda.max_memory_allocated()
+    if sorted(c.rid for c in done) != list(range(len(reqs))):
+        raise RuntimeError(f"serve: {len(done)} of {len(reqs)} requests completed")
+    if any(len(c.tokens) != SERVE["max_new"] for c in done):
+        raise RuntimeError("serve: a completion has the wrong length")
+    if launches != cfg.n_layers * st["prefills"]:
+        raise RuntimeError(f"flash_attention launched {launches} times, want "
+                           f"{cfg.n_layers} x {st['prefills']} prefills")
+    gen_tokens = sum(len(c.tokens) for c in done)
+    prompt_tokens = sum(r.tokens.size for r in reqs)
+    n_params = T.count_params(params)
+    log(f"phase 7: serve qwen3-0.6b full width ({n_params:,} params, {cfg.n_layers} layers, "
+        f"f32), {SERVE['slots']} slots x max_prompt {SERVE['max_prompt']} + max_new "
+        f"{SERVE['max_new']}: {len(done)}/{len(reqs)} requests complete ({prompt_tokens} "
+        f"prompt tokens, {gen_tokens} generated), {st['prefills']} prefill waves, "
+        f"{st['decode_batches']} decode steps; flash_attention launches {launches} "
+        f"(= {cfg.n_layers} x {st['prefills']})")
+    dec_ms = 1e3 * sum(decode_s) / len(decode_s)
+    log(f"serve main path: prefill {[round(1e3 * t, 1) for t in prefill_s]} ms per wave "
+        f"({SERVE['slots']} x {SERVE['max_prompt']} tokens each), decode {dec_ms:.2f} ms per "
+        f"step (mean of {len(decode_s)}; min {1e3 * min(decode_s):.2f}, max "
+        f"{1e3 * max(decode_s):.2f}), {gen_tokens / wall:.1f} generated tokens/s over the "
+        f"{wall:.2f}s run, peak memory {peak / 2**30:.2f} GiB")
+
+    # where the device time of one prefill wave and of two decode steps goes
+    # (after the counts are read)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (SERVE["slots"], SERVE["max_prompt"]),
+                                     device="cuda", generator=torch.Generator(device="cuda")
+                                     .manual_seed(3))}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, cache = prefill(params, batch)
+        torch.cuda.synchronize()
+        wave_ms = 1e3 * (time.perf_counter() - t)
+    _serve_profile(torch, prof.events(), "one prefill wave", wave_ms, 1)
+    tok = batch["tokens"][:, -1:]
+    tvec = torch.full((SERVE["slots"],), SERVE["max_prompt"] - 1, dtype=torch.int32)
+    decode(params, tok, cache, tvec)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(2):
+            decode(params, tok, cache, tvec)
+        torch.cuda.synchronize()
+        steps_ms = 1e3 * (time.perf_counter() - t)
+    _serve_profile(torch, prof.events(), "two decode steps", steps_ms, 2)
+    del eng, params, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_kernel_vs_plain(torch):
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    depth = 4
+    cfg = dataclasses.replace(get_config(SERVE["arch"]), n_layers=depth)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    reqs = _serve_requests(cfg.vocab_size)
+    out, wall = {}, {}
+    for impl in ("cuda", "torch"):
+        eng = _engine(torch, cfg, impl, params)
+        for r in reqs:
+            eng.submit(r)
+        t0 = time.perf_counter()
+        out[impl] = {c.rid: c.tokens for c in eng.run_until_drained()}
+        wall[impl] = time.perf_counter() - t0
+        del eng
+        torch.cuda.empty_cache()
+    parted = []
+    for r in reqs:
+        a, b = out["cuda"][r.rid], out["torch"][r.rid]
+        if (a == b).all():
+            continue
+        pos = int((a != b).argmax())
+        # the plain run's logits at that position: a prefill of the prompt
+        # and the plain run's tokens before it
+        seq = np.concatenate([r.tokens, b[:pos]])[None]
+        with torch.inference_mode():
+            logits, _ = T.prefill(params, {"tokens": torch.from_numpy(seq).cuda()}, cfg,
+                                  T.RuntimeConfig(dtype="float32", attn_impl="torch"))
+        top2 = torch.topk(logits[0].float(), 2).values
+        gap = float(top2[0] - top2[1]) / float(logits.abs().max())
+        log(f"  request {r.rid}: tokens part at generated position {pos} ({a[pos]} kernel vs "
+            f"{b[pos]} plain); plain top-two logit gap {gap:.3g} of max |logit|")
+        parted.append(gap)
+        if not gap < LOGIT_RTOL:
+            raise RuntimeError(f"request {r.rid}: kernel and plain paths part at position "
+                               f"{pos} where the plain top-two gap {gap:.3g} is not a near tie "
+                               f"(< {LOGIT_RTOL})")
+    log(f"phase 8: serve at {depth} layers, {len(reqs)} requests: kernel path == plain path "
+        f"token for token on {len(reqs) - len(parted)} of {len(reqs)} requests"
+        + (f", the other {len(parted)} part at near ties" if parted else "")
+        + f"; run {wall['cuda']:.2f}s kernel vs {wall['torch']:.2f}s plain")
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_flash_timing(torch):
+    """The kernel at the serve main path's prefill shape (and at
+    h2o-danube's windowed shape): its time, bound, plain version and SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_launch
+    from repro_torch.kernels.flash_attention.ref import reference_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rec = None
+    for name, (b, s_, h, hkv, hd, window) in FA_MAIN_SHAPES.items():
+        q, k, v = _fa_inputs(torch, b, s_, s_, h, hkv, hd, torch.float32, gen)
+        want = reference_attention(q, k, v, causal=True, window=window)
+        got = flash_attention_launch(q, k, v, causal=True, window=window)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if window:  # SDPA takes the window as a boolean mask
+            i = torch.arange(s_, device="cuda")
+            mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                         enable_gqa=True)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                         enable_gqa=True)
+        lib_out = lib().transpose(1, 2)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        lib_err = float((lib_out - want).abs().max())
+        if not (err <= FA_TOL["float32"] and lib_err <= FA_TOL["float32"]):
+            raise RuntimeError(f"{name}: kernel {err:.3g} / SDPA {lib_err:.3g} from the plain "
+                               f"version (tol {FA_TOL['float32']})")
+        del got, want, lib_out
+        ms = _time_ms(torch, lambda: flash_attention_launch(q, k, v, causal=True,
+                                                            window=window), 10)
+        plain_ms = _time_ms(torch, lambda: reference_attention(q, k, v, causal=True,
+                                                               window=window), 3)
+        lib_ms = _time_ms(torch, lib, 10)
+        bound_ms, by, flops, nbytes = _fa_bound(q, k, True, window)
+        log(f"phase 9: flash_attention at {name} {tuple(q.shape)} q, {tuple(k.shape)} k/v, "
+            f"causal, window {window}, f32: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} "
+            f"TFLOP/s), bound {bound_ms:.3f} ms by {by} ({flops / 1e9:.1f} GFLOP / 67 TFLOP/s; "
+            f"{nbytes / 1e6:.0f} MB / 3.35 TB/s = {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms; "
+            f"{bound_ms / ms:.1%} of bound), plain version {plain_ms:.3f} ms, SDPA "
+            f"{lib_ms:.3f} ms; max |kernel - plain| {err:.3g}")
+        if rec is None:  # the first shape is the main path's
+            rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+                   "bound_by": by, "err": err}
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -405,16 +773,39 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
         return 2
+    from repro_torch.kernels.flash_attention.kernel import build
+
     t0 = time.perf_counter()
-    phase_device(torch)
-    phase_kernel_vs_plain(torch)
-    launches = phase_main_path(torch)
-    phase_plain_vs_kernel_path(torch)
-    per_stage = phase_timing(torch)
-    log(f"total {time.perf_counter() - t0:.1f}s")
-    # one record per specialization of the kernel on the main path; times
-    # are per step (summed over the 14 leaves)
-    print(json.dumps({"kernels": [{
+    phases = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(torch, *args)
+        phases[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    def build_timed():
+        t = time.perf_counter()
+        return build(), time.perf_counter() - t
+
+    # nvcc builds the CUDA kernel while the Triton phases run
+    with ThreadPoolExecutor(1) as pool:
+        built = pool.submit(build_timed)
+        timed("1 device", phase_device)
+        timed("2 fused_update vs plain", phase_kernel_vs_plain)
+        launches = timed("3 train main path", phase_main_path)
+        timed("4 train kernel vs plain path", phase_plain_vs_kernel_path)
+        per_stage = timed("5 fused_update timing", phase_timing)
+        built = built.result()
+    timed("6 flash_attention vs plain", phase_flash_vs_plain, built)
+    fa_launches = timed("7 serve main path", phase_serve_main_path)
+    timed("8 serve kernel vs plain path", phase_serve_kernel_vs_plain)
+    fa = timed("9 flash_attention timing", phase_flash_timing)
+    log(f"phase times (s): {phases}; total {time.perf_counter() - t0:.1f}s")
+    # one record per specialization of the Triton kernel on the training main
+    # path (times per step, summed over the 14 leaves), and the flash kernel
+    # at the serve main path's prefill shape (times per call)
+    records = [{
         "name": f"fused_update[{op}]",
         "route": "triton",
         "source": "src/repro_torch/kernels/fused_update/_triton.py",
@@ -426,7 +817,21 @@ def main() -> int:
         "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"],
         "library_ms": rec["library_ms"],
-    } for op, rec in per_stage.items()]}), flush=True)
+    } for op, rec in per_stage.items()]
+    records.append({
+        "name": "flash_attention[causal, f32, hd 64]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:99",
+        "launches": fa_launches,
+        "max_abs_err": fa["err"],
+        "ms": fa["ms"],
+        "plain_ms": fa["plain_ms"],
+        "bound_ms": fa["bound_ms"],
+        "bound_by": fa["bound_by"],
+        "library_ms": fa["library_ms"],
+    })
+    print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -6,10 +6,11 @@ registry (``repro.configs``) holds the rest of the zoo.
 
 from __future__ import annotations
 
-from . import qwen3_0p6b
+from . import h2o_danube_1p8b, qwen3_0p6b
 from .base import ModelConfig, pad_to
 
 _MODULES = {
+    "h2o-danube-1.8b": h2o_danube_1p8b,
     "qwen3-0.6b": qwen3_0p6b,
 }
 

@@ -1,0 +1,34 @@
+"""Public flash-attention entry point (the port of
+``repro/kernels/flash_attention/ops.py``), in the JAX package's layout.
+
+A tensor on the CPU takes the plain version (:func:`.ref.reference_attention`);
+a CUDA tensor launches the CUDA kernel (:func:`.kernel.flash_attention_launch`)
+or raises.  The kernel masks the ragged edge itself, so nothing is padded to
+a block multiple here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .kernel import flash_attention_launch
+from .ref import reference_attention
+
+__all__ = ["flash_attention"]
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, Sq, H, hd)
+    k: torch.Tensor,  # (B, Sk, Hkv, hd)
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+) -> torch.Tensor:
+    """Causal and/or sliding-window softmax attention with GQA (q head ``h``
+    reads kv head ``h // (H / Hkv)``); f32 inside, the output in q's dtype."""
+    if q.device.type == "cpu":
+        return reference_attention(q, k, v, causal=causal, window=window)
+    if q.device.type == "cuda":
+        return flash_attention_launch(q, k, v, causal=causal, window=window)
+    raise ValueError(f"flash_attention runs on CPU or CUDA tensors, got {q.device}")

@@ -1,12 +1,14 @@
 """Model assembly for the dense decoder-only LM (the port of
-``repro.models.transformer``, dense family, tensor-parallel degree 1).
+``repro.models.transformer``, dense family, tensor-parallel degree 1):
+the training forward and the serve path (cache, prefill, decode).
 
 Layers are organized into **block groups**: maximal runs of consecutive
 layers with the same (block kind, attention window).  Each group's params
 are stacked on a leading layer axis, as in the reference, so a JAX-built
-parameter tree converts leaf for leaf (:mod:`repro_torch.interop`).  Where
-the reference scans a group with ``lax.scan``, the port loops over the
-layers of the unbound stack.
+parameter tree converts leaf for leaf (:mod:`repro_torch.interop`); so is
+each group's serve cache, with a rolling ``window``-slot buffer for a
+sliding-window group.  Where the reference scans a group with
+``lax.scan``, the port loops over the layers of the unbound stack.
 """
 
 from __future__ import annotations
@@ -34,7 +36,35 @@ from .layers import (
 
 Tree = Any
 
-__all__ = ["GroupSpec", "block_groups", "init_params", "count_params", "forward_loss"]
+__all__ = [
+    "RuntimeConfig",
+    "GroupSpec",
+    "block_groups",
+    "init_params",
+    "count_params",
+    "forward_loss",
+    "init_cache",
+    "prefill",
+    "decode_step",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class RuntimeConfig:
+    """What the serve path reads of the reference's ``RuntimeConfig``."""
+
+    dtype: str = "bfloat16"  # activation/compute dtype
+    attn_impl: str = "torch"  # torch (plain) | cuda (the flash-attention kernel)
+    # decode attention: contract q-head groups against the raw KV cache
+    # (no (H/KV)-times K/V materialization)
+    decode_grouped_gqa: bool = False
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        dt = getattr(torch, self.dtype, None)
+        if not isinstance(dt, torch.dtype):
+            raise ValueError(f"unknown dtype {self.dtype!r}")
+        return dt
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,15 +139,27 @@ def count_params(params: Tree) -> int:
     return sum(t.numel() for t in tree_leaves(params))
 
 
-def _block_fwd(x, lp, cfg: ModelConfig, g: GroupSpec, positions):
+def _block_fwd(x, lp, cfg: ModelConfig, g: GroupSpec, positions, *,
+               attn_impl: str = "torch", serve: bool = False):
+    """One layer forward.  Returns ``x``, or with ``serve`` ``(x, (k, v))``:
+    the layer's kv over the whole sequence, for the serve cache."""
     nt = cfg.norm_type
     h = norm_apply(x, lp["attn_norm"], nt)
-    x = x + attn.attn_forward(h, lp["attn"], cfg, positions=positions, causal=True,
-                              window=g.window)
+    a = attn.attn_forward(h, lp["attn"], cfg, positions=positions, causal=True,
+                          window=g.window, attn_impl=attn_impl, return_kv=serve)
+    if serve:
+        a, kv = a
+    x = x + a
     if cfg.d_ff > 0:
         h2 = norm_apply(x, lp["mlp_norm"], nt)
         x = x + mlp_apply(h2, lp["mlp"], cfg.act)
-    return x
+    return (x, kv) if serve else x
+
+
+def _layers(group_params: Tree, count: int) -> list[Tree]:
+    """A layer-stacked group's params as one tree per layer (views)."""
+    split = tree_map(lambda t: t.unbind(0), group_params)
+    return [tree_map(lambda ts: ts[li], split) for li in range(count)]
 
 
 def forward_loss(params: Tree, batch: dict, cfg: ModelConfig):
@@ -130,9 +172,7 @@ def forward_loss(params: Tree, batch: dict, cfg: ModelConfig):
     x = embed_lookup(tokens, table)
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     for gi, g in enumerate(block_groups(cfg)):
-        layers = tree_map(lambda t: t.unbind(0), params["groups"][f"g{gi}"])
-        for li in range(g.count):
-            lp = tree_map(lambda ts: ts[li], layers)
+        for lp in _layers(params["groups"][f"g{gi}"], g.count):
             x = _block_fwd(x, lp, cfg, g, positions)
     x = norm_apply(x, params["final_norm"], cfg.norm_type)
     w = table.T if cfg.tie_embeddings else params["lm_head"]["w"]
@@ -141,3 +181,100 @@ def forward_loss(params: Tree, batch: dict, cfg: ModelConfig):
         logits.reshape(B * S, -1), batch["targets"].reshape(-1), vocab_size=cfg.vocab_size
     )
     return loss, {"xent": loss}
+
+
+# ---------------------------------------------------------------------------
+# Serving: cache init / prefill / decode
+# ---------------------------------------------------------------------------
+
+
+def _group_capacity(g: GroupSpec, target_len: int) -> int:
+    return min(g.window, target_len) if g.window > 0 else target_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, target_len: int, rt: RuntimeConfig,
+               device=None) -> Tree:
+    """Serve cache: one ``{"kv": ...}`` per block group (layer-stacked)."""
+    return {
+        f"g{gi}": {"kv": attn.init_kv_cache(cfg, g.count, batch,
+                                            _group_capacity(g, target_len), rt.cdtype,
+                                            device)}
+        for gi, g in enumerate(block_groups(cfg))
+    }
+
+
+def _roll_into_cache(k_full: torch.Tensor, v_full: torch.Tensor, cap: int) -> Tree:
+    """(Lg, B, S, KV, hd) full-sequence kv -> a ``cap``-slot rolling cache.
+
+    Slot j holds the largest position p < S with p % cap == j, or is empty
+    (pos -1; its k/v are position 0's, as in the reference's gather)."""
+    Lg, B, S = k_full.shape[:3]
+    j = torch.arange(cap, device=k_full.device)
+    p = cap * torch.div(S - 1 - j, cap, rounding_mode="floor") + j
+    p = torch.where((p >= 0) & (p < S), p, -1)
+    idx = torch.clamp(p, min=0)
+    return {
+        "k": k_full.index_select(2, idx),
+        "v": v_full.index_select(2, idx),
+        "pos": p.to(torch.int32)[None, None].expand(Lg, B, cap).contiguous(),
+    }
+
+
+def _embed(tokens, params, rt: RuntimeConfig):
+    return embed_lookup(tokens, params["embed"]["table"].to(rt.cdtype))
+
+
+def _logits(x, params, cfg: ModelConfig, rt: RuntimeConfig):
+    x = norm_apply(x, params["final_norm"], cfg.norm_type)
+    w = params["embed"]["table"].T if cfg.tie_embeddings else params["lm_head"]["w"]
+    return lm_head_logits(x[:, -1], w.to(rt.cdtype))
+
+
+def prefill(params: Tree, batch: dict, cfg: ModelConfig, rt: RuntimeConfig, *,
+            target_len: int | None = None):
+    """Full-sequence prefill of ``batch["tokens"]`` (B, S): returns the
+    last-token logits (B, Vp) and the serve cache for ``target_len``
+    positions (default S)."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    target_len = target_len or S
+    x = _embed(tokens, params, rt)
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    cache: Tree = {}
+    for gi, g in enumerate(block_groups(cfg)):
+        ks, vs = [], []
+        for lp in _layers(params["groups"][f"g{gi}"], g.count):
+            x, (k, v) = _block_fwd(x, lp, cfg, g, positions, attn_impl=rt.attn_impl,
+                                   serve=True)
+            ks.append(k)
+            vs.append(v)
+        cap = _group_capacity(g, target_len)
+        cache[f"g{gi}"] = {"kv": _roll_into_cache(torch.stack(ks), torch.stack(vs), cap)}
+        del ks, vs
+    return _logits(x, params, cfg, rt), cache
+
+
+def decode_step(params: Tree, tokens: torch.Tensor, cache: Tree, t, cfg: ModelConfig,
+                rt: RuntimeConfig, *, target_len: int):
+    """One-token decode.  tokens: (B, 1); ``t``: the new token's absolute
+    position, an int or a per-slot (B,) tensor (continuous batching serves
+    requests whose timelines are independent).  The cache is updated **in
+    place** (the reference donates it).  Returns ``(logits (B, Vp), cache)``."""
+    B = tokens.shape[0]
+    x = _embed(tokens, params, rt)
+    t = torch.as_tensor(t, device=x.device).to(torch.long).expand(B)
+    for gi, g in enumerate(block_groups(cfg)):
+        kv = cache[f"g{gi}"]["kv"]
+        if kv["k"].shape[2] != _group_capacity(g, target_len):
+            raise ValueError(f"cache group g{gi} holds {kv['k'].shape[2]} slots; "
+                             f"target_len {target_len} gives {_group_capacity(g, target_len)}")
+        for li, lp in enumerate(_layers(params["groups"][f"g{gi}"], g.count)):
+            h = norm_apply(x, lp["attn_norm"], cfg.norm_type)
+            layer_cache = {n: c[li] for n, c in kv.items()}
+            a, _ = attn.attn_decode_step(h, lp["attn"], layer_cache, cfg, t=t,
+                                         window=g.window, grouped=rt.decode_grouped_gqa)
+            x = x + a
+            if cfg.d_ff > 0:
+                h2 = norm_apply(x, lp["mlp_norm"], cfg.norm_type)
+                x = x + mlp_apply(h2, lp["mlp"], cfg.act)
+    return _logits(x, params, cfg, rt), cache

@@ -1,0 +1,234 @@
+"""Continuous-batching request scheduler over the serve step builders (the
+port of ``repro.serve.scheduler`` on one device).
+
+A request queue feeds a fixed set of in-flight **decode slots**; each
+engine tick admits waiting requests into free slots (one right-padded
+prefill for the admission wave, merged per slot into the live KV cache)
+and then advances every active slot one token in a single batched decode
+step with **per-slot positions** (request timelines are independent).
+Completed requests free their slot for the next admission.
+
+The slot mechanics are the reference's:
+
+* **Right-padded prefill.**  An admission wave pads prompts to the
+  engine's static ``max_prompt`` with token 0.  The pad tail *is* written
+  to the KV cache, but decode masks cache entries by true position
+  (``pos <= t``), so pad entries are invisible until the slot's timeline
+  reaches them — at which point the generated token overwrites exactly
+  that slot (the write slot is ``t % capacity``).
+* **First decode re-feeds the last prompt token.**  Prefill returns
+  logits for the padded last column, which is wrong for any prompt shorter
+  than ``max_prompt``; admission instead seeds the slot with
+  ``tokens[len-1]`` at ``t = len-1``.  The decode step rewrites position
+  ``len-1`` with identical k/v and returns the logits the first generated
+  token is sampled from — uniform for all lengths.
+* **Idle slots decode garbage.**  They run in the batch (the batch is the
+  fixed slot count) with ``t`` pinned to 0 and their outputs ignored;
+  admission replaces their entire per-slot cache under the admit mask.
+
+The reference's weight publisher (snapshot swaps between decode batches)
+is not ported yet: the engine serves one parameter tree.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig
+from ..models import transformer as T
+from ..train import serve as serve_mod
+from ..utils import resolve_device, tree_leaves, tree_map
+from .sampling import greedy_token
+
+Tree = Any
+
+__all__ = ["Request", "Completion", "ServeEngine"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Request:
+    rid: int
+    tokens: np.ndarray  # (len,) int32 prompt token ids
+    max_new_tokens: int
+
+
+@dataclasses.dataclass
+class Completion:
+    rid: int
+    tokens: np.ndarray  # (n_generated,) int32
+    submitted_s: float  # perf_counter timestamps
+    admitted_s: float
+    finished_s: float
+
+    @property
+    def latency_s(self) -> float:
+        return self.finished_s - self.submitted_s
+
+
+class ServeEngine:
+    """Continuous-batching serving engine (see module docstring).
+
+    ``slots`` is the decode batch size; ``max_prompt``/``max_new`` bound
+    request sizes, and the KV capacity is ``max_prompt + max_new`` so any
+    admissible request fits its slot.  ``params`` is the parameter tree
+    served (tensors, :func:`repro_torch.interop.from_numpy` converts a JAX
+    tree); it is moved to ``device`` (CUDA unless the caller passes a CPU
+    device).  ``runtime`` defaults to float32 with the plain attention, as
+    the reference engine's default runtime is float32.
+    """
+
+    def __init__(self, cfg: ModelConfig, *, slots: int, max_prompt: int, max_new: int,
+                 params: Tree, runtime: T.RuntimeConfig | None = None,
+                 eos_id: int | None = None, device=None):
+        self.device = resolve_device(device)
+        rt = runtime if runtime is not None else T.RuntimeConfig(dtype="float32")
+        self.cfg = cfg
+        self.slots = int(slots)
+        self.max_prompt = int(max_prompt)
+        self.max_new = int(max_new)
+        self.eos_id = eos_id
+        target_len = self.max_prompt + self.max_new
+        scfg = serve_mod.ServeConfig(runtime=rt, target_len=target_len)
+        self.prefill_step = serve_mod.build_prefill_step(cfg, scfg)
+        self.decode_step = serve_mod.build_decode_step(
+            cfg, scfg, target_len=target_len, per_slot_t=True
+        )
+        self._params = tree_map(lambda x: x.to(self.device), params)
+        self._cache: Tree | None = None
+
+        # per-slot bookkeeping (host side)
+        self._slot_req: list[Request | None] = [None] * self.slots
+        self._slot_gen: list[list[int]] = [[] for _ in range(self.slots)]
+        self._slot_admitted: list[float] = [0.0] * self.slots
+        self._slot_submitted: list[float] = [0.0] * self.slots
+        self._t = np.zeros(self.slots, np.int32)  # position of the fed token
+        self._feed = np.zeros(self.slots, np.int32)  # token to feed next
+        self._active = np.zeros(self.slots, bool)
+        self._queue: deque[tuple[Request, float]] = deque()
+        self.completions: list[Completion] = []
+
+        self.ticks = 0
+        self.decode_batches = 0
+        self.prefills = 0
+
+    # -- public API ---------------------------------------------------------
+
+    def submit(self, req: Request) -> None:
+        tokens = np.asarray(req.tokens, np.int32).reshape(-1)
+        if not 1 <= tokens.size <= self.max_prompt:
+            raise ValueError(f"request {req.rid}: prompt of {tokens.size} tokens, the "
+                             f"engine takes 1..{self.max_prompt}")
+        if not 1 <= req.max_new_tokens <= self.max_new:
+            raise ValueError(f"request {req.rid}: max_new_tokens {req.max_new_tokens}, the "
+                             f"engine takes 1..{self.max_new}")
+        self._queue.append((dataclasses.replace(req, tokens=tokens), time.perf_counter()))
+
+    @property
+    def pending(self) -> int:
+        return len(self._queue)
+
+    @property
+    def in_flight(self) -> int:
+        return int(self._active.sum())
+
+    @property
+    def idle(self) -> bool:
+        return not self._queue and not self._active.any()
+
+    def tick(self) -> bool:
+        """One engine step: admission, then one decode batch.  Returns False
+        when there was nothing to do (engine idle)."""
+        if self.idle:
+            return False
+        self.ticks += 1
+        with torch.inference_mode():
+            self._admit()
+            if self._active.any():
+                self._decode_batch()
+        return True
+
+    def run_until_drained(self, max_ticks: int = 100_000) -> list[Completion]:
+        for _ in range(max_ticks):
+            if not self.tick():
+                break
+        else:
+            raise RuntimeError(f"not drained after {max_ticks} ticks")
+        return self.completions
+
+    def stats(self) -> dict[str, Any]:
+        return {
+            "ticks": self.ticks,
+            "decode_batches": self.decode_batches,
+            "prefills": self.prefills,
+            "completed": len(self.completions),
+        }
+
+    # -- internals ----------------------------------------------------------
+
+    def _admit(self) -> None:
+        free = [i for i in range(self.slots) if not self._active[i]]
+        if not free or not self._queue:
+            return
+        toks = np.zeros((self.slots, self.max_prompt), np.int32)
+        admit = np.zeros(self.slots, bool)
+        now = time.perf_counter()
+        for i in free:
+            if not self._queue:
+                break
+            req, submitted = self._queue.popleft()
+            n = req.tokens.size
+            toks[i, :n] = req.tokens  # right-padded with token 0
+            admit[i] = True
+            self._slot_req[i] = req
+            self._slot_gen[i] = []
+            self._slot_submitted[i] = submitted
+            self._slot_admitted[i] = now
+            self._t[i] = n - 1
+            self._feed[i] = req.tokens[n - 1]
+        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        _, new_cache = self.prefill_step(self._params, batch)
+        self.prefills += 1
+        if self._cache is None:
+            self._cache = new_cache
+        else:
+            # keep the old per-slot cache except where admitted; every cache
+            # leaf is layer-stacked (Lg, B, ...) with the batch at axis 1
+            idx = torch.from_numpy(np.flatnonzero(admit)).to(self.device)
+            for old, new in zip(tree_leaves(self._cache), tree_leaves(new_cache)):
+                old[:, idx] = new[:, idx]
+        self._active |= admit
+
+    def _decode_batch(self) -> None:
+        tokens = torch.from_numpy(self._feed[:, None].copy()).to(self.device)
+        t = torch.from_numpy(np.where(self._active, self._t, 0).astype(np.int32))
+        logits, self._cache = self.decode_step(self._params, tokens, self._cache, t)
+        self.decode_batches += 1
+        nxt = greedy_token(logits).cpu().numpy()
+        now = time.perf_counter()
+        for i in range(self.slots):
+            if not self._active[i]:
+                continue
+            tok = int(nxt[i])
+            self._slot_gen[i].append(tok)
+            self._t[i] += 1
+            self._feed[i] = tok
+            req = self._slot_req[i]
+            done = len(self._slot_gen[i]) >= req.max_new_tokens or (
+                self.eos_id is not None and tok == self.eos_id
+            )
+            if done:
+                self.completions.append(Completion(
+                    rid=req.rid,
+                    tokens=np.asarray(self._slot_gen[i], np.int32),
+                    submitted_s=self._slot_submitted[i],
+                    admitted_s=self._slot_admitted[i],
+                    finished_s=now,
+                ))
+                self._active[i] = False
+                self._slot_req[i] = None
