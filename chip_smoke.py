@@ -35,16 +35,41 @@ result line):
    prefill; prefill ms per wave, decode ms per step, generated tokens/s,
    peak memory, and where the device time of one prefill wave and of two
    decode steps goes;
-8. the same engine at 4 layers with ``attn_impl="cuda"`` and ``"torch"``:
-   token-identical, or, where they part, the plain run's top-two logit gap
-   there is below the logit tolerance (a near tie);
+8. the same engine at 4 layers with ``attn_impl="cuda"`` (exactly 4
+   launches per wave) and ``"torch"``: token-identical, or, where they part,
+   the plain run's top-two logit gap there (read by the engine's
+   ``on_logits`` hook) is below the logit tolerance (a near tie);
 9. the flash kernel at the main-path shape timed beside its bound, its plain
-   version and ``scaled_dot_product_attention``.
+   version and ``scaled_dot_product_attention``;
+10. the CUDA ``mlstm_chunk`` kernel against its plain version on the card:
+    (B, H) in {(1, 1), (2, 3), (8, 4)} x S in {64, 128, 512, 2048} x chunk
+    {64, 128} x (dk, dv) in {(16, 16), (32, 48), (64, 64), (512, 512)} x
+    {f32, bf16} x three gate regimes (the reference test's; strongly
+    negative forget with large input gates, with q, k >= 0 and with signed
+    q, k: there the plain version sums the prefix sums of log f in the
+    kernel's order, and h's error against a float64 run is printed for the
+    kernel and for three f32 orders) x two layouts (contiguous, and the
+    strided views the mLSTM block passes), h, C, n and m compared; and the
+    main-path shape in both layouts;
+11. the xlstm-350m serve main path: ``ServeEngine`` at full width (24
+    layers: 20 mLSTM, 4 sLSTM; f32, random weights from seed 0), 8 slots,
+    ``max_prompt`` 2048, ``max_new`` 32, the 16 requests of phase 7 with
+    ``mlstm_impl="cuda"``: all complete and the kernel launched exactly 20
+    times per prefill wave; prefill ms per wave, decode ms per step,
+    generated tokens/s, peak memory, and where the device time of one
+    prefill wave and of two decode steps goes (the sLSTM recurrence's share
+    from its profiler span);
+12. the same engine at 6 layers (5 mLSTM, 1 sLSTM) with ``mlstm_impl``
+    "cuda" and "torch": token-identical, or parting only where the plain
+    run's own top-two logit gap is below the logit tolerance;
+13. the mLSTM kernel at the main-path shape timed beside its bound and its
+    plain version (no single PyTorch call computes chunked mLSTM).
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Triton kernels compile at first use into
-``build/triton`` inside the checkout; the CUDA kernel is built by nvcc into
-``build/cuda`` while phases 2-5 run.
+``build/triton`` inside the checkout; the two CUDA kernels are built by nvcc
+into ``build/cuda``, one nvcc each, both started at once while phases 2-5
+run.
 """
 
 from __future__ import annotations
@@ -85,6 +110,16 @@ SERVE = dict(arch="qwen3-0.6b", slots=8, max_prompt=2048, max_new=32, requests=1
 # kernel path vs plain path: where the generated tokens part, the plain
 # run's top-two logit gap there must be below this share of max |logit|
 LOGIT_RTOL = 1e-4
+# the xlstm-350m serve main path: the requests of SERVE on another model
+XSERVE_ARCH = "xlstm-350m"
+# mlstm_chunk, kernel vs plain version: the JAX package's mLSTM tolerance
+# (tests/test_kernels.py) in f32, 2e-2 in bf16 (one bf16 rounding of h), each
+# of the output's largest |value| where that exceeds 1 (at dk 512 h reaches
+# tens, and both versions sum 512-term dot products in f32 in other orders)
+ML_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+# the mLSTM main-path shape: one prefill wave of 8 slots x 4 heads, 2048
+# tokens, head dim 512, chunk 128
+ML_MAIN = dict(B=8, H=4, S=2048, dk=512, dv=512, chunk=128)
 
 
 def log(msg: str) -> None:
@@ -240,6 +275,8 @@ def _kernel_class(name: str) -> str:
         return "fused_update (Triton)"
     if "flash_fwd" in n:
         return "flash_attention (CUDA)"
+    if "mlstm_chunk" in n:
+        return "mlstm_chunk (CUDA)"
     if "gemm" in n or "cutlass" in n or "xmma" in n or "gemv" in n:
         return "matmul (cuBLAS)"
     if "softmax" in n or "reduce" in n or "norm" in n:
@@ -261,14 +298,17 @@ def _matmul_flops_per_step(cfg, n_nodes) -> float:
     return 3.0 * fwd * n_nodes
 
 
+# profiler ranges that also appear on the device timeline as annotations
+# (the scheduled profiler's steps, the port's named spans); not device work
+ANNOTATIONS = ("ProfilerStep", "slstm_recurrence")
+
+
 def _device_kernels(torch, events):
     """``({kernel name: [launches, ms]}, busy ms)`` from a profiler's events."""
     kernels: dict[str, list] = {}
     for e in events:
-        # the scheduled profiler also puts its "ProfilerStep#N" range on the
-        # device timeline; that is an annotation, not device work
         if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith(
-                "ProfilerStep"):
+                ANNOTATIONS):
             k = kernels.setdefault(e.name, [0, 0.0])
             k[0] += 1
             k[1] += e.time_range.elapsed_us() / 1e3
@@ -483,7 +523,7 @@ def phase_flash_vs_plain(torch, built):
 
     so, build_s = built
     log(f"phase 6: flash_attention CUDA kernel built by nvcc in {build_s:.1f}s ({so.name}); "
-        "ptxas: " + "; ".join(_ptxas_summary(so)))
+        "ptxas: " + "; ".join(_ptxas_summary(so, "flash_fwd_kernel")))
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst = {"float32": 0.0, "bfloat16": 0.0}
     n = 0
@@ -513,13 +553,14 @@ def phase_flash_vs_plain(torch, built):
         f"in {time.perf_counter() - t0:.1f}s")
 
 
-def _ptxas_summary(so):
-    """Registers and spills per kernel from the build's ``-Xptxas -v`` log."""
+def _ptxas_summary(so, entry):
+    """Registers and spills per kernel from the build's ``-Xptxas -v`` log;
+    ``entry`` is the kernel's name in the mangled signatures."""
     out, name = [], None
     for line in so.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in line:
             sig = line.split("'")[1]
-            name = sig[sig.find("flash_fwd_kernel"):].split("EEEv")[0]
+            name = sig[sig.find(entry):].split("EEEv")[0]
         elif "Used" in line and "registers" in line and name:
             out.append(f"{name}: {line.split(':', 1)[1].strip()}")
         elif "spill" in line and name and not line.strip().startswith("0 bytes stack"):
@@ -538,13 +579,15 @@ def _serve_requests(vocab):
                     max_new_tokens=SERVE["max_new"]) for i, n in enumerate(lens)]
 
 
-def _engine(torch, cfg, impl, params):
+def _engine(torch, cfg, params, on_logits=None, **runtime):
+    """The engine of the serve phases over ``params``, f32, with the runtime
+    options ``runtime`` (the kernel or the plain path)."""
     from repro_torch.models.transformer import RuntimeConfig
     from repro_torch.serve import ServeEngine
 
     return ServeEngine(cfg, slots=SERVE["slots"], max_prompt=SERVE["max_prompt"],
-                       max_new=SERVE["max_new"], params=params,
-                       runtime=RuntimeConfig(dtype="float32", attn_impl=impl))
+                       max_new=SERVE["max_new"], params=params, on_logits=on_logits,
+                       runtime=RuntimeConfig(dtype="float32", **runtime))
 
 
 def _timed(torch, fn, times):
@@ -577,20 +620,23 @@ def _serve_profile(torch, events, what, wall_ms, steps):
         log(f"  {ms / steps:8.2f} ms  {cnt // steps:5d} launches  {name[:90]}")
 
 
-def phase_serve_main_path(torch):
+def _serve_main_path(torch, cfg, phase, launch, reset, per_wave, profile_extra=None,
+                     **runtime):
+    """A serve main path: ``cfg`` at full width (f32, random weights from
+    seed 0) behind the engine with ``runtime``, the 16 requests of SERVE.
+    Checks that all complete and that the kernel wrapper ``launch`` (its
+    count set to 0 by ``reset``) launched exactly ``per_wave`` times per
+    prefill wave; prints prefill ms per wave, decode ms per step, generated
+    tokens/s and peak memory; then profiles one prefill wave
+    (``profile_extra(events)`` adds to its report) and two decode steps.
+    Returns the kernel's launches in the engine run."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.kernel import (
-        flash_attention_launch,
-        reset_launches,
-    )
     from repro_torch.models import transformer as T
 
-    cfg = get_config(SERVE["arch"])
     torch.cuda.reset_peak_memory_stats()
     params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
-    eng = _engine(torch, cfg, "cuda", params)
+    eng = _engine(torch, cfg, params, **runtime)
     prefill, decode = eng.prefill_step, eng.decode_step
     prefill_s, decode_s = [], []
     eng.prefill_step = _timed(torch, prefill, prefill_s)
@@ -598,34 +644,37 @@ def phase_serve_main_path(torch):
     reqs = _serve_requests(cfg.vocab_size)
     for r in reqs:
         eng.submit(r)
-    reset_launches()
+    reset()
     t0 = time.perf_counter()
     done = eng.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = flash_attention_launch.launches
+    launches = launch.launches
     st = eng.stats()
     peak = torch.cuda.max_memory_allocated()
     if sorted(c.rid for c in done) != list(range(len(reqs))):
-        raise RuntimeError(f"serve: {len(done)} of {len(reqs)} requests completed")
+        raise RuntimeError(f"{cfg.name} serve: {len(done)} of {len(reqs)} requests completed")
     if any(len(c.tokens) != SERVE["max_new"] for c in done):
-        raise RuntimeError("serve: a completion has the wrong length")
-    if launches != cfg.n_layers * st["prefills"]:
-        raise RuntimeError(f"flash_attention launched {launches} times, want "
-                           f"{cfg.n_layers} x {st['prefills']} prefills")
+        raise RuntimeError(f"{cfg.name} serve: a completion has the wrong length")
+    if launches != per_wave * st["prefills"]:
+        raise RuntimeError(f"{launch.__name__} launched {launches} times, want {per_wave} x "
+                           f"{st['prefills']} prefills")
     gen_tokens = sum(len(c.tokens) for c in done)
     prompt_tokens = sum(r.tokens.size for r in reqs)
-    n_params = T.count_params(params)
-    log(f"phase 7: serve qwen3-0.6b full width ({n_params:,} params, {cfg.n_layers} layers, "
-        f"f32), {SERVE['slots']} slots x max_prompt {SERVE['max_prompt']} + max_new "
-        f"{SERVE['max_new']}: {len(done)}/{len(reqs)} requests complete ({prompt_tokens} "
-        f"prompt tokens, {gen_tokens} generated), {st['prefills']} prefill waves, "
-        f"{st['decode_batches']} decode steps; flash_attention launches {launches} "
-        f"(= {cfg.n_layers} x {st['prefills']})")
+    counts = {}
+    for g in T.block_groups(cfg):
+        counts[g.kind] = counts.get(g.kind, 0) + g.count
+    kinds = ", ".join(f"{n} {k}" for k, n in counts.items())
+    log(f"phase {phase}: serve {cfg.name} full width ({T.count_params(params):,} params, "
+        f"{cfg.n_layers} layers: {kinds}; f32), {SERVE['slots']} slots x max_prompt "
+        f"{SERVE['max_prompt']} + max_new {SERVE['max_new']}: {len(done)}/{len(reqs)} requests "
+        f"complete ({prompt_tokens} prompt tokens, {gen_tokens} generated), {st['prefills']} "
+        f"prefill waves, {st['decode_batches']} decode steps; {launch.__name__} launches "
+        f"{launches} (= {per_wave} x {st['prefills']})")
     dec_ms = 1e3 * sum(decode_s) / len(decode_s)
-    log(f"serve main path: prefill {[round(1e3 * t, 1) for t in prefill_s]} ms per wave "
-        f"({SERVE['slots']} x {SERVE['max_prompt']} tokens each), decode {dec_ms:.2f} ms per "
-        f"step (mean of {len(decode_s)}; min {1e3 * min(decode_s):.2f}, max "
+    log(f"{cfg.name} serve main path: prefill {[round(1e3 * t, 1) for t in prefill_s]} ms per "
+        f"wave ({SERVE['slots']} x {SERVE['max_prompt']} tokens each), decode {dec_ms:.2f} ms "
+        f"per step (mean of {len(decode_s)}; min {1e3 * min(decode_s):.2f}, max "
         f"{1e3 * max(decode_s):.2f}), {gen_tokens / wall:.1f} generated tokens/s over the "
         f"{wall:.2f}s run, peak memory {peak / 2**30:.2f} GiB")
 
@@ -640,7 +689,11 @@ def phase_serve_main_path(torch):
         _, cache = prefill(params, batch)
         torch.cuda.synchronize()
         wave_ms = 1e3 * (time.perf_counter() - t)
-    _serve_profile(torch, prof.events(), "one prefill wave", wave_ms, 1)
+    events = prof.events()
+    _serve_profile(torch, events, f"one {cfg.name} prefill wave", wave_ms, 1)
+    if profile_extra is not None:
+        profile_extra(events)
+    del events, prof
     tok = batch["tokens"][:, -1:]
     tvec = torch.full((SERVE["slots"],), SERVE["max_prompt"] - 1, dtype=torch.int32)
     decode(params, tok, cache, tvec)
@@ -651,61 +704,27 @@ def phase_serve_main_path(torch):
             decode(params, tok, cache, tvec)
         torch.cuda.synchronize()
         steps_ms = 1e3 * (time.perf_counter() - t)
-    _serve_profile(torch, prof.events(), "two decode steps", steps_ms, 2)
+    _serve_profile(torch, prof.events(), f"two {cfg.name} decode steps", steps_ms, 2)
     del eng, params, cache
     torch.cuda.empty_cache()
     return launches
 
 
-def phase_serve_kernel_vs_plain(torch):
-    import dataclasses
-
-    import numpy as np
-
+def phase_serve_main_path(torch):
     from repro_torch.configs import get_config
-    from repro_torch.models import transformer as T
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_launch, reset_launches
+
+    cfg = get_config(SERVE["arch"])
+    return _serve_main_path(torch, cfg, 7, flash_attention_launch, reset_launches, cfg.n_layers,
+                            attn_impl="cuda")
+
+
+def phase_serve_kernel_vs_plain(torch):
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_launch, reset_launches
 
     depth = 4
-    cfg = dataclasses.replace(get_config(SERVE["arch"]), n_layers=depth)
-    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
-    reqs = _serve_requests(cfg.vocab_size)
-    out, wall = {}, {}
-    for impl in ("cuda", "torch"):
-        eng = _engine(torch, cfg, impl, params)
-        for r in reqs:
-            eng.submit(r)
-        t0 = time.perf_counter()
-        out[impl] = {c.rid: c.tokens for c in eng.run_until_drained()}
-        wall[impl] = time.perf_counter() - t0
-        del eng
-        torch.cuda.empty_cache()
-    parted = []
-    for r in reqs:
-        a, b = out["cuda"][r.rid], out["torch"][r.rid]
-        if (a == b).all():
-            continue
-        pos = int((a != b).argmax())
-        # the plain run's logits at that position: a prefill of the prompt
-        # and the plain run's tokens before it
-        seq = np.concatenate([r.tokens, b[:pos]])[None]
-        with torch.inference_mode():
-            logits, _ = T.prefill(params, {"tokens": torch.from_numpy(seq).cuda()}, cfg,
-                                  T.RuntimeConfig(dtype="float32", attn_impl="torch"))
-        top2 = torch.topk(logits[0].float(), 2).values
-        gap = float(top2[0] - top2[1]) / float(logits.abs().max())
-        log(f"  request {r.rid}: tokens part at generated position {pos} ({a[pos]} kernel vs "
-            f"{b[pos]} plain); plain top-two logit gap {gap:.3g} of max |logit|")
-        parted.append(gap)
-        if not gap < LOGIT_RTOL:
-            raise RuntimeError(f"request {r.rid}: kernel and plain paths part at position "
-                               f"{pos} where the plain top-two gap {gap:.3g} is not a near tie "
-                               f"(< {LOGIT_RTOL})")
-    log(f"phase 8: serve at {depth} layers, {len(reqs)} requests: kernel path == plain path "
-        f"token for token on {len(reqs) - len(parted)} of {len(reqs)} requests"
-        + (f", the other {len(parted)} part at near ties" if parted else "")
-        + f"; run {wall['cuda']:.2f}s kernel vs {wall['torch']:.2f}s plain")
-    del params
-    torch.cuda.empty_cache()
+    _serve_kernel_vs_plain(torch, 8, SERVE["arch"], depth, "attn_impl", flash_attention_launch,
+                           reset_launches, depth, f"{depth} layers")
 
 
 def phase_flash_timing(torch):
@@ -759,6 +778,390 @@ def phase_flash_timing(torch):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# xlstm-350m serving: the mlstm_chunk CUDA kernel and the engine (10-13)
+# ---------------------------------------------------------------------------
+
+
+def _ml_inputs(torch, B, H, S, dk, dv, dtype, regime, gen, layout="contiguous"):
+    """q, k, v (B, H, S, d) in ``dtype`` and f32 gates (B, H, S) on the card.
+    "reference": the JAX package's test inputs (q, k, v ~ N(0, 1), input
+    gate N(0, 1), forget gate 2 + N(0, 1)).  "stress": forget gate
+    -4 + 3 N(0, 1) (fast forgetting) and input gate 6 N(0, 1) (the
+    stabilizer m jumps with it), with q and k nonnegative (|N(0, 1)|), so
+    that the normalizer den is a sum of nonnegative terms and h = num / den
+    is well conditioned.  "signed stress": the same gates with signed q and
+    k, where den may cancel toward 0 (see :func:`_ml_compare`).  ``layout`` "model": views of (B, S, H, d) and
+    (B, S, H) tensors, strided as the mLSTM block hands them to the kernel
+    (seq stride H*d and H)."""
+    def randn(*tail):
+        if layout == "model":
+            return torch.randn(B, S, H, *tail, device="cuda", generator=gen).transpose(1, 2)
+        return torch.randn(B, H, S, *tail, device="cuda", generator=gen)
+
+    q, k, v = randn(dk), randn(dk), randn(dv)
+    if regime == "stress":
+        q, k = q.abs(), k.abs()
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    i, f = randn(), randn()
+    if regime in ("stress", "signed stress"):
+        i, f = 6.0 * i, -4.0 + 3.0 * f
+    else:
+        f = 2.0 + f
+    return q, k, v, i, f
+
+
+def _kernel_cumsum(x, dim=-1):
+    """The prefix sums of ``x`` (..., L <= 128) along the last dim in the
+    kernel's order of f32 additions: 32 lanes of 4 consecutive entries, each
+    lane summing its own in order, then an inclusive Hillis-Steele scan of
+    the lane totals (offsets 1, 2, ..., 16), each lane's entries offset by
+    the exclusive total before it."""
+    import torch
+
+    if dim not in (-1, x.ndim - 1) or x.shape[-1] > 128:
+        raise ValueError(f"the kernel's order sums a last dim of at most 128, got {dim}, "
+                         f"{tuple(x.shape)}")
+    L = x.shape[-1]
+    pad = torch.zeros(*x.shape[:-1], 128, dtype=x.dtype, device=x.device)
+    pad[..., :L] = x
+    lanes = pad.reshape(*x.shape[:-1], 32, 4)
+    run, part = torch.zeros_like(lanes[..., 0]), []
+    for j in range(4):
+        run = run + lanes[..., j]
+        part.append(run)
+    incl, off = run, 1
+    while off < 32:
+        shifted = torch.zeros_like(incl)
+        shifted[..., off:] = incl[..., :-off]
+        incl = torch.where(torch.arange(32, device=x.device) >= off, incl + shifted, incl)
+        off *= 2
+    excl = torch.zeros_like(incl)
+    excl[..., 1:] = incl[..., :-1]
+    return torch.stack([excl + p for p in part], dim=-1).reshape(*x.shape[:-1], 128)[..., :L]
+
+
+def _f64_cumsum(x, dim=-1):
+    """The prefix sums summed in float64, then rounded once to x's dtype."""
+    import torch
+
+    return torch.cumsum(x.to(torch.float64), dim).to(x.dtype)
+
+
+def _ml_compare(torch, args, chunk, what, witness=None):
+    """The kernel against its plain version on the same inputs; raises past
+    ML_TOL (of max(1, the output's largest |value|)).  Returns (worst error
+    over h, C, n, m relative to that scale, worst absolute error).
+
+    With ``witness`` (a list; the signed-stress cases, where den = q.n +
+    sum(w) may cancel toward 0 and h then amplifies the rounding of the
+    prefix sums b = cumsum(log f), which stand ~100s where the chunk forgets
+    fast), the plain version runs with the kernel's own order of those
+    additions (:func:`_kernel_cumsum`), so that the comparison holds the
+    rest of the kernel's arithmetic at ML_TOL.  It then appends (what,
+    dtype, |kernel - f64|, |plain - f64|, |plain in the kernel's order - f64|,
+    |plain with b rounded from f64 - f64|) of h, each of max(1, the f64 h's
+    largest |value|), f64 being the plain version run in float64."""
+    from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunk_launch
+    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunked
+
+    h, st = mlstm_chunk_launch(*args, chunk=chunk)
+    order = {} if witness is None else {"cumsum": _kernel_cumsum}
+    hr, sr = mlstm_chunked(*args, chunk=chunk, **order)
+    torch.cuda.synchronize()
+    tol = ML_TOL[str(args[0].dtype).split(".")[-1]]
+    rel = err_abs = 0.0
+    for name, got, want in (("h", h, hr), ("C", st["C"], sr["C"]), ("n", st["n"], sr["n"]),
+                            ("m", st["m"], sr["m"])):
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise RuntimeError(f"mlstm_chunk {what}: {name} is {got.dtype} {tuple(got.shape)}, "
+                               f"the plain version's {want.dtype} {tuple(want.shape)}")
+        g, w = got.float(), want.float()
+        err = float((g - w).abs().max())
+        scale = max(1.0, float(w.abs().max()))
+        if not err <= tol * scale:  # also catches NaN
+            raise RuntimeError(f"mlstm_chunk kernel != plain version ({what}): {name} max |diff| "
+                               f"{err:.3g} > {tol} x {scale:.3g}")
+        rel, err_abs = max(rel, err / scale), max(err_abs, err)
+    if witness is not None:
+        wide, _ = mlstm_chunked(*(a.double() for a in args), chunk=chunk)
+        plain, _ = mlstm_chunked(*args, chunk=chunk)
+        rounded, _ = mlstm_chunked(*args, chunk=chunk, cumsum=_f64_cumsum)
+        w_scale = max(1.0, float(wide.abs().max()))
+        witness.append((what, str(args[0].dtype).split(".")[-1],
+                        *(float((x.double() - wide).abs().max()) / w_scale
+                          for x in (h, plain, hr, rounded))))
+    return rel, err_abs
+
+
+def phase_mlstm_vs_plain(torch, built):
+    import itertools
+
+    so, build_s = built
+    log(f"phase 10: mlstm_chunk CUDA kernel built by nvcc in {build_s:.1f}s ({so.name}); "
+        "ptxas: " + "; ".join(_ptxas_summary(so, "mlstm_chunk_fwd_kernel")))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    witness = []
+    seen = set()
+    t0 = time.perf_counter()
+    for (B, H), S, chunk, (dk, dv), dt, regime, layout in itertools.product(
+            ((1, 1), (2, 3), (8, 4)), (64, 128, 512, 2048), (64, 128),
+            ((16, 16), (32, 48), (64, 64), (512, 512)), (torch.float32, torch.bfloat16),
+            ("reference", "stress", "signed stress"), ("contiguous", "model")):
+        case = (B, H, S, min(chunk, S), dk, dv, dt, regime, layout)
+        if case in seen:  # S = 64 takes chunk 64 either way
+            continue
+        seen.add(case)
+        args = _ml_inputs(torch, B, H, S, dk, dv, dt, regime, gen, layout)
+        rel, _ = _ml_compare(torch, args, case[3], f"B={B} H={H} S={S} chunk={case[3]} dk={dk} "
+                                                   f"dv={dv} {dt} {regime} {layout}",
+                             witness if regime == "signed stress" else None)
+        key = str(dt).split(".")[-1]
+        worst[key] = max(worst[key], rel)
+        del args
+    torch.cuda.empty_cache()
+    m = ML_MAIN
+    main = {}
+    for layout in ("contiguous", "model"):
+        main[layout] = _ml_compare(
+            torch, _ml_inputs(torch, m["B"], m["H"], m["S"], m["dk"], m["dv"], torch.float32,
+                              "reference", gen, layout), m["chunk"], f"main-path shape, {layout}")
+        torch.cuda.empty_cache()
+    log(f"phase 10: mlstm_chunk kernel == plain version on {len(seen)} cases ((B, H) in "
+        f"{{(1, 1), (2, 3), (8, 4)}} x S in {{64, 128, 512, 2048}} x chunk {{64, 128}} x "
+        f"(dk, dv) in {{(16, 16), (32, 48), (64, 64), (512, 512)}} x {{f32, bf16}} x gates "
+        f"{{reference, stress, signed stress}} x layout {{contiguous, model}}; worst max |diff| "
+        f"/ max(1, scale) over h, C, n, m: f32 "
+        f"{worst['float32']:.3g} (tol {ML_TOL['float32']}), bf16 {worst['bfloat16']:.3g} (tol "
+        f"{ML_TOL['bfloat16']})) and at the main-path shape {tuple(m.values())} f32: "
+        + ", ".join(f"{lay} {r:.3g} relative, {e:.3g} absolute" for lay, (r, e) in main.items())
+        + f"; in {time.perf_counter() - t0:.1f}s")
+    # the signed-stress cases against the plain version in float64: h's
+    # error in the kernel and in three f32 orders of the prefix sums
+    within = sum(w[2] <= max(w[3:]) for w in witness)
+    ratio = max(witness, key=lambda w: w[2] / max(max(w[3:]), 1e-30))
+    log(f"phase 10: signed stress, {len(witness)} cases (held above against the plain version "
+        f"in the kernel's order of the prefix sums b): h's max |error| against the plain "
+        f"version in float64, of max(1, scale), as kernel; plain (torch.cumsum); plain in the "
+        f"kernel's order; plain with b rounded from f64. The kernel's error is at most the "
+        f"largest of the three plain orders' on {within} of {len(witness)} cases (largest "
+        f"ratio {ratio[2] / max(max(ratio[3:]), 1e-30):.3g}, {ratio[0]}). The five largest in "
+        f"f32 (bf16's are its rounding of h):")
+    f32 = [w for w in witness if w[1] == "float32"]
+    for what, _, k_err, p_err, o_err, r_err in sorted(f32, key=lambda w: -w[2])[:5]:
+        log(f"  {what}: {k_err:.3g}; {p_err:.3g}; {o_err:.3g}; {r_err:.3g}")
+
+
+def _span_report(torch, events, span, what, steps):
+    """Device time and launches of the kernels launched inside the profiler
+    span ``span`` (its ops' kernels, the span's own device annotation
+    left out)."""
+    # the span's CPU range (its copy on the device timeline is an annotation)
+    spans = [e for e in events if e.name == span
+             and e.device_type == torch.autograd.DeviceType.CPU]
+
+    def walk(e):
+        ks = [k for k in e.kernels if not k.name.startswith(ANNOTATIONS)]
+        ms, n = sum(k.duration for k in ks) / 1e3, len(ks)
+        for c in e.cpu_children:
+            cms, cn = walk(c)
+            ms, n = ms + cms, n + cn
+        return ms, n
+
+    ms = n = 0
+    for e in spans:
+        sms, sn = walk(e)
+        ms, n = ms + sms, n + sn
+    if not spans or ms <= 0.0:
+        log(f"  {span}: not measured (the profiler attributed no device time to "
+            f"{len(spans)} spans)")
+        return
+    log(f"  of which inside the {len(spans) // steps} {span} spans per call ({what}): "
+        f"{ms / steps:.2f} ms device time, {n // steps} launches")
+
+
+def phase_xlstm_serve_main_path(torch):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunk_launch, reset_launches
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(XSERVE_ARCH)
+
+    def extra(events):
+        # the projections: the matmul kernels with few launches (the sLSTM's
+        # per-step recurrent products launch thousands of times)
+        kernels, _ = _device_kernels(torch, events)
+        big = {n: v for n, v in kernels.items() if _kernel_class(n) == "matmul (cuBLAS)"
+               and v[0] < 1000}
+        big_ms = sum(v[1] for v in big.values())
+        flops = _xlstm_matmul_flops(cfg, SERVE["slots"] * SERVE["max_prompt"])
+        log(f"  projection matmuls: {flops / 1e12:.2f} TFLOP per wave (from the shapes) in "
+            f"{big_ms:.1f} ms of {sum(v[0] for v in big.values())} launches: "
+            f"{flops / big_ms / 1e9:.1f} TFLOP/s of the 67 f32 peak")
+        _span_report(torch, events, "slstm_recurrence", "the sLSTM layers' time loops", 1)
+
+    n_mlstm = sum(g.count for g in T.block_groups(cfg) if g.kind == "mlstm")
+    return _serve_main_path(torch, cfg, 11, mlstm_chunk_launch, reset_launches, n_mlstm, extra,
+                            mlstm_impl="cuda")
+
+
+def _xlstm_matmul_flops(cfg, tokens) -> float:
+    """Projection flops of an xLSTM prefill over ``tokens`` tokens: per mLSTM
+    layer up, gate, q, k, v, the two gate projections and down; per sLSTM
+    layer the input and output projections (its recurrent product runs per
+    step, apart; prefill takes the logits of the last token only)."""
+    d, H = cfg.d_model, cfg.n_heads
+    di = int(cfg.proj_factor * d)
+    mlstm = 2 * d * di + 3 * di * di + 2 * di * H + di * d
+    slstm = d * 4 * d + d * d
+    n_s = len(cfg.slstm_layers())
+    return 2.0 * tokens * ((cfg.n_layers - n_s) * mlstm + n_s * slstm)
+
+
+def _record_gaps(torch, steps):
+    """An engine ``on_logits`` hook: each decode step's top-two logit gap per
+    slot (a share of the row's max |logit|, left on the device) and the
+    (request id, index of the generated token) of each active row, appended
+    to ``steps``; :func:`_gaps` reads them after the run."""
+    def hook(logits, rows):
+        lg = logits.float()
+        top2 = torch.topk(lg, 2, dim=-1).values
+        steps.append((rows, (top2[:, 0] - top2[:, 1]) / lg.abs().amax(dim=-1)))
+    return hook
+
+
+def _gaps(steps):
+    """{(request id, index of the generated token): top-two gap} of a run."""
+    out = {}
+    for rows, rel in steps:
+        rel = rel.tolist()
+        out.update({key: rel[i] for i, key in rows.items()})
+    return out
+
+
+def _serve_kernel_vs_plain(torch, phase, arch, depth, field, launch, reset, per_wave, what):
+    """The serve engine on ``arch`` cut to ``depth`` layers (full width, f32,
+    random weights from seed 0), the 16 requests of SERVE, once with the
+    runtime option ``field`` = "cuda" (the kernel wrapper ``launch`` must run
+    exactly ``per_wave`` times per prefill wave) and once = "torch" (never).
+    The tokens must match, or part only where the plain run's own top-two
+    logit gap is below LOGIT_RTOL (a near tie), read by the engine's
+    ``on_logits`` hook behind every generated token."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=depth)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    reqs = _serve_requests(cfg.vocab_size)
+    out, wall, steps = {}, {}, []
+    for impl in ("cuda", "torch"):
+        hook = _record_gaps(torch, steps) if impl == "torch" else None
+        eng = _engine(torch, cfg, params, on_logits=hook, **{field: impl})
+        for r in reqs:
+            eng.submit(r)
+        reset()
+        t0 = time.perf_counter()
+        out[impl] = {c.rid: c.tokens for c in eng.run_until_drained()}
+        torch.cuda.synchronize()
+        wall[impl] = time.perf_counter() - t0
+        want = per_wave * eng.stats()["prefills"] if impl == "cuda" else 0
+        if launch.launches != want:
+            raise RuntimeError(f"{field}={impl}: {launch.launches} {launch.__name__} launches, "
+                               f"want {want}")
+        del eng
+        torch.cuda.empty_cache()
+    gaps = _gaps(steps)
+    parted = []
+    for r in reqs:
+        a, b = out["cuda"][r.rid], out["torch"][r.rid]
+        if (a == b).all():
+            continue
+        pos = int((a != b).argmax())
+        gap = gaps[(r.rid, pos)]
+        log(f"  request {r.rid}: tokens part at generated position {pos} ({a[pos]} kernel vs "
+            f"{b[pos]} plain); plain top-two logit gap {gap:.3g} of max |logit|")
+        parted.append(gap)
+        if not gap < LOGIT_RTOL:
+            raise RuntimeError(f"request {r.rid}: kernel and plain paths part at position "
+                               f"{pos} where the plain top-two gap {gap:.3g} is not a near tie "
+                               f"(< {LOGIT_RTOL})")
+    log(f"phase {phase}: {arch} serve at {what}, {len(reqs)} requests: kernel path == plain "
+        f"path token for token on {len(reqs) - len(parted)} of {len(reqs)} requests"
+        + (f", the other {len(parted)} part at near ties" if parted else "")
+        + f" (smallest plain top-two gap {min(gaps.values()):.3g}); {launch.__name__} "
+        f"launches {per_wave} per wave; run {wall['cuda']:.2f}s kernel vs {wall['torch']:.2f}s "
+        "plain")
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_xlstm_kernel_vs_plain(torch):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunk_launch, reset_launches
+    from repro_torch.models import transformer as T
+
+    depth = 6  # layers 0-4 mLSTM, layer 5 sLSTM
+    groups = T.block_groups(dataclasses.replace(get_config(XSERVE_ARCH), n_layers=depth))
+    n_mlstm = sum(g.count for g in groups if g.kind == "mlstm")
+    _serve_kernel_vs_plain(torch, 12, XSERVE_ARCH, depth, "mlstm_impl", mlstm_chunk_launch,
+                           reset_launches, n_mlstm,
+                           f"{depth} layers ({n_mlstm} mLSTM, {depth - n_mlstm} sLSTM)")
+
+
+def _ml_bound(q, v, chunk):
+    """(bound ms, bound_by, flops, bytes, recurrent flops) for one call.
+    Multiply-adds per (batch, head) and chunk of L rows: the causal lower
+    triangle of the scores and of w.v, L(L+1)/2 * (dk + dv), + 2*L*dk*dv (q.C
+    and the state update) + L*dk (q.n); each of q, k, v, h and the gates
+    moved once, the final C, n and m written once.  Beside it, the
+    recurrent form's 2*S*dk*dv multiply-adds per (batch, head) (C updated
+    and read once per token), the least work the cell can be done in."""
+    B, H, S, dk = q.shape
+    dv = v.shape[-1]
+    L = chunk
+    macs = B * H * (S // L) * (L * (L + 1) // 2 * (dk + dv) + 2 * L * dk * dv + L * dk)
+    nbytes = (q.element_size() * B * H * S * (2 * dk + 2 * dv) + 4 * 2 * B * H * S
+              + 4 * B * H * (dk * dv + dk + 1))
+    return (*_bound(nbytes, 2 * macs), 2 * macs, nbytes, 2 * 2 * B * H * S * dk * dv)
+
+
+def phase_mlstm_timing(torch):
+    """The kernel at the serve main path's shape: its time, bound and plain
+    version.  No single PyTorch call computes chunked mLSTM, so there is no
+    library time."""
+    from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunk_launch
+    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunked
+
+    m = ML_MAIN
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    args = _ml_inputs(torch, m["B"], m["H"], m["S"], m["dk"], m["dv"], torch.float32,
+                      "reference", gen)
+    _, err = _ml_compare(torch, args, m["chunk"], "timing inputs")
+    ms = _time_ms(torch, lambda: mlstm_chunk_launch(*args, chunk=m["chunk"]), 10)
+    plain_ms = _time_ms(torch, lambda: mlstm_chunked(*args, chunk=m["chunk"]), 3)
+    bound_ms, by, flops, nbytes, rec_flops = _ml_bound(args[0], args[2], m["chunk"])
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout.strip().splitlines()[0]
+    log(f"phase 13: mlstm_chunk at the main-path shape q/k/v {tuple(args[0].shape)}, chunk "
+        f"{m['chunk']}, f32 ({smi}): kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), bound "
+        f"{bound_ms:.3f} ms by {by} ({flops / 1e9:.2f} GFLOP, the causal triangle, / 67 "
+        f"TFLOP/s; {nbytes / 1e9:.3f} GB / 3.35 TB/s = {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms; "
+        f"{bound_ms / ms:.1%} of bound; the recurrent form's {rec_flops / 1e9:.2f} GFLOP would "
+        f"take {rec_flops / F32_FLOP_PER_S * 1e3:.3f} ms), "
+        f"plain version {plain_ms:.3f} ms, library: none (no single PyTorch call computes "
+        f"chunked mLSTM); max |kernel - plain| {err:.3g}")
+    del args
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": by, "err": err}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -773,7 +1176,8 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
         return 2
-    from repro_torch.kernels.flash_attention.kernel import build
+    from repro_torch.kernels.flash_attention.kernel import build as build_flash
+    from repro_torch.kernels.mlstm_chunk.kernel import build as build_mlstm
 
     t0 = time.perf_counter()
     phases = {}
@@ -784,27 +1188,33 @@ def main() -> int:
         phases[name] = round(time.perf_counter() - t, 1)
         return out
 
-    def build_timed():
+    def build_timed(build):
         t = time.perf_counter()
         return build(), time.perf_counter() - t
 
-    # nvcc builds the CUDA kernel while the Triton phases run
-    with ThreadPoolExecutor(1) as pool:
-        built = pool.submit(build_timed)
+    # nvcc builds the two CUDA kernels, one process each, while the Triton
+    # phases run
+    with ThreadPoolExecutor(2) as pool:
+        fa_built = pool.submit(build_timed, build_flash)
+        ml_built = pool.submit(build_timed, build_mlstm)
         timed("1 device", phase_device)
         timed("2 fused_update vs plain", phase_kernel_vs_plain)
         launches = timed("3 train main path", phase_main_path)
         timed("4 train kernel vs plain path", phase_plain_vs_kernel_path)
         per_stage = timed("5 fused_update timing", phase_timing)
-        built = built.result()
-    timed("6 flash_attention vs plain", phase_flash_vs_plain, built)
+        fa_built, ml_built = fa_built.result(), ml_built.result()
+    timed("6 flash_attention vs plain", phase_flash_vs_plain, fa_built)
     fa_launches = timed("7 serve main path", phase_serve_main_path)
     timed("8 serve kernel vs plain path", phase_serve_kernel_vs_plain)
     fa = timed("9 flash_attention timing", phase_flash_timing)
+    timed("10 mlstm_chunk vs plain", phase_mlstm_vs_plain, ml_built)
+    ml_launches = timed("11 xlstm serve main path", phase_xlstm_serve_main_path)
+    timed("12 xlstm kernel vs plain path", phase_xlstm_kernel_vs_plain)
+    ml = timed("13 mlstm_chunk timing", phase_mlstm_timing)
     log(f"phase times (s): {phases}; total {time.perf_counter() - t0:.1f}s")
     # one record per specialization of the Triton kernel on the training main
-    # path (times per step, summed over the 14 leaves), and the flash kernel
-    # at the serve main path's prefill shape (times per call)
+    # path (times per step, summed over the 14 leaves), and the flash and
+    # mLSTM kernels at their serve main paths' prefill shapes (times per call)
     records = [{
         "name": f"fused_update[{op}]",
         "route": "triton",
@@ -830,6 +1240,19 @@ def main() -> int:
         "bound_ms": fa["bound_ms"],
         "bound_by": fa["bound_by"],
         "library_ms": fa["library_ms"],
+    })
+    records.append({
+        "name": "mlstm_chunk[f32, dk = dv = 512, chunk 128]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/mlstm_chunk/csrc/mlstm_chunk.cu",
+        "replaces": "src/repro/kernels/mlstm_chunk/kernel.py:99",
+        "launches": ml_launches,
+        "max_abs_err": ml["err"],
+        "ms": ml["ms"],
+        "plain_ms": ml["plain_ms"],
+        "bound_ms": ml["bound_ms"],
+        "bound_by": ml["bound_by"],
+        "library_ms": ml["library_ms"],
     })
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,12 +6,13 @@ registry (``repro.configs``) holds the rest of the zoo.
 
 from __future__ import annotations
 
-from . import h2o_danube_1p8b, qwen3_0p6b
+from . import h2o_danube_1p8b, qwen3_0p6b, xlstm_350m
 from .base import ModelConfig, pad_to
 
 _MODULES = {
     "h2o-danube-1.8b": h2o_danube_1p8b,
     "qwen3-0.6b": qwen3_0p6b,
+    "xlstm-350m": xlstm_350m,
 }
 
 ARCHS: dict[str, ModelConfig] = {k: m.CONFIG for k, m in _MODULES.items()}

@@ -3,25 +3,21 @@
 bounds it and how it is designed).
 
 The source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
-a plain C interface and loaded with :mod:`ctypes`, at the first launch (never
-at import): this module imports on hosts without ``nvcc`` or a card.  The
-library goes to ``build/cuda/`` at the root of the checkout, named by a hash
-of the source and the flags, so a changed source builds anew and an
-unchanged one is built once per checkout.
+a plain C interface (:mod:`..cuda_build`) and loaded with :mod:`ctypes`, at
+the first launch (never at import): this module imports on hosts without
+``nvcc`` or a card.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 
 import torch
+
+from .. import cuda_build
 
 __all__ = [
     "HEAD_DIMS", "SOURCES", "build", "flash_attention_launch", "reset_launches",
@@ -29,8 +25,6 @@ __all__ = [
 
 HEAD_DIMS = (64, 80, 128)
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
 
@@ -39,43 +33,13 @@ _lib: ctypes.CDLL | None = None
 
 
 def _build_dir() -> Path:
-    # src/repro_torch/kernels/flash_attention -> the checkout root
-    return Path(__file__).resolve().parents[4] / "build" / "cuda"
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
-                       "flash-attention kernel is built from its CUDA source at first use")
+    return cuda_build.default_build_dir()
 
 
 def build() -> Path:
-    """Compile the kernel's source into ``build/cuda/`` unless a library built
-    from the same source and flags is there; returns the library's path.  The
-    compiler's report (``-Xptxas -v``: registers, shared memory, spills) is
-    kept beside it as ``<name>.log``."""
-    h = hashlib.sha256()
-    for src in SOURCES:
-        h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    out = _build_dir() / f"flash_attention-{h.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
-    os.replace(tmp, out)
-    return out
+    """Compile the kernel's source into ``build/cuda/flash_attention-<hash>.so``
+    unless it is built already; returns the library's path."""
+    return cuda_build.build_library("flash_attention", SOURCES, _build_dir())
 
 
 def _load() -> ctypes.CDLL:

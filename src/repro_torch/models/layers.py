@@ -51,6 +51,9 @@ class Initializer:
     def zeros(self, shape, dtype=torch.float32) -> torch.Tensor:
         return torch.zeros(shape, dtype=dtype, device=self.device)
 
+    def ones(self, shape, dtype=torch.float32) -> torch.Tensor:
+        return torch.ones(shape, dtype=dtype, device=self.device)
+
 
 # ---------------------------------------------------------------------------
 # Norms

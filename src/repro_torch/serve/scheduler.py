@@ -35,6 +35,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
+from collections.abc import Callable
 from typing import Any
 
 import numpy as np
@@ -80,12 +81,17 @@ class ServeEngine:
     served (tensors, :func:`repro_torch.interop.from_numpy` converts a JAX
     tree); it is moved to ``device`` (CUDA unless the caller passes a CPU
     device).  ``runtime`` defaults to float32 with the plain attention, as
-    the reference engine's default runtime is float32.
+    the reference engine's default runtime is float32.  ``on_logits``, if
+    given, sees every decode step's logits ``(slots, vocab)`` with a dict
+    that maps each active slot to ``(request id, index of the generated
+    token its row yields)``; it observes and changes nothing.
     """
 
     def __init__(self, cfg: ModelConfig, *, slots: int, max_prompt: int, max_new: int,
                  params: Tree, runtime: T.RuntimeConfig | None = None,
-                 eos_id: int | None = None, device=None):
+                 eos_id: int | None = None, device=None,
+                 on_logits: Callable[[torch.Tensor, dict[int, tuple[int, int]]], None]
+                 | None = None):
         self.device = resolve_device(device)
         rt = runtime if runtime is not None else T.RuntimeConfig(dtype="float32")
         self.cfg = cfg
@@ -93,6 +99,7 @@ class ServeEngine:
         self.max_prompt = int(max_prompt)
         self.max_new = int(max_new)
         self.eos_id = eos_id
+        self.on_logits = on_logits
         target_len = self.max_prompt + self.max_new
         scfg = serve_mod.ServeConfig(runtime=rt, target_len=target_len)
         self.prefill_step = serve_mod.build_prefill_step(cfg, scfg)
@@ -209,6 +216,9 @@ class ServeEngine:
         t = torch.from_numpy(np.where(self._active, self._t, 0).astype(np.int32))
         logits, self._cache = self.decode_step(self._params, tokens, self._cache, t)
         self.decode_batches += 1
+        if self.on_logits is not None:
+            self.on_logits(logits, {i: (self._slot_req[i].rid, len(self._slot_gen[i]))
+                                    for i in range(self.slots) if self._active[i]})
         nxt = greedy_token(logits).cpu().numpy()
         now = time.perf_counter()
         for i in range(self.slots):
