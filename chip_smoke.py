@@ -24,10 +24,13 @@ result line):
    version, then timed beside its bound (the larger of bytes / 3.35 TB/s and
    f32 operations / 67 TFLOP/s), the plain version's time and, where one
    PyTorch call computes the stage, that call's time;
-6. the CUDA ``flash_attention`` kernel against its plain version on the
-   card: causal x window {0, 100} x GQA group {1, 2, 4} x hd {64, 80, 128} x
-   ragged Sq, Sk in {1, 77, 300} x {f32, bf16}, and the two main-path shapes
-   (qwen3-0.6b prefill, h2o-danube-1.8b with its 4096 window);
+6. the CUDA ``flash_attention`` kernel: per specialization, its registers,
+   shared memory and spills (ptxas; a spill fails the phase) and its count of
+   tensor-core instructions (HMMA, from ``cuobjdump -sass``); then against
+   its plain version on the card: causal x window {0, 100} x GQA group
+   {1, 2, 4} x hd {64, 80, 128} x ragged Sq, Sk in {1, 77, 300} x {f32,
+   bf16}, and the two main-path shapes (qwen3-0.6b prefill, h2o-danube-1.8b
+   with its 4096 window);
 7. the serve main path: ``repro_torch.serve.ServeEngine`` on qwen3-0.6b at
    full width (28 layers, f32, random weights from seed 0), 8 slots,
    ``max_prompt`` 2048, ``max_new`` 32, 16 requests of 256..2048 prompt
@@ -39,9 +42,14 @@ result line):
    launches per wave) and ``"torch"``: token-identical, or, where they part,
    the plain run's top-two logit gap there (read by the engine's
    ``on_logits`` hook) is below the logit tolerance (a near tie);
-9. the flash kernel at the main-path shape timed beside its bound, its plain
-   version and ``scaled_dot_product_attention``;
-10. the CUDA ``mlstm_chunk`` kernel against its plain version on the card:
+9. the flash kernel at the main-path shape timed beside its bound (the
+   larger of bytes / 3.35 TB/s and 3 x flops / 494.7 TFLOP/s: its products
+   are 3xTF32 on the tensor cores), the f32 FFMA bound of the SIMT kernel it
+   replaced (flops / 67 TFLOP/s), its plain version and
+   ``scaled_dot_product_attention``;
+10. the CUDA ``mlstm_chunk`` kernel's three passes (gate scan, chunk states,
+    outputs): the build report of phase 6; then against its plain version on
+    the card:
     (B, H) in {(1, 1), (2, 3), (8, 4)} x S in {64, 128, 512, 2048} x chunk
     {64, 128} x (dk, dv) in {(16, 16), (32, 48), (64, 64), (512, 512)} x
     {f32, bf16} x three gate regimes (the reference test's; strongly
@@ -49,8 +57,11 @@ result line):
     q, k: there the plain version sums the prefix sums of log f in the
     kernel's order, and h's error against a float64 run is printed for the
     kernel and for three f32 orders) x two layouts (contiguous, and the
-    strided views the mLSTM block passes), h, C, n and m compared; and the
-    main-path shape in both layouts;
+    strided views the mLSTM block passes), h, C, n and m compared, and the
+    gate scan's terms and the carried C and n at every chunk boundary held
+    against their plain versions (``mlstm_chunk_gates``,
+    ``mlstm_chunk_states``), so that a failure names the pass at fault; and
+    the main-path shape in both layouts;
 11. the xlstm-350m serve main path: ``ServeEngine`` at full width (24
     layers: 20 mLSTM, 4 sLSTM; f32, random weights from seed 0), 8 slots,
     ``max_prompt`` 2048, ``max_new`` 32, the 16 requests of phase 7 with
@@ -58,12 +69,14 @@ result line):
     times per prefill wave; prefill ms per wave, decode ms per step,
     generated tokens/s, peak memory, and where the device time of one
     prefill wave and of two decode steps goes (the sLSTM recurrence's share
-    from its profiler span);
+    from its profiler span, the mLSTM kernel's time by pass);
 12. the same engine at 6 layers (5 mLSTM, 1 sLSTM) with ``mlstm_impl``
     "cuda" and "torch": token-identical, or parting only where the plain
     run's own top-two logit gap is below the logit tolerance;
-13. the mLSTM kernel at the main-path shape timed beside its bound and its
-    plain version (no single PyTorch call computes chunked mLSTM).
+13. the mLSTM kernel at the main-path shape timed beside its bounds (as in
+    phase 9, with the causal triangle's flops), the memory one call
+    allocates, and its plain version (no single PyTorch call computes
+    chunked mLSTM).
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Triton kernels compile at first use into
@@ -84,6 +97,12 @@ from concurrent.futures import ThreadPoolExecutor
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (same sheet)
+# H100 SXM dense tensor-core rates (same sheet): TF32, and bf16 with f32
+# accumulation.  The flash and mLSTM kernels take an f32 product as three
+# TF32 products (3xTF32); a bf16 product, exact in TF32, as one, though the
+# card could take it at the bf16 rate, which therefore bounds it
+TF32_FLOP_PER_S = 494.7e12
+BF16_FLOP_PER_S = 989e12
 # f32 operations per element of each timed stage (a multiply-add counts 2,
 # a division 1): grad_step is x - lr*g; decentlam_post is (x - mix) / lr,
 # then beta*m + g~, then x - lr*m
@@ -275,7 +294,7 @@ def _kernel_class(name: str) -> str:
         return "fused_update (Triton)"
     if "flash_fwd" in n:
         return "flash_attention (CUDA)"
-    if "mlstm_chunk" in n:
+    if any(k in n for k in ("mlstm_gate_scan", "mlstm_states", "mlstm_outputs")):
         return "mlstm_chunk (CUDA)"
     if "gemm" in n or "cutlass" in n or "xmma" in n or "gemv" in n:
         return "matmul (cuBLAS)"
@@ -463,6 +482,19 @@ def phase_timing(torch):
     return per_stage
 
 
+def _tc_bound(nbytes: int, flops: int, dtype) -> tuple[float, str]:
+    """The least time (ms) of a kernel whose products run on the tensor
+    cores: the larger of bytes over the memory rate and, for f32 inputs,
+    3 x flops over the dense TF32 rate (3xTF32), for bf16 inputs flops over
+    the bf16 rate; and which one it is."""
+    import torch
+
+    rate = TF32_FLOP_PER_S / 3 if dtype == torch.float32 else BF16_FLOP_PER_S
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / rate * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
 def _bound(nbytes: int, flops: int) -> tuple[float, str]:
     """The least time the card could take (ms): the larger of bytes over the
     memory rate and f32 operations over the f32 peak, and which one it is."""
@@ -509,21 +541,22 @@ def _fa_live_pairs(b, sq, sk, h, causal, window) -> int:
 
 
 def _fa_bound(q, k, causal, window):
-    """(bound ms, bound_by, flops, bytes) for one call: each of q, k, v read
-    once and o written once; 4 * hd f32 operations per live pair."""
+    """The work of one call and its bounds: each of q, k, v read once and o
+    written once; 4 * hd operations per live pair.  "tc" is the tensor-core
+    bound the kernel is held to (3xTF32 in f32), "ffma" the f32 FFMA bound of
+    the SIMT kernel it replaced."""
     b, sq, h, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     flops = 4 * hd * _fa_live_pairs(b, sq, sk, h, causal, window)
     nbytes = q.element_size() * (2 * b * sq * h * hd + 2 * b * sk * hkv * hd)
-    return (*_bound(nbytes, flops), flops, nbytes)
+    return {"flops": flops, "bytes": nbytes, "tc": _tc_bound(nbytes, flops, q.dtype),
+            "ffma": _bound(nbytes, flops)}
 
 
 def phase_flash_vs_plain(torch, built):
     import itertools
 
-    so, build_s = built
-    log(f"phase 6: flash_attention CUDA kernel built by nvcc in {build_s:.1f}s ({so.name}); "
-        "ptxas: " + "; ".join(_ptxas_summary(so, "flash_fwd_kernel")))
+    _report_build(6, "flash_attention", built, ("flash_fwd_kernel",))
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst = {"float32": 0.0, "bfloat16": 0.0}
     n = 0
@@ -553,19 +586,58 @@ def phase_flash_vs_plain(torch, built):
         f"in {time.perf_counter() - t0:.1f}s")
 
 
-def _ptxas_summary(so, entry):
-    """Registers and spills per kernel from the build's ``-Xptxas -v`` log;
-    ``entry`` is the kernel's name in the mangled signatures."""
-    out, name = [], None
+def _kernel_label(sig, entries):
+    """A readable name for a mangled kernel signature: the entry's name and
+    its template arguments (element type, head dim), or None."""
+    import re
+
+    for entry in entries:
+        i = sig.find(entry)
+        if i < 0:
+            continue
+        rest = sig[i + len(entry):]
+        args = ["f32" if rest.startswith("If") else "bf16" if rest.startswith("I13__nv_bfloat16")
+                else ""]
+        hd = re.match(r"I(?:f|13__nv_bfloat16)Li(\d+)E", rest)
+        args.append(hd.group(1) if hd else "")
+        args = [a for a in args if a]
+        return entry + (f"[{', '.join(args)}]" if args else "")
+    return None
+
+
+def _report_build(phase, what, built, entries):
+    """Log, per kernel of the built library, its registers, shared memory
+    and spills from the build's ``-Xptxas -v`` log and its count of
+    tensor-core instructions (HMMA, HGMMA) in its SASS (``cuobjdump -sass``),
+    which shows that it runs on the tensor cores; fail where ptxas spilled."""
+    from repro_torch.kernels import cuda_build
+
+    so, build_s = built
+    rows, name = {}, None
     for line in so.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in line:
-            sig = line.split("'")[1]
-            name = sig[sig.find(entry):].split("EEEv")[0]
-        elif "Used" in line and "registers" in line and name:
-            out.append(f"{name}: {line.split(':', 1)[1].strip()}")
-        elif "spill" in line and name and not line.strip().startswith("0 bytes stack"):
-            out.append(f"{name}: {line.strip()}")
-    return out
+            name = _kernel_label(line.split("'")[1], entries)
+            if name:
+                rows[name] = {}
+        elif name and "spill stores" in line:
+            parts = [x.strip() for x in line.split(",")]
+            rows[name]["spill"] = "/".join(x.split()[0] for x in parts if "spill" in x) + " B"
+        elif name and line.startswith("ptxas info") and "Used" in line:
+            rows[name]["used"] = line.split("Used", 1)[1].strip()
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    for sec in sass.split("Function : ")[1:]:
+        name = _kernel_label(sec.split("\n", 1)[0].strip(), entries)
+        if name in rows:
+            rows[name]["hmma"] = sum(("HMMA" in ln or "HGMMA" in ln) for ln in sec.splitlines())
+    log(f"phase {phase}: {what} CUDA kernels built by nvcc in {build_s:.1f}s ({so.name}):")
+    for n, r in rows.items():
+        log(f"  {n}: {r.get('used', '?')}, spill stores/loads {r.get('spill', '?')}, "
+            f"{r.get('hmma', 0)} HMMA")
+    spilled = [n for n, r in rows.items() if r.get("spill", "0/0 B") != "0/0 B"]
+    if spilled:
+        raise RuntimeError(f"{what}: ptxas spilled registers in {spilled}")
 
 
 def _serve_requests(vocab):
@@ -736,6 +808,9 @@ def phase_flash_timing(torch):
     from repro_torch.kernels.flash_attention.ref import reference_attention
 
     gen = torch.Generator(device="cuda").manual_seed(4)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout.strip().splitlines()[0]
     rec = None
     for name, (b, s_, h, hkv, hd, window) in FA_MAIN_SHAPES.items():
         q, k, v = _fa_inputs(torch, b, s_, s_, h, hkv, hd, torch.float32, gen)
@@ -763,13 +838,17 @@ def phase_flash_timing(torch):
         plain_ms = _time_ms(torch, lambda: reference_attention(q, k, v, causal=True,
                                                                window=window), 3)
         lib_ms = _time_ms(torch, lib, 10)
-        bound_ms, by, flops, nbytes = _fa_bound(q, k, True, window)
+        bd = _fa_bound(q, k, True, window)
+        (bound_ms, by), (ffma_ms, _) = bd["tc"], bd["ffma"]
+        flops, nbytes = bd["flops"], bd["bytes"]
         log(f"phase 9: flash_attention at {name} {tuple(q.shape)} q, {tuple(k.shape)} k/v, "
-            f"causal, window {window}, f32: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} "
-            f"TFLOP/s), bound {bound_ms:.3f} ms by {by} ({flops / 1e9:.1f} GFLOP / 67 TFLOP/s; "
-            f"{nbytes / 1e6:.0f} MB / 3.35 TB/s = {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms; "
-            f"{bound_ms / ms:.1%} of bound), plain version {plain_ms:.3f} ms, SDPA "
-            f"{lib_ms:.3f} ms; max |kernel - plain| {err:.3g}")
+            f"causal, window {window}, f32 ({smi}): kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} "
+            f"TFLOP/s); tensor-core bound {bound_ms:.3f} ms by {by} (3 x {flops / 1e9:.1f} GFLOP "
+            f"/ 494.7 TFLOP/s TF32; {nbytes / 1e6:.0f} MB / 3.35 TB/s = "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms): {bound_ms / ms:.1%} of it; the f32 FFMA "
+            f"bound of the SIMT design {ffma_ms:.3f} ms (/ 67 TFLOP/s), the kernel at "
+            f"{ms / ffma_ms:.2f}x it; plain version "
+            f"{plain_ms:.3f} ms, SDPA {lib_ms:.3f} ms; max |kernel - plain| {err:.3g}")
         if rec is None:  # the first shape is the main path's
             rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
                    "bound_by": by, "err": err}
@@ -850,8 +929,13 @@ def _f64_cumsum(x, dim=-1):
 
 def _ml_compare(torch, args, chunk, what, witness=None):
     """The kernel against its plain version on the same inputs; raises past
-    ML_TOL (of max(1, the output's largest |value|)).  Returns (worst error
-    over h, C, n, m relative to that scale, worst absolute error).
+    ML_TOL (of max(1, the output's largest |value|)), naming the pass at
+    fault: the gate scan's terms and the states pass's C and n at every
+    chunk boundary are held against :func:`mlstm_chunk_gates` and
+    :func:`mlstm_chunk_states` (b summed in the kernel's order), h against
+    the plain version.  Returns (worst error over h, C, n, m relative to
+    that scale, worst absolute error, worst relative error of the first two
+    passes' intermediate results).
 
     With ``witness`` (a list; the signed-stress cases, where den = q.n +
     sum(w) may cancel toward 0 and h then amplifies the rounding of the
@@ -863,26 +947,40 @@ def _ml_compare(torch, args, chunk, what, witness=None):
     |plain with b rounded from f64 - f64|) of h, each of max(1, the f64 h's
     largest |value|), f64 being the plain version run in float64."""
     from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunk_launch
-    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunked
+    from repro_torch.kernels.mlstm_chunk.ref import (mlstm_chunk_gates, mlstm_chunk_states,
+                                                     mlstm_chunked)
 
-    h, st = mlstm_chunk_launch(*args, chunk=chunk)
+    h, st, ps = mlstm_chunk_launch(*args, chunk=chunk, passes=True)
     order = {} if witness is None else {"cumsum": _kernel_cumsum}
     hr, sr = mlstm_chunked(*args, chunk=chunk, **order)
+    # the first two passes against their plain versions (b in the kernel's
+    # order): the gate scan's terms, and the states entering chunks 1..NC-1
+    gr = mlstm_chunk_gates(args[3], args[4], chunk=chunk, cumsum=_kernel_cumsum)
+    cr = mlstm_chunk_states(*args[1:], chunk=chunk, cumsum=_kernel_cumsum)
     torch.cuda.synchronize()
     tol = ML_TOL[str(args[0].dtype).split(".")[-1]]
-    rel = err_abs = 0.0
-    for name, got, want in (("h", h, hr), ("C", st["C"], sr["C"]), ("n", st["n"], sr["n"]),
-                            ("m", st["m"], sr["m"])):
+    rel = err_abs = pass_rel = 0.0
+    checks = [("gate scan", key, ps[key], gr[key]) for key in ("b", "m_t", "inter", "k_scale",
+                                                                "old")]
+    checks += [("states pass", key, ps[key], cr[key][:, :, :-1]) for key in ("C", "n")]
+    checks += [("outputs", "h", h, hr), ("states pass", "final C", st["C"], sr["C"]),
+               ("states pass", "final n", st["n"], sr["n"]), ("gate scan", "m", st["m"], sr["m"])]
+    for pass_, name, got, want in checks:
         if got.shape != want.shape or got.dtype != want.dtype:
             raise RuntimeError(f"mlstm_chunk {what}: {name} is {got.dtype} {tuple(got.shape)}, "
                                f"the plain version's {want.dtype} {tuple(want.shape)}")
+        if got.numel() == 0:
+            continue
         g, w = got.float(), want.float()
         err = float((g - w).abs().max())
         scale = max(1.0, float(w.abs().max()))
         if not err <= tol * scale:  # also catches NaN
-            raise RuntimeError(f"mlstm_chunk kernel != plain version ({what}): {name} max |diff| "
-                               f"{err:.3g} > {tol} x {scale:.3g}")
-        rel, err_abs = max(rel, err / scale), max(err_abs, err)
+            raise RuntimeError(f"mlstm_chunk kernel != plain version ({what}): the {pass_}'s "
+                               f"{name} max |diff| {err:.3g} > {tol} x {scale:.3g}")
+        if name in ("h", "final C", "final n", "m"):
+            rel, err_abs = max(rel, err / scale), max(err_abs, err)
+        else:
+            pass_rel = max(pass_rel, err / scale)
     if witness is not None:
         wide, _ = mlstm_chunked(*(a.double() for a in args), chunk=chunk)
         plain, _ = mlstm_chunked(*args, chunk=chunk)
@@ -891,17 +989,17 @@ def _ml_compare(torch, args, chunk, what, witness=None):
         witness.append((what, str(args[0].dtype).split(".")[-1],
                         *(float((x.double() - wide).abs().max()) / w_scale
                           for x in (h, plain, hr, rounded))))
-    return rel, err_abs
+    return rel, err_abs, pass_rel
 
 
 def phase_mlstm_vs_plain(torch, built):
     import itertools
 
-    so, build_s = built
-    log(f"phase 10: mlstm_chunk CUDA kernel built by nvcc in {build_s:.1f}s ({so.name}); "
-        "ptxas: " + "; ".join(_ptxas_summary(so, "mlstm_chunk_fwd_kernel")))
+    _report_build(10, "mlstm_chunk", built, ("mlstm_gate_scan_kernel", "mlstm_states_kernel",
+                                             "mlstm_outputs_kernel"))
     gen = torch.Generator(device="cuda").manual_seed(5)
     worst = {"float32": 0.0, "bfloat16": 0.0}
+    worst_pass = 0.0
     witness = []
     seen = set()
     t0 = time.perf_counter()
@@ -914,11 +1012,12 @@ def phase_mlstm_vs_plain(torch, built):
             continue
         seen.add(case)
         args = _ml_inputs(torch, B, H, S, dk, dv, dt, regime, gen, layout)
-        rel, _ = _ml_compare(torch, args, case[3], f"B={B} H={H} S={S} chunk={case[3]} dk={dk} "
-                                                   f"dv={dv} {dt} {regime} {layout}",
-                             witness if regime == "signed stress" else None)
+        what = f"B={B} H={H} S={S} chunk={case[3]} dk={dk} dv={dv} {dt} {regime} {layout}"
+        rel, _, prel = _ml_compare(torch, args, case[3], what,
+                                   witness if regime == "signed stress" else None)
         key = str(dt).split(".")[-1]
         worst[key] = max(worst[key], rel)
+        worst_pass = max(worst_pass, prel)
         del args
     torch.cuda.empty_cache()
     m = ML_MAIN
@@ -934,8 +1033,11 @@ def phase_mlstm_vs_plain(torch, built):
         f"{{reference, stress, signed stress}} x layout {{contiguous, model}}; worst max |diff| "
         f"/ max(1, scale) over h, C, n, m: f32 "
         f"{worst['float32']:.3g} (tol {ML_TOL['float32']}), bf16 {worst['bfloat16']:.3g} (tol "
-        f"{ML_TOL['bfloat16']})) and at the main-path shape {tuple(m.values())} f32: "
-        + ", ".join(f"{lay} {r:.3g} relative, {e:.3g} absolute" for lay, (r, e) in main.items())
+        f"{ML_TOL['bfloat16']}); the gate scan's terms and the states at every chunk "
+        f"boundary against their plain versions: worst {worst_pass:.3g}) and at the main-path "
+        f"shape {tuple(m.values())} f32: "
+        + ", ".join(f"{lay} {r:.3g} relative, {e:.3g} absolute, passes {pr:.3g}"
+                    for lay, (r, e, pr) in main.items())
         + f"; in {time.perf_counter() - t0:.1f}s")
     # the signed-stress cases against the plain version in float64: h's
     # error in the kernel and in three f32 orders of the prefix sums
@@ -1000,6 +1102,15 @@ def phase_xlstm_serve_main_path(torch):
             f"{big_ms:.1f} ms of {sum(v[0] for v in big.values())} launches: "
             f"{flops / big_ms / 1e9:.1f} TFLOP/s of the 67 f32 peak")
         _span_report(torch, events, "slstm_recurrence", "the sLSTM layers' time loops", 1)
+        # the mlstm_chunk call's three passes, per call
+        parts = {p: [0, 0.0] for p in ("gate_scan", "states", "outputs")}
+        for n, (cnt, ms) in kernels.items():
+            for p, acc in parts.items():
+                if f"mlstm_{p}_kernel" in n:
+                    acc[0], acc[1] = acc[0] + cnt, acc[1] + ms
+        log("  mlstm_chunk device ms per call by pass: " + ", ".join(
+            f"{p.replace('_', ' ')} " + (f"{ms / cnt:.3f}" if cnt else "not measured")
+            for p, (cnt, ms) in parts.items()))
 
     n_mlstm = sum(g.count for g in T.block_groups(cfg) if g.kind == "mlstm")
     return _serve_main_path(torch, cfg, 11, mlstm_chunk_launch, reset_launches, n_mlstm, extra,
@@ -1114,26 +1225,30 @@ def phase_xlstm_kernel_vs_plain(torch):
 
 
 def _ml_bound(q, v, chunk):
-    """(bound ms, bound_by, flops, bytes, recurrent flops) for one call.
-    Multiply-adds per (batch, head) and chunk of L rows: the causal lower
-    triangle of the scores and of w.v, L(L+1)/2 * (dk + dv), + 2*L*dk*dv (q.C
-    and the state update) + L*dk (q.n); each of q, k, v, h and the gates
-    moved once, the final C, n and m written once.  Beside it, the
-    recurrent form's 2*S*dk*dv multiply-adds per (batch, head) (C updated
-    and read once per token), the least work the cell can be done in."""
+    """The work of one call and its bounds.  Multiply-adds per (batch, head)
+    and chunk of L rows: the causal lower triangle of the scores and of w.v,
+    L(L+1)/2 * (dk + dv), + 2*L*dk*dv (q.C and the state update) + L*dk
+    (q.n); each of q, k, v, h and the gates moved once, the final C, n and m
+    written once.  "tc" is the tensor-core bound the kernel is held to
+    (3xTF32 in f32), "ffma" the f32 FFMA bound of the SIMT kernel it
+    replaced; beside them, the recurrent form's 2*S*dk*dv multiply-adds per
+    (batch, head) (C updated and read once per token), the least work the
+    cell can be done in."""
     B, H, S, dk = q.shape
     dv = v.shape[-1]
     L = chunk
     macs = B * H * (S // L) * (L * (L + 1) // 2 * (dk + dv) + 2 * L * dk * dv + L * dk)
     nbytes = (q.element_size() * B * H * S * (2 * dk + 2 * dv) + 4 * 2 * B * H * S
               + 4 * B * H * (dk * dv + dk + 1))
-    return (*_bound(nbytes, 2 * macs), 2 * macs, nbytes, 2 * 2 * B * H * S * dk * dv)
+    return {"flops": 2 * macs, "bytes": nbytes, "rec_flops": 2 * 2 * B * H * S * dk * dv,
+            "tc": _tc_bound(nbytes, 2 * macs, q.dtype), "ffma": _bound(nbytes, 2 * macs)}
 
 
 def phase_mlstm_timing(torch):
-    """The kernel at the serve main path's shape: its time, bound and plain
-    version.  No single PyTorch call computes chunked mLSTM, so there is no
-    library time."""
+    """The kernel at the serve main path's shape: its time, both bounds, the
+    memory one call takes above its inputs, and its plain version (phase 11
+    splits its device time by pass).  No single PyTorch call computes
+    chunked mLSTM, so there is no library time."""
     from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunk_launch
     from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunked
 
@@ -1141,24 +1256,38 @@ def phase_mlstm_timing(torch):
     gen = torch.Generator(device="cuda").manual_seed(6)
     args = _ml_inputs(torch, m["B"], m["H"], m["S"], m["dk"], m["dv"], torch.float32,
                       "reference", gen)
-    _, err = _ml_compare(torch, args, m["chunk"], "timing inputs")
-    ms = _time_ms(torch, lambda: mlstm_chunk_launch(*args, chunk=m["chunk"]), 10)
+    _, err, _ = _ml_compare(torch, args, m["chunk"], "timing inputs")
+    run = lambda: mlstm_chunk_launch(*args, chunk=m["chunk"])
+    ms = _time_ms(torch, run, 10)
     plain_ms = _time_ms(torch, lambda: mlstm_chunked(*args, chunk=m["chunk"]), 3)
-    bound_ms, by, flops, nbytes, rec_flops = _ml_bound(args[0], args[2], m["chunk"])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = run()
+    torch.cuda.synchronize()
+    call_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    del out
+    b = _ml_bound(args[0], args[2], m["chunk"])
+    (tc_ms, by), (ffma_ms, _) = b["tc"], b["ffma"]
+    flops = b["flops"]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60,
                          check=True).stdout.strip().splitlines()[0]
     log(f"phase 13: mlstm_chunk at the main-path shape q/k/v {tuple(args[0].shape)}, chunk "
-        f"{m['chunk']}, f32 ({smi}): kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), bound "
-        f"{bound_ms:.3f} ms by {by} ({flops / 1e9:.2f} GFLOP, the causal triangle, / 67 "
-        f"TFLOP/s; {nbytes / 1e9:.3f} GB / 3.35 TB/s = {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms; "
-        f"{bound_ms / ms:.1%} of bound; the recurrent form's {rec_flops / 1e9:.2f} GFLOP would "
-        f"take {rec_flops / F32_FLOP_PER_S * 1e3:.3f} ms), "
-        f"plain version {plain_ms:.3f} ms, library: none (no single PyTorch call computes "
-        f"chunked mLSTM); max |kernel - plain| {err:.3g}")
+        f"{m['chunk']}, f32 ({smi}): kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s); "
+        f"tensor-core bound {tc_ms:.3f} ms by {by} (3 x {flops / 1e9:.2f} GFLOP, the causal "
+        f"triangle, / 494.7 TFLOP/s TF32; {b['bytes'] / 1e9:.3f} GB / 3.35 TB/s = "
+        f"{b['bytes'] / HBM_BYTES_PER_S * 1e3:.3f} ms): {tc_ms / ms:.1%} of it; the f32 FFMA "
+        f"bound of the SIMT design {ffma_ms:.3f} ms (/ 67 TFLOP/s), the kernel at "
+        f"{ms / ffma_ms:.2f}x it; the recurrent form's "
+        f"{b['rec_flops'] / 1e9:.2f} GFLOP would take "
+        f"{b['rec_flops'] * 3 / TF32_FLOP_PER_S * 1e3:.3f} ms in 3xTF32); plain version {plain_ms:.3f} ms, library: none (no single PyTorch "
+        f"call computes chunked mLSTM); max |kernel - plain| {err:.3g}")
+    log(f"  memory one call allocates above its inputs {call_gib:.3f} GiB (outputs and the "
+        "scratch of the gate scan and the carried states)")
     del args
     torch.cuda.empty_cache()
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": tc_ms,
             "bound_by": by, "err": err}
 
 

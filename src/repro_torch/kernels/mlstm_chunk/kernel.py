@@ -22,7 +22,7 @@ from .. import cuda_build
 __all__ = ["MAX_CHUNK", "SOURCES", "build", "mlstm_chunk_launch", "reset_launches"]
 
 MAX_CHUNK = 128  # rows per chunk the kernel's shared-memory tiles hold
-MAX_DK = 576  # the largest dk whose C slice and n fit the 227 KB of shared memory
+MAX_DK = 576  # the largest dk whose carried n the outputs pass holds in shared memory
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "mlstm_chunk.cu",)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -47,9 +47,11 @@ def _load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.mlstm_chunk_fwd.argtypes = (
-                [ptr] * 9 + [i32] * 7 + [i64] * 15 + [ctypes.c_float, i32, ptr]
+                [ptr] * 10 + [i32] * 7 + [i64] * 15 + [ctypes.c_float, i32, ptr]
             )
             lib.mlstm_chunk_fwd.restype = i32
+            lib.mlstm_chunk_scratch_layout.argtypes = [i32] * 6 + [ctypes.POINTER(i64)]
+            lib.mlstm_chunk_scratch_layout.restype = i64
             lib.mlstm_chunk_max_dk.restype = i32
             lib.mlstm_chunk_error_string.argtypes = [i32]
             lib.mlstm_chunk_error_string.restype = ctypes.c_char_p
@@ -76,8 +78,8 @@ def _check(q, k, v, i_raw, f_raw, chunk: int) -> None:
     if not 1 <= chunk <= MAX_CHUNK or S % chunk:
         raise ValueError(f"the mlstm_chunk kernel takes a chunk in 1..{MAX_CHUNK} that divides "
                          f"S = {S}; got {chunk}")
-    if B * H >= 2**31:
-        raise ValueError(f"B * H = {B * H} is too large for the launch grid")
+    if B * H * S >= 2**31:
+        raise ValueError(f"B * H * S = {B * H * S} is too large for the launch grids")
     for name, t in (("q", q), ("k", k), ("v", v), ("i_raw", i_raw), ("f_raw", f_raw)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name} lies on {t.device}; the kernel takes CUDA tensors on "
@@ -93,15 +95,38 @@ def _check(q, k, v, i_raw, f_raw, chunk: int) -> None:
                              f"(strides {t.stride()})")
 
 
+def _scratch(lib, B, H, S, dk, dv, chunk, device):
+    """The float32 scratch of one call, and its regions as views: the gate
+    scan's "b", "m_t", "inter", "k_scale" (B, H, S) and "old" (B, H, NC); the
+    states entering chunks 1..NC-1, "C" (B, H, NC - 1, dk, dv) and "n"
+    (B, H, NC - 1, dk).  The library lays it out
+    (``mlstm_chunk_scratch_layout``: each region 256-byte aligned)."""
+    nc = S // chunk
+    off = (ctypes.c_longlong * 7)()
+    total = lib.mlstm_chunk_scratch_layout(B, H, S, dk, dv, chunk, off)
+    scratch = torch.empty(total, dtype=torch.float32, device=device)
+    shapes = {"b": (B, H, S), "m_t": (B, H, S), "inter": (B, H, S), "k_scale": (B, H, S),
+              "old": (B, H, nc), "C": (B, H, nc - 1, dk, dv), "n": (B, H, nc - 1, dk)}
+    views = {}
+    for o, (key, shape) in zip(off, shapes.items()):
+        views[key] = scratch[o:o + math.prod(shape)].view(shape)
+    return scratch, views
+
+
 def mlstm_chunk_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       i_raw: torch.Tensor, f_raw: torch.Tensor, *, chunk: int):
+                       i_raw: torch.Tensor, f_raw: torch.Tensor, *, chunk: int,
+                       passes: bool = False):
     """Run the kernel on CUDA tensors q, k ``(B, H, S, dk)`` and v
     ``(B, H, S, dv)`` (float32 or bfloat16, read by strides) with float32
     gates ``(B, H, S)``, from a zero state.  Returns ``h`` ``(B, H, S, dv)``
     in v's dtype and the final ``C`` ``(B, H, dk, dv)``, ``n`` ``(B, H, dk)``
-    and ``m`` ``(B, H)`` in float32, all new and contiguous.  Raises on what
-    the kernel does not take and when the launch fails.  Counts its launches
-    in ``mlstm_chunk_launch.launches``."""
+    and ``m`` ``(B, H)`` in float32, all new and contiguous; with
+    ``passes``, also the gate scan's and the states pass's results
+    (:func:`_scratch`), to hold each pass against its plain version.  The
+    three launches share one float32 scratch of about
+    ``B*H*(4*S + NC + (NC - 1)*(dk*dv + dk))`` elements, NC = S / chunk.
+    Raises on what the kernel does not take and when a launch fails.  Counts
+    its calls in ``mlstm_chunk_launch.launches``."""
     _check(q, k, v, i_raw, f_raw, chunk)
     B, H, S, dk = q.shape
     dv = v.shape[3]
@@ -111,19 +136,23 @@ def mlstm_chunk_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n = torch.empty((B, H, dk), dtype=torch.float32, device=dev)
     m = torch.empty((B, H), dtype=torch.float32, device=dev)
     lib = _load()
+    scratch, views = _scratch(lib, B, H, S, dk, dv, chunk, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.mlstm_chunk_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), i_raw.data_ptr(), f_raw.data_ptr(),
-        h.data_ptr(), C.data_ptr(), n.data_ptr(), m.data_ptr(), _DTYPES[q.dtype],
-        B, H, S, dk, dv, chunk, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *i_raw.stride(), *f_raw.stride(), 1.0 / math.sqrt(dk),
+        h.data_ptr(), C.data_ptr(), n.data_ptr(), m.data_ptr(), scratch.data_ptr(),
+        _DTYPES[q.dtype], B, H, S, dk, dv, chunk, *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *i_raw.stride(), *f_raw.stride(), 1.0 / math.sqrt(dk),
         dev.index if dev.index is not None else torch.cuda.current_device(), stream,
     )
     if err != 0:
         msg = lib.mlstm_chunk_error_string(err).decode()
         raise RuntimeError(f"mlstm_chunk kernel launch failed: CUDA error {err} ({msg})")
     mlstm_chunk_launch.launches += 1
-    return h, {"C": C, "n": n, "m": m}
+    state = {"C": C, "n": n, "m": m}
+    if passes:
+        return h, state, views
+    return h, state
 
 
 def reset_launches() -> None:

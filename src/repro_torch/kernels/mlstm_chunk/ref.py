@@ -10,8 +10,11 @@ exponential input gate, a log-sigmoid forget gate and the max-stabilizer
   state ``(C, n, m)``.  What :func:`..ops.mlstm` computes for tensors that
   lie on the CPU, and what the kernel is held against on the card.
 * :func:`mlstm_decode_step` — one token (a chunk of length 1).
+* :func:`mlstm_chunk_gates` and :func:`mlstm_chunk_states` — the chunked
+  form's gate scan and chunk-state recurrence on their own, as the CUDA
+  kernel's first two passes compute them (to tell which pass is at fault).
 
-All return ``(h, {"C", "n", "m"})``; the stabilizer algebra is f32, masked
+The first three return ``(h, {"C", "n", "m"})``; the stabilizer algebra is f32, masked
 decays are ``NEG_INF`` (never ``-inf``) and ``m`` starts at 0, as in the
 reference.  Float64 inputs are computed in float64 throughout: the witness
 the kernel and the f32 plain version are both held against where the
@@ -27,7 +30,8 @@ import torch.nn.functional as F
 
 NEG_INF = -1e30
 
-__all__ = ["NEG_INF", "init_state", "mlstm_sequential", "mlstm_chunked", "mlstm_decode_step"]
+__all__ = ["NEG_INF", "init_state", "mlstm_chunk_gates", "mlstm_chunk_states", "mlstm_chunked",
+           "mlstm_decode_step", "mlstm_sequential"]
 
 
 def init_state(batch: int, heads: int, dk: int, dv: int, device=None,
@@ -77,6 +81,41 @@ def mlstm_sequential(q, k, v, i_raw, f_raw, state=None):
     return h, {"C": C, "n": n, "m": m}
 
 
+def _gate_terms(i_raw, f_raw, m_prev, ct, cumsum=torch.cumsum):
+    """The stabilizer terms of one chunk, functions of the gates alone:
+    gates (..., L), ``m_prev`` (...), computed in ``ct``.  Returns b (the
+    prefix sums of log f), the masked decay (..., L, L), its row max m_t,
+    inter, the carry's M, the key scales and old."""
+    it = i_raw.to(ct)
+    logf = F.logsigmoid(f_raw.to(ct))
+    b = cumsum(logf, dim=-1)  # (..., L) inclusive
+
+    L = it.shape[-1]
+    tril = torch.ones((L, L), dtype=torch.bool, device=it.device).tril()
+    # decay(t, s) = b_t - b_s + i_s for s <= t
+    decay = b[..., :, None] - b[..., None, :] + it[..., None, :]
+    decay = torch.where(tril, decay, torch.full((), NEG_INF, device=it.device))
+
+    m_intra = torch.amax(decay, dim=-1)  # (..., L)
+    m_t = torch.maximum(m_intra, b + m_prev[..., None])
+    inter = torch.exp(b + m_prev[..., None] - m_t)  # (..., L)
+    bC = b[..., -1:]
+    M = torch.maximum((bC + m_prev[..., None])[..., 0], torch.amax(bC - b + it, dim=-1))
+    k_scale = torch.exp(bC - b + it - M[..., None])  # (..., L)
+    old = torch.exp(bC[..., 0] + m_prev - M)
+    return {"b": b, "decay": decay, "m_t": m_t, "inter": inter, "M": M, "k_scale": k_scale,
+            "old": old}
+
+
+def _carry(kf, vf, g, C_prev, n_prev):
+    """The state after the chunk: C = old * C_prev + (k * k_scale)^T v and
+    n = old * n_prev + sum_s k * k_scale, from :func:`_gate_terms`' ``g``."""
+    ks = kf * g["k_scale"][..., None]
+    C_new = g["old"][..., None, None] * C_prev + torch.einsum("...sk,...sv->...kv", ks, vf)
+    n_new = g["old"][..., None] * n_prev + torch.sum(ks, dim=-2)
+    return C_new, n_new
+
+
 def _chunk_body(q, k, v, i_raw, f_raw, C_prev, n_prev, m_prev, cumsum=torch.cumsum):
     """One chunk, vectorized.  q/k: (..., L, dk); v: (..., L, dv); gates
     (..., L); state (..., dk, dv) / (..., dk) / (...).  ``cumsum(x, dim)``
@@ -88,37 +127,63 @@ def _chunk_body(q, k, v, i_raw, f_raw, C_prev, n_prev, m_prev, cumsum=torch.cums
     qf = q.to(ct) * scale
     kf = k.to(ct)
     vf = v.to(ct)
-    it = i_raw.to(ct)
-    logf = F.logsigmoid(f_raw.to(ct))
-    b = cumsum(logf, dim=-1)  # (..., L) inclusive
-
-    L = q.shape[-2]
-    tril = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
-    # decay(t, s) = b_t - b_s + i_s for s <= t
-    decay = b[..., :, None] - b[..., None, :] + it[..., None, :]
-    decay = torch.where(tril, decay, torch.full((), NEG_INF, device=q.device))
-
-    m_intra = torch.amax(decay, dim=-1)  # (..., L)
-    m_t = torch.maximum(m_intra, b + m_prev[..., None])
-    D = torch.exp(decay - m_t[..., None])  # masked entries underflow to 0
+    g = _gate_terms(i_raw, f_raw, m_prev, ct, cumsum)
+    m_t, inter = g["m_t"], g["inter"]
+    D = torch.exp(g["decay"] - m_t[..., None])  # masked entries underflow to 0
 
     att = torch.einsum("...tk,...sk->...ts", qf, kf)
     w = att * D
-    inter = torch.exp(b + m_prev[..., None] - m_t)  # (..., L)
     num = torch.einsum("...ts,...sv->...tv", w, vf)
     num = num + inter[..., None] * torch.einsum("...tk,...kv->...tv", qf, C_prev)
     den = torch.sum(w, dim=-1) + inter * torch.einsum("...tk,...k->...t", qf, n_prev)
     h = num / torch.maximum(torch.abs(den), torch.exp(-m_t))[..., None]
 
-    # ---- carry ----
-    bC = b[..., -1:]
-    M = torch.maximum((bC + m_prev[..., None])[..., 0], torch.amax(bC - b + it, dim=-1))
-    k_scale = torch.exp(bC - b + it - M[..., None])  # (..., L)
-    old = torch.exp(bC[..., 0] + m_prev - M)
-    ks = kf * k_scale[..., None]
-    C_new = old[..., None, None] * C_prev + torch.einsum("...sk,...sv->...kv", ks, vf)
-    n_new = old[..., None] * n_prev + torch.sum(ks, dim=-2)
-    return h, C_new, n_new, M
+    C_new, n_new = _carry(kf, vf, g, C_prev, n_prev)
+    return h, C_new, n_new, g["M"]
+
+
+def mlstm_chunk_gates(i_raw, f_raw, *, chunk: int, cumsum=torch.cumsum):
+    """The gate scan of the chunked form from a zero state (the CUDA
+    kernel's first pass): gates (B, H, S) in float32.  Returns float32 "b",
+    "m_t", "inter", "k_scale" (B, H, S) (b restarts at each chunk) and "old",
+    "M" (B, H, S // chunk), M being m after each chunk."""
+    B, H, S = i_raw.shape
+    if S % chunk:
+        raise ValueError(f"sequence length {S} is not a multiple of the chunk {chunk}")
+    ct = _compute_dtype(i_raw)
+    m = torch.zeros((B, H), dtype=ct, device=i_raw.device)
+    out = {key: [] for key in ("b", "m_t", "inter", "k_scale", "old", "M")}
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, c0 + chunk)
+        g = _gate_terms(i_raw[:, :, sl], f_raw[:, :, sl], m, ct, cumsum)
+        for key in out:
+            out[key].append(g[key])
+        m = g["M"]
+    return {key: torch.cat(vals, dim=2) if vals[0].ndim == 3 else torch.stack(vals, dim=2)
+            for key, vals in out.items()}
+
+
+def mlstm_chunk_states(k, v, i_raw, f_raw, *, chunk: int, cumsum=torch.cumsum):
+    """The chunk-state recurrence from a zero state (the CUDA kernel's
+    second pass): k (B, H, S, dk), v (B, H, S, dv), gates (B, H, S).
+    Returns "C" (B, H, S // chunk, dk, dv) and "n" (B, H, S // chunk, dk),
+    the state after each chunk (the last is :func:`mlstm_chunked`'s final
+    state), in the compute dtype."""
+    B, H, S, dk = k.shape
+    if S % chunk:
+        raise ValueError(f"sequence length {S} is not a multiple of the chunk {chunk}")
+    ct = _compute_dtype(k)
+    st = init_state(B, H, dk, v.shape[-1], k.device, ct)
+    C, n, m = st["C"], st["n"], st["m"]
+    Cs, ns = [], []
+    for c0 in range(0, S, chunk):
+        sl = slice(c0, c0 + chunk)
+        g = _gate_terms(i_raw[:, :, sl], f_raw[:, :, sl], m, ct, cumsum)
+        C, n = _carry(k[:, :, sl].to(ct), v[:, :, sl].to(ct), g, C, n)
+        m = g["M"]
+        Cs.append(C)
+        ns.append(n)
+    return {"C": torch.stack(Cs, dim=2), "n": torch.stack(ns, dim=2)}
 
 
 def mlstm_chunked(q, k, v, i_raw, f_raw, state=None, *, chunk: int = 64,

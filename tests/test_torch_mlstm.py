@@ -19,7 +19,8 @@ from repro.kernels.mlstm_chunk.ref import mlstm_decode_step as jdecode
 from repro.kernels.mlstm_chunk.ref import mlstm_sequential as jsequential
 from repro_torch.kernels.mlstm_chunk import mlstm, mlstm_chunked, mlstm_decode_step
 from repro_torch.kernels.mlstm_chunk import kernel as ml_kernel
-from repro_torch.kernels.mlstm_chunk.ref import init_state, mlstm_sequential
+from repro_torch.kernels.mlstm_chunk.ref import (init_state, mlstm_chunk_gates,
+                                                  mlstm_chunk_states, mlstm_sequential)
 
 # the JAX package's own mLSTM tolerance (tests/test_kernels.py), f32
 TOL = 2e-4
@@ -94,6 +95,44 @@ def test_plain_chunked_with_state_matches_jax(case):
                                state={n: jnp.asarray(a) for n, a in state.items()}, chunk=chunk)
     _close(h, want_h)
     _close_state(st, want_st)
+
+
+# (B, H, S, dk, dv, chunk, f_shift, i_scale): the reference's gates at chunk
+# 32, and the stress gates at chunk 20 (not a multiple of 16: the kernel's
+# 16-row mma tiles mask the ragged chunk)
+PASS_CASES = [(2, 3, 128, 32, 48, 32, 2.0, 1.0), (1, 2, 120, 16, 32, 20, -4.0, 6.0)]
+
+
+@pytest.mark.parametrize("case", PASS_CASES)
+def test_plain_passes_match_jax_chunked_states(case):
+    """The plain gate scan and chunk-state recurrence (the CUDA kernel's
+    first two passes): the state after chunk c is JAX ``mlstm_chunked``'s
+    final state over the first c + 1 chunks, M is its m, and the last state
+    is this package's ``mlstm_chunked`` final state, bit for bit."""
+    B, H, S, dk, dv, chunk, f_shift, i_scale = case
+    arrs = _inputs(B, H, S, dk, dv, seed=S + chunk, f_shift=f_shift, i_scale=i_scale)
+    q, k, v, i, f = map(_torch, arrs)
+    nc = S // chunk
+    gates = mlstm_chunk_gates(i, f, chunk=chunk)
+    states = mlstm_chunk_states(k, v, i, f, chunk=chunk)
+    for key in ("b", "m_t", "inter", "k_scale"):
+        assert gates[key].shape == (B, H, S) and gates[key].dtype == torch.float32
+    assert gates["old"].shape == gates["M"].shape == (B, H, nc)
+    assert states["C"].shape == (B, H, nc, dk, dv) and states["n"].shape == (B, H, nc, dk)
+    # b restarts at every chunk; the key scales and old are at most 1
+    first = torch.nn.functional.logsigmoid(f[:, :, ::chunk])
+    assert torch.equal(gates["b"][:, :, ::chunk], first)
+    assert float(gates["k_scale"].max()) <= 1.0 and float(gates["old"].max()) <= 1.0
+    for c in range(nc):
+        end = (c + 1) * chunk
+        _, jst = jchunked(*(jnp.asarray(a[:, :, :end]) for a in arrs), chunk=chunk)
+        _close(states["C"][:, :, c], jst["C"])
+        _close(states["n"][:, :, c], jst["n"])
+        _close(gates["M"][:, :, c], jst["m"])
+    _, st = mlstm_chunked(q, k, v, i, f, chunk=chunk)
+    assert torch.equal(states["C"][:, :, -1], st["C"])
+    assert torch.equal(states["n"][:, :, -1], st["n"])
+    assert torch.equal(gates["M"][:, :, -1], st["m"])
 
 
 def test_stabilizer_regime_matches_sequential():
