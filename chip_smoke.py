@@ -76,7 +76,27 @@ result line):
 13. the mLSTM kernel at the main-path shape timed beside its bounds (as in
     phase 9, with the causal triangle's flops), the memory one call
     allocates, and its plain version (no single PyTorch call computes
-    chunked mLSTM).
+    chunked mLSTM);
+14. the stage kernel's plane launch (one launch per bucket, gs per node and
+    the LARS ratio per plane row) against its plain version at phase 2's
+    tolerances, for every op x {plain, lars + clip + coupled wd}, on a small
+    stacked plane (x in f32 and bf16) and on qwen3-0.6b's full (4, 648000,
+    1024) plane; and against the per-leaf launches on the same inputs, bit
+    for bit on every segment's true elements (any leaf that differs is
+    printed);
+15. the flat-plane training main path: phase 3's run with ``--flat-planes``
+    (2 stage launches per step instead of 28), profiled; the plane stages
+    timed at the full plane beside their bound, plain version and library
+    call; step time, device busy, peak memory beside phase 3's; at 4 layers,
+    3 steps, losses equal to the per-leaf kernel path's to 1e-6 relative;
+    one pmsgd-lars + grad_clip plane step held against the plain plane path;
+16. serving while training: phase 15's trainer with
+    ``--serve-while-training``, 8 steps, node 0 publishing every 2 steps, the
+    engine on ``attn_impl="cuda"``: every offer ships, each snapshot equals
+    node 0's parameter plane byte for byte, swaps only between decode
+    batches, every request completes, and the requests admitted after the
+    last swap get a fresh engine's tokens on that snapshot; the host-to-device
+    copy of each swap.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Triton kernels compile at first use into
@@ -229,13 +249,12 @@ def _train_argv(steps, impl, depth=0):
     return argv + (["--depth", str(depth)] if depth else [])
 
 
-def phase_main_path(torch):
-    """The main path, profiled: ``train.main`` runs MAIN["steps"] + 3 steps;
-    steps 1..MAIN["steps"]-1 run unprofiled (the step time), the profiler
-    warms up on the next one and records the last two (where the device
-    time goes)."""
-    import math
-
+def _profiled_train(torch, extra=()):
+    """``train.main`` on the main path (with the ``extra`` flags), profiled:
+    MAIN["steps"] + 3 steps; steps 1..MAIN["steps"]-1 run unprofiled (the
+    step time), the profiler warms up on the next one and records the last
+    two (where the device time goes).  Returns ``(result, launches by op,
+    total launches, profiler events, unprofiled step ms)``."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from repro_torch.kernels.fused_update.kernel import fused_stage_launch, reset_launches
@@ -247,9 +266,22 @@ def phase_main_path(torch):
                  schedule=schedule(wait=MAIN["steps"], warmup=1, active=2, repeat=1),
                  on_trace_ready=lambda p: traced.append(p.events())) as prof:
         reset_launches()
-        res = train.main(_train_argv(steps, "triton"), on_step=lambda _: prof.step())
+        res = train.main(_train_argv(steps, "triton") + list(extra),
+                         on_step=lambda _: prof.step())
         launches = dict(fused_stage_launch.launches_by_op)
         total = fused_stage_launch.launches
+    if len(traced) != 1:
+        raise RuntimeError(f"the profiler delivered {len(traced)} traces, want 1")
+    step_ms = 1e3 * sum(res["step_times_s"][timed]) / len(res["step_times_s"][timed])
+    return res, launches, total, traced[0], step_ms
+
+
+def phase_main_path(torch):
+    """The main path, profiled (see :func:`_profiled_train`)."""
+    import math
+
+    res, launches, total, events, step_ms = _profiled_train(torch)
+    steps = len(res["losses"])
     if not all(math.isfinite(v) for v in res["losses"]):
         raise RuntimeError(f"non-finite loss on the main path: {res['losses']}")
     if total != 28 * steps or launches != {op: 14 * steps for op in STAGE_FLOPS}:
@@ -259,17 +291,15 @@ def phase_main_path(torch):
         f"{res['n_layers']} layers) x {res['n_nodes']} nodes, {steps} steps: "
         f"losses {[round(v, 4) for v in res['losses']]}, fused_update launches {total} "
         f"(= 28 x {steps}: {launches})")
-    step_ms = 1e3 * sum(res["step_times_s"][timed]) / len(res["step_times_s"][timed])
     tokens = MAIN["nodes"] * MAIN["per_node_batch"] * MAIN["seq_len"]
     log(f"main path: step {step_ms:.1f} ms (mean of the unprofiled steps "
-        f"{timed.start}..{timed.stop - 1}), {tokens / step_ms * 1e3:.0f} tokens/s, peak memory "
+        f"1..{MAIN['steps'] - 1}), {tokens / step_ms * 1e3:.0f} tokens/s, peak memory "
         f"{res['peak_mem_bytes'] / 2**30:.2f} GiB, step times "
         f"{[round(t, 4) for t in res['step_times_s']]}")
-    if len(traced) != 1:
-        raise RuntimeError(f"the profiler delivered {len(traced)} traces, want 1")
-    _profile_report(torch, traced[0], step_ms, 1e3 * sum(res["step_times_s"][-2:]) / 2)
+    prof = _profile_report(torch, events, step_ms, 1e3 * sum(res["step_times_s"][-2:]) / 2)
     torch.cuda.empty_cache()
-    return launches
+    return {"launches": launches, "peak": res["peak_mem_bytes"], "step_ms": step_ms,
+            "busy_ms": prof["busy_ms"], "kernels": prof["kernels"]}
 
 
 def phase_plain_vs_kernel_path(torch):
@@ -362,6 +392,8 @@ def _profile_report(torch, events, step_ms, profiled_ms):
         f"{gemm_ms:.1f} ms: {flops / gemm_ms / 1e9:.1f} TFLOP/s of the 67 f32 peak")
     for name, (cnt, ms) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]:
         log(f"  {ms / steps:8.2f} ms/step  {cnt // steps:5d} launches/step  {name[:90]}")
+    return {"busy_ms": busy_ms, "classes": {c: ms / steps for c, ms in classes.items()},
+            "kernels": {k: (n / steps, ms / steps) for k, (n, ms) in kernels.items()}}
 
 
 def _time_ms(torch, fn, iters):
@@ -1291,6 +1323,455 @@ def phase_mlstm_timing(torch):
             "bound_by": by, "err": err}
 
 
+# ---------------------------------------------------------------------------
+# Flat parameter planes and serving while training (phases 14-16)
+# ---------------------------------------------------------------------------
+
+# the stage kernel's cases on planes: every op x {plain, lars + clip +
+# coupled weight decay}; with the latter, gs per node and r per plane row
+PLANE_CTXS = {"plain": dict(beta=0.9),
+              "lars-clip-wd": dict(beta=0.9, wd=1e-2, coupled_wd=True, clip=True, lars=True)}
+# a small stacked plane: five leaves of 1, 3, 69, 128 and 26 rows (227 rows,
+# padded to 256) in one bucket
+PLANE_SMALL_LEAVES = {"a": (5, 7), "b": (3000,), "c": (70001,), "d": (128, 1024), "e": (333, 77)}
+
+
+def _plane_operands(torch, layout, names, x_dtype, gen, pool=None):
+    """Random stacked planes for the operand ``names``: x in ``x_dtype``, the
+    rest f32, mix near x; at full size (``pool`` of three f32 planes) the
+    operands share the pool's buffers (each input is only read)."""
+    from repro_torch.core.planes import LANES
+
+    (key,) = layout.buckets
+    shape = (MAIN["nodes"], layout.rows[key], LANES)
+    ins = {}
+    for i, n in enumerate(names):
+        if pool is not None:
+            ins[n] = pool[i % len(pool)]
+            continue
+        t = torch.randn(shape, generator=gen, device="cuda")
+        ins[n] = t.to(x_dtype) if n == "x" else t
+    if pool is None and "mix" in ins and "x" in ins:
+        ins["mix"] = ins["x"].float() + 0.01 * ins["mix"]
+    return {n: {key: t} for n, t in ins.items()}
+
+
+def _plane_scalars(torch, layout, lars, gen):
+    """Stage scalars: lr, and with ``lars`` a per-node clip scale and per-leaf
+    per-node LARS ratios (scattered to row columns)."""
+    from repro_torch.utils import tree_unflatten
+
+    n = MAIN["nodes"]
+    s = {"lr": torch.tensor(0.01, device="cuda"), "sg": 0.6}
+    if lars:
+        s["gs"] = 0.5 + torch.rand(n, generator=gen, device="cuda")
+        r = [0.5 + torch.rand(n, generator=gen, device="cuda") for _ in range(layout.n_leaves)]
+        s["r_leaves"] = tree_unflatten(layout.template, r)
+        s["r"] = layout.row_scalars(s["r_leaves"])
+    return s
+
+
+def _same_bits(torch, a, b) -> bool:
+    """Same dtype, shape and bytes."""
+    return (a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def _plane_case(torch, layout, kind, op, ctx, x_dtype, gen, pool=None):
+    """One plane launch held against its plain version (node by node: a
+    whole-plane plain pass would not fit beside a full-size plane) and, bit
+    for bit on every segment's true elements, against the per-leaf launches
+    on the same inputs.  Returns ``(worst f32 error / scale, the leaves whose
+    outputs differ in any bit)``."""
+    from repro_torch.kernels.fused_update import make_plane_stage, make_stage
+    from repro_torch.kernels.fused_update.kernel import stage_io, stage_plain
+    from repro_torch.utils import tree_leaves, tree_paths
+
+    names_in, names_out = stage_io(kind, op, ctx)
+    ops = _plane_operands(torch, layout, names_in, x_dtype, gen, pool)
+    (key,) = layout.buckets
+    like = ops.get("x", {key: torch.empty(0, dtype=x_dtype)})
+    s = _plane_scalars(torch, layout, ctx.lars, gen)
+    scal = {k: v for k, v in s.items() if k != "r_leaves"}
+    got = make_plane_stage("triton")(kind, op, ctx, ops, scal, like)
+    torch.cuda.synchronize()
+
+    worst = 0.0
+    one = torch.tensor(1.0, device="cuda")
+    svec = torch.stack([s["lr"], one, one, torch.tensor(s["sg"], device="cuda")])
+    out_dtypes = {n: got[n][key].dtype for n in names_out}
+    for i in range(MAIN["nodes"]):
+        ins = {n: ops[n][key][i] for n in names_in}
+        cols = {"gs": s["gs"][i], "r": s["r"][key][i]} if ctx.lars else None
+        want = stage_plain(kind, op, ctx, svec, ins, out_dtypes, cols)
+        for n in names_out:
+            w, g = want[n].float(), got[n][key][i].float()
+            tol = BF16_TOL if out_dtypes[n] == torch.bfloat16 else F32_TOL
+            scale = float(w.abs().max())
+            torch.testing.assert_close(
+                g, w, rtol=tol, atol=tol * scale,
+                msg=lambda m, n=n: f"plane {kind}/{op} {ctx} {x_dtype} node {i} {n}: {m}")
+            if out_dtypes[n] == torch.float32:
+                worst = max(worst, float((g - w).abs().max()) / max(scale, 1e-30))
+        del want, ins
+
+    # the per-leaf launches on contiguous copies of each leaf's operands,
+    # one leaf at a time
+    views = {n: tree_leaves(layout.view_unpack(ops[n], leading=1)) for n in names_in}
+    got_views = {n: tree_leaves(layout.view_unpack(got[n], leading=1)) for n in names_out}
+    r_leaves = tree_leaves(s["r_leaves"]) if ctx.lars else None
+    paths = tree_paths(layout.template)
+    differ = []
+    for j in range(layout.n_leaves):
+        ins = {n: {"w": views[n][j].contiguous()} for n in names_in}
+        sj = dict(scal, r={"w": r_leaves[j]}) if ctx.lars else scal
+        like_j = ins["x"] if "x" in ins else {"w": torch.empty(0, dtype=x_dtype)}
+        res = make_stage("triton")(kind, op, ctx, ins, sj, like_j)
+        differ += [f"{paths[j]}/{n} (max |diff| "
+                   f"{float((res[n]['w'].float() - got_views[n][j].float()).abs().max()):.3g})"
+                   for n in names_out if not _same_bits(torch, res[n]["w"], got_views[n][j])]
+        del ins, res
+    del ops, got, views, got_views
+    torch.cuda.empty_cache()
+    return worst, differ
+
+
+def phase_plane_kernel_vs_plain(torch):
+    """The plane launch of the stage kernel == its plain version (phase 2's
+    tolerances) and == the per-leaf launches bit for bit, for every op x
+    {plain, lars-clip-wd}: on a small stacked plane with x in f32 and bf16,
+    and on qwen3-0.6b's full (4, 648000, 1024) f32 plane (its operands drawn
+    from two shared f32 planes, so that the largest case fits the card)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.planes import PlaneLayout
+    from repro_torch.core.update_spec import MathCtx
+    from repro_torch.kernels.fused_update.kernel import OPS
+    from repro_torch.train.train_state import model_plane_layout
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    t0 = time.perf_counter()
+    worst, cases, differ = 0.0, 0, {}
+    for x_dtype in (torch.float32, torch.bfloat16):
+        small = PlaneLayout.build({k: torch.empty(sh, dtype=x_dtype, device="meta")
+                                   for k, sh in PLANE_SMALL_LEAVES.items()})
+        for (kind, op) in OPS:
+            for cname, kw in PLANE_CTXS.items():
+                w, bad = _plane_case(torch, small, kind, op, MathCtx(**kw), x_dtype, gen)
+                worst, cases = max(worst, w), cases + 1
+                if bad:
+                    differ[f"small x {x_dtype} {op} {cname}"] = bad
+    small_s = time.perf_counter() - t0
+    (skey,) = small.buckets
+    full = model_plane_layout(get_config(MAIN["arch"]))
+    (key,) = full.buckets
+    shape = (MAIN["nodes"], full.rows[key], 1024)
+    pool = [torch.randn(shape, generator=gen, device="cuda") for _ in range(2)]
+    t1 = time.perf_counter()
+    for (kind, op) in OPS:
+        for cname, kw in PLANE_CTXS.items():
+            w, bad = _plane_case(torch, full, kind, op, MathCtx(**kw), torch.float32, gen, pool)
+            worst, cases = max(worst, w), cases + 1
+            if bad:
+                differ[f"full {op} {cname}"] = bad
+    del pool
+    torch.cuda.empty_cache()
+    # where they part: a leaf whose size per node is not a whole number of
+    # 1024-element rows sits at other positions in a per-leaf launch's blocks
+    # than in its plane rows, and Triton contracts some ops into FMAs
+    # differently at different positions of a block (both within ~1 ulp of
+    # the plain version)
+    for case, bad in differ.items():
+        log(f"  plane != per-leaf launches in some bit: {case}: {bad}")
+    log(f"phase 14: plane stage kernel == plain version on {cases} cases (every op x "
+        f"{list(PLANE_CTXS)}, gs per node and r per row under lars-clip-wd; small plane "
+        f"({MAIN['nodes']}, {small.rows[skey]}, 1024) of {len(PLANE_SMALL_LEAVES)} leaves, x "
+        f"f32/bf16, {small_s:.1f}s; full {shape} f32, {full.n_leaves} leaves, "
+        f"{time.perf_counter() - t1:.1f}s; worst f32 error / scale {worst:.3g}, f32 rtol "
+        f"{F32_TOL}, bf16 rtol {BF16_TOL}); plane == per-leaf launches bit for bit on every "
+        f"segment's true elements in {cases - len(differ)} of {cases} cases")
+
+
+
+def phase_plane_timing(torch):
+    """The flat-plane path's two stages at qwen3-0.6b's full stacked plane
+    (4, 648000, 1024) f32, one launch each per step: kernel time, bound,
+    the plain version (node by node: its temporaries over the whole plane
+    would not fit) and, for grad_step, ``torch.addcmul``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.update_spec import MathCtx
+    from repro_torch.kernels.fused_update.kernel import (
+        fused_stage_launch,
+        stage_bytes,
+        stage_io,
+        stage_plain,
+    )
+    from repro_torch.train.train_state import model_plane_layout
+
+    full = model_plane_layout(get_config(MAIN["arch"]))
+    (key,) = full.buckets
+    shape = (MAIN["nodes"], full.rows[key], 1024)
+    ctx = MathCtx(beta=0.9)
+    svec = _svec(torch, lr=3e-3)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    out = {}
+    for kind, op in (("pre", "grad_step"), ("post", "decentlam_post")):
+        names_in, names_out = stage_io(kind, op, ctx)
+        ins = {n: torch.randn(shape, generator=gen, device="cuda") for n in names_in}
+        if "mix" in ins:
+            ins["mix"].mul_(0.01).add_(ins["x"])
+        outs = {n: torch.empty(shape, device="cuda") for n in names_out}
+        fused_stage_launch(kind, op, ctx, svec, ins, outs)
+        torch.cuda.synchronize()
+        f32 = {n: torch.float32 for n in names_out}
+
+        def plain():
+            for i in range(MAIN["nodes"]):
+                stage_plain(kind, op, ctx, svec, {n: t[i] for n, t in ins.items()}, f32)
+
+        err = 0.0
+        for i in range(MAIN["nodes"]):
+            want = stage_plain(kind, op, ctx, svec, {n: t[i] for n, t in ins.items()}, f32)
+            for n in names_out:
+                torch.testing.assert_close(outs[n][i], want[n], rtol=F32_TOL,
+                                           atol=F32_TOL * float(want[n].abs().max()))
+                err = max(err, float((outs[n][i] - want[n]).abs().max()))
+            del want
+        ms = _time_ms(torch, lambda: fused_stage_launch(kind, op, ctx, svec, ins, outs), 5)
+        plain_ms = _time_ms(torch, plain, 2)
+        lib = _library(torch, op)
+        lib_ms = _time_ms(torch, lambda: lib(svec, ins, outs), 5) if lib else None
+        numel = outs[names_out[0]].numel()
+        nbytes = stage_bytes(ins, outs)
+        bound_ms, by = _bound(nbytes, numel * STAGE_FLOPS[op])
+        out[op] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+                   "bound_by": by, "err": err, "bytes": nbytes, "shape": shape}
+        del ins, outs
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_flat_planes_main_path(torch, leaf, per_stage):
+    """The flat-plane training main path (phase 3's run with
+    ``--flat-planes``): 2 stage launches per step, the tail's time beside its
+    bound and beside phase 5's per-leaf tail, step time, device busy share,
+    peak memory beside phase 3's; then at 4 layers, 3 steps, its losses
+    against the per-leaf kernel path's, and one pmsgd-lars + grad_clip
+    plane step against the plain plane path."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.optimizers import make_optimizer
+    from repro_torch.core.schedules import ScheduleConfig
+    from repro_torch.data.synthetic import SyntheticLM, SyntheticLMConfig
+    from repro_torch.kernels.fused_update.kernel import fused_stage_launch, reset_launches
+    from repro_torch.launch import train
+    from repro_torch.train.step import TrainConfig, build_train_step
+    from repro_torch.train.train_state import init_train_state, model_plane_layout
+    from repro_torch.utils import tree_leaves
+
+    res, launches, total, events, step_ms = _profiled_train(torch, ["--flat-planes"])
+    steps = len(res["losses"])
+    if not all(math.isfinite(v) for v in res["losses"]):
+        raise RuntimeError(f"non-finite loss on the flat-plane path: {res['losses']}")
+    if total != 2 * steps or launches != {op: steps for op in STAGE_FLOPS}:
+        raise RuntimeError(f"flat planes: fused_update launched {total} times ({launches}), "
+                           f"want 2 x {steps}: one per bucket and stage")
+    plane = phase_plane_timing(torch)
+    tail = {k: sum(p[k] for p in plane.values()) for k in ("ms", "plain_ms", "bound_ms")}
+    leaf_tail = sum(r["ms"] for r in per_stage.values())
+    peak = res["peak_mem_bytes"] / 2**30
+    log(f"phase 15: flat planes, qwen3-0.6b full width x {res['n_nodes']} nodes, {steps} "
+        f"steps: losses {[round(v, 4) for v in res['losses']]}; fused_update launches "
+        f"{total} = 2 per step ({launches}; the per-leaf path: 28 per step)")
+    fmt = lambda v: "null" if v is None else f"{v:.3f} ms"
+    for op, p in plane.items():
+        log(f"  plane {op} on {p['shape']} f32: kernel {p['ms']:.3f} ms, bound "
+            f"{p['bound_ms']:.3f} ms by {p['bound_by']} ({p['bytes'] / 1e9:.2f} GB; "
+            f"{p['bound_ms'] / p['ms']:.1%} of it), plain version {p['plain_ms']:.3f} ms, "
+            f"library {fmt(p['library_ms'])}, max |kernel - plain| {p['err']:.3g}")
+    log(f"  tail {tail['ms']:.3f} ms/step (2 launches) against its bound {tail['bound_ms']:.3f} "
+        f"ms ({tail['bound_ms'] / tail['ms']:.1%}) and the per-leaf tail of phase 5, "
+        f"{leaf_tail:.3f} ms (28 launches); plain version {tail['plain_ms']:.3f} ms")
+    tokens = MAIN["nodes"] * MAIN["per_node_batch"] * MAIN["seq_len"]
+    log(f"  step {step_ms:.1f} ms (phase 3, per leaf: {leaf['step_ms']:.1f}), "
+        f"{tokens / step_ms * 1e3:.0f} tokens/s, peak memory {peak:.2f} GiB (phase 3, per "
+        f"leaf: {leaf['peak'] / 2**30:.2f} GiB), step times "
+        f"{[round(t, 4) for t in res['step_times_s']]}")
+    prof = _profile_report(torch, events, step_ms, 1e3 * sum(res["step_times_s"][-2:]) / 2)
+    log(f"  device busy {prof['busy_ms']:.1f} ms/step (phase 3: {leaf['busy_ms']:.1f}); "
+        f"fused_update {prof['classes'].get('fused_update (Triton)', 0.0):.3f} ms/step in the "
+        "profile; the kernels whose device time moved most against phase 3's profile "
+        "(launches and ms per step, per leaf -> planes):")
+    names = set(prof["kernels"]) | set(leaf["kernels"])
+    moved = sorted(names, key=lambda k: -abs(prof["kernels"].get(k, (0, 0.0))[1]
+                                             - leaf["kernels"].get(k, (0, 0.0))[1]))
+    for k in moved[:6]:
+        (n0, t0), (n1, t1) = leaf["kernels"].get(k, (0, 0.0)), prof["kernels"].get(k, (0, 0.0))
+        log(f"    {n0:g} / {t0:.2f} -> {n1:g} / {t1:.2f}  {k[:100]}")
+    torch.cuda.empty_cache()
+
+    depth, n3 = 4, 3
+    flat = train.main(_train_argv(n3, "triton", depth) + ["--flat-planes"])
+    per_leaf = train.main(_train_argv(n3, "triton", depth))
+    a, b = flat["losses"], per_leaf["losses"]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    if not rel <= 1e-6:
+        raise RuntimeError(f"flat-plane losses {a} != per-leaf kernel losses {b} (rtol 1e-6)")
+    log(f"  {depth} layers, {n3} steps: plane losses {a} vs per-leaf {b}: max rel diff "
+        f"{rel:.3g} (<= 1e-6), bitwise equal: {a == b}")
+
+    # one pmsgd-lars + grad_clip plane step: kernel against the plain plane path
+    import dataclasses
+
+    cfg = dataclasses.replace(get_config(MAIN["arch"]), n_layers=depth)
+    data = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=MAIN["seq_len"],
+                                         per_node_batch=MAIN["per_node_batch"],
+                                         n_nodes=MAIN["nodes"]))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch(0).items()}
+    after = {}
+    for impl in ("triton", "torch"):
+        tcfg = TrainConfig(algorithm="pmsgd-lars", grad_clip=1.0, weight_decay=1e-2,
+                           schedule=ScheduleConfig(kind="constant", peak_lr=0.1,
+                                                   total_steps=2),
+                           fused_update=True, fused_impl=impl, flat_planes=True)
+        step_fn, channel = build_train_step(cfg, tcfg, MAIN["nodes"])
+        state = init_train_state(cfg, make_optimizer(tcfg.opt_config()), MAIN["nodes"],
+                                 device=torch.device("cuda"), channel=channel,
+                                 plane_layout=model_plane_layout(cfg))
+        reset_launches()
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+        after[impl] = (state["planes"], state["opt"]["m"], fused_stage_launch.launches)
+    (px, pm, n_k), (qx, qm, _) = after["triton"], after["torch"]
+    errs = []
+    for got, want in ((px, qx), (pm, qm)):
+        for g, w in zip(tree_leaves(got), tree_leaves(want)):
+            torch.testing.assert_close(g, w, rtol=F32_TOL, atol=F32_TOL * float(w.abs().max()))
+            errs.append(float((g - w).abs().max()))
+    log(f"  pmsgd-lars + grad_clip 1.0 + weight_decay 1e-2, one plane step at {depth} layers: "
+        f"kernel ({n_k} launches) == plain plane path, max |diff| {max(errs):.3g} (rtol "
+        f"{F32_TOL})")
+    del after, px, pm, qx, qm, state
+    torch.cuda.empty_cache()
+    return {"launches": launches, "plane": plane}
+
+
+
+SWT = dict(steps=8, publish_every=2)  # phase 16: serving while training
+
+
+def phase_serve_while_training(torch):
+    """Phase 15's trainer with ``--serve-while-training`` at full width: node
+    0 publishes every 2 steps through the WeightPublisher, the engine (4
+    slots, ``attn_impl="cuda"``) ticks once per step and drains after.
+    Gates: every offer ships (the stacked channel has no staleness); each
+    snapshot equals node 0's parameter plane byte for byte; the engine's
+    parameters never change inside a decode call; every request completes;
+    flash_attention launched once per layer per prefill wave; the requests
+    admitted after the last swap get the tokens of a fresh engine on that
+    snapshot."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_launch, reset_launches
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import RuntimeConfig
+    from repro_torch.serve import ServeEngine
+
+    rt = RuntimeConfig(dtype="float32", attn_impl="cuda")
+    seen = {"checked": 0, "offer_ms": [], "swap_ms": [], "swap_at": [], "requests": [],
+            "inside": 0}
+
+    def hook(engine, pub):
+        seen["engine"], seen["pub"] = engine, pub
+        offer, swap, decode, submit = pub.offer, engine._maybe_swap, engine.decode_step, \
+            engine.submit
+
+        def checked_offer(src, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            shipped = offer(src, **kw)
+            seen["offer_ms"].append(1e3 * (time.perf_counter() - t))
+            if shipped:
+                for k, plane in src.items():
+                    if not _same_bits(torch, pub.current.planes[k].to(plane.device), plane):
+                        raise RuntimeError(f"snapshot v{kw['version']} != node 0's {k} plane")
+                seen["checked"] += 1
+            return shipped
+
+        def timed_swap():
+            before = engine.version
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            swap()
+            if engine.version != before:
+                seen["swap_ms"].append(1e3 * (time.perf_counter() - t))
+                seen["swap_at"].append(time.perf_counter())
+
+        def watched_decode(params, *args):
+            version, ident = engine.version, id(engine._params)
+            out = decode(params, *args)
+            if engine.version != version or id(engine._params) != ident:
+                seen["inside"] += 1
+            return out
+
+        def recorded_submit(req):
+            seen["requests"].append(req)
+            submit(req)
+
+        pub.offer, engine._maybe_swap, engine.decode_step = checked_offer, timed_swap, \
+            watched_decode
+        engine.submit = recorded_submit
+
+    reset_launches()
+    res = train.main(_train_argv(SWT["steps"], "triton") + [
+        "--flat-planes", "--serve-while-training", "--publish-every", str(SWT["publish_every"])],
+        serve_runtime=rt, on_serve=hook)
+    flash = flash_attention_launch.launches
+    eng, pub = seen["engine"], seen["pub"]
+    ps, es = res["serve"]["publisher"], res["serve"]["engine"]
+    want_pub = -(-SWT["steps"] // SWT["publish_every"])
+    if ps["offers"] != want_pub or ps["published"] != want_pub or seen["checked"] != want_pub:
+        raise RuntimeError(f"publisher {ps}, {seen['checked']} snapshots checked; want "
+                           f"{want_pub} offers, all shipped and checked")
+    if seen["inside"] or es["swaps"] != want_pub - 1:
+        raise RuntimeError(f"engine {es}: {seen['inside']} parameter changes inside a decode "
+                           f"call; want none and {want_pub - 1} swaps")
+    done = {c.rid: c for c in eng.completions}
+    reqs = seen["requests"]
+    if sorted(done) != [r.rid for r in reqs]:
+        raise RuntimeError(f"{len(done)} of {len(reqs)} requests completed")
+    n_layers = get_config(MAIN["arch"]).n_layers
+    if flash != n_layers * es["prefills"]:
+        raise RuntimeError(f"flash_attention launched {flash} times, want {n_layers} x "
+                           f"{es['prefills']} prefill waves")
+    after = [r for r in reqs if done[r.rid].admitted_s > seen["swap_at"][-1]]
+    if not after:
+        raise RuntimeError("no request was admitted after the last swap")
+    fresh = ServeEngine(get_config(MAIN["arch"]), slots=4, max_prompt=32, max_new=16,
+                        params=pub.current.params, runtime=rt)
+    for r in after:
+        fresh.submit(r)
+    ref = {c.rid: c.tokens for c in fresh.run_until_drained()}
+    parted = [r.rid for r in after if not (ref[r.rid] == done[r.rid].tokens).all()]
+    if parted:
+        raise RuntimeError(f"requests {parted}: tokens after the last swap differ from a fresh "
+                           f"engine on snapshot v{pub.current.version}")
+    log(f"phase 16: serving while training, qwen3-0.6b full width, flat planes, "
+        f"{SWT['steps']} steps: published {ps['published']}/{ps['offers']} offers (every "
+        f"{SWT['publish_every']} steps, gap 0), each snapshot == node 0's parameter plane byte "
+        f"for byte; {es['swaps']} swaps, all between decode batches; {len(done)}/{len(reqs)} "
+        f"requests complete in {es['decode_batches']} decode batches, {es['prefills']} prefill "
+        f"waves, flash_attention launches {flash} (= {n_layers} x {es['prefills']}); the "
+        f"{len(after)} requests admitted after the last swap == a fresh engine on v"
+        f"{pub.current.version}, token for token")
+    gb = sum(v.numel() * v.element_size() for v in pub.current.planes.values()) / 1e9
+    log(f"  per publish, node 0's plane to the pinned host buffer ({gb:.2f} GB, one copy per "
+        f"bucket): {[round(v, 1) for v in seen['offer_ms']]} ms; per swap, host to device: "
+        f"{[round(v, 1) for v in seen['swap_ms']]} ms (the first is the initial load); train "
+        f"step {res['step_s'] * 1e3:.1f} ms, losses {[round(v, 4) for v in res['losses']]}")
+    del fresh, eng, pub, seen
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -1328,7 +1809,7 @@ def main() -> int:
         ml_built = pool.submit(build_timed, build_mlstm)
         timed("1 device", phase_device)
         timed("2 fused_update vs plain", phase_kernel_vs_plain)
-        launches = timed("3 train main path", phase_main_path)
+        main_path = timed("3 train main path", phase_main_path)
         timed("4 train kernel vs plain path", phase_plain_vs_kernel_path)
         per_stage = timed("5 fused_update timing", phase_timing)
         fa_built, ml_built = fa_built.result(), ml_built.result()
@@ -1340,6 +1821,10 @@ def main() -> int:
     ml_launches = timed("11 xlstm serve main path", phase_xlstm_serve_main_path)
     timed("12 xlstm kernel vs plain path", phase_xlstm_kernel_vs_plain)
     ml = timed("13 mlstm_chunk timing", phase_mlstm_timing)
+    timed("14 plane fused_update vs plain", phase_plane_kernel_vs_plain)
+    flat = timed("15 flat-plane train main path", phase_flat_planes_main_path, main_path,
+                 per_stage)
+    timed("16 serve while training", phase_serve_while_training)
     log(f"phase times (s): {phases}; total {time.perf_counter() - t0:.1f}s")
     # one record per specialization of the Triton kernel on the training main
     # path (times per step, summed over the 14 leaves), and the flash and
@@ -1349,7 +1834,7 @@ def main() -> int:
         "route": "triton",
         "source": "src/repro_torch/kernels/fused_update/_triton.py",
         "replaces": "src/repro/kernels/fused_update/kernel.py:66",
-        "launches": launches[op],
+        "launches": main_path["launches"][op],
         "max_abs_err": rec["err"],
         "ms": rec["ms"],
         "plain_ms": rec["plain_ms"],
@@ -1357,6 +1842,21 @@ def main() -> int:
         "bound_by": rec["bound_by"],
         "library_ms": rec["library_ms"],
     } for op, rec in per_stage.items()]
+    # the flat-plane path: one launch per stage and step over the whole
+    # (4, 648000, 1024) plane (phase 15)
+    records += [{
+        "name": f"fused_update[plane {op}]",
+        "route": "triton",
+        "source": "src/repro_torch/kernels/fused_update/_triton.py",
+        "replaces": "src/repro/kernels/fused_update/kernel.py:66",
+        "launches": flat["launches"][op],
+        "max_abs_err": rec["err"],
+        "ms": rec["ms"],
+        "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"],
+        "library_ms": rec["library_ms"],
+    } for op, rec in flat["plane"].items()]
     records.append({
         "name": "flash_attention[causal, f32, hd 64]",
         "route": "cuda",

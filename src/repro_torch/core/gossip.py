@@ -11,6 +11,9 @@ tree::
     channel.apply(state, tree, step)    -> (state, tree)  # one gossip round
     channel.node_gaps(state)            -> per-node version gap
 
+:func:`fleet_node_gaps` reads the per-node gaps on the host, the signal the
+serving publisher gates on.
+
 :class:`StackedChannel` is the transport of this slice: leaves carry a
 leading node axis ``(n, ...)`` (n replicas on one device) and the mix is the
 dense ``W @`` product per leaf in float32, as in ``repro.core.gossip``.
@@ -31,7 +34,7 @@ from .topology import Topology
 
 Tree = Any
 
-__all__ = ["GossipChannel", "StackedChannel", "make_stacked_mean"]
+__all__ = ["GossipChannel", "StackedChannel", "make_stacked_mean", "fleet_node_gaps"]
 
 
 class GossipChannel:
@@ -99,6 +102,14 @@ class GossipChannel:
         transport of this slice is staleness-free."""
         return 0
 
+    def has_staleness(self) -> bool:
+        """Whether the transport can deliver stale payloads (a delayed
+        channel); none of this slice's can."""
+        return False
+
+    def version_gaps(self, state: Tree):
+        raise NotImplementedError("version gaps come with the delayed channels")
+
 
 class StackedChannel(GossipChannel):
     """Dense ``W @`` transport over stacked ``(n, ...)`` leaves."""
@@ -149,3 +160,16 @@ def make_stacked_mean(n_nodes: int):
         return tree_map(leaf, tree)
 
     return mean
+
+
+def fleet_node_gaps(channel: GossipChannel, state: Tree) -> np.ndarray:
+    """Host-side ``(n,)`` per-node consensus gaps for the whole fleet: entry
+    ``i`` is the worst version gap on any edge incident to node ``i``.  A
+    staleness-free channel returns zeros; the version-gap branch comes with
+    the delayed channels and raises until then."""
+    n = channel.topology.n
+    if not channel.has_staleness():
+        return np.zeros(n, np.int32)
+    raise NotImplementedError(
+        "fleet_node_gaps of a delayed channel comes with the delayed channels"
+    )

@@ -111,7 +111,8 @@ class Optimizer(NamedTuple):
     init: Callable[[Tree], Tree]
     step: Callable[..., tuple[Tree, Tree, Tree]]
     # step(params, grads, state, *, lr, step_idx, gossip, mean,
-    #      comp_state={}, node_gaps=None) -> (params, state, comp_state)
+    #      comp_state={}, node_gaps=None, scalars=None)
+    #   -> (params, state, comp_state); scalars overrides grad_scalars
     gossips_per_step: int  # payload sends per iteration (comm accounting)
 
 
@@ -143,7 +144,7 @@ def make_optimizer(cfg: OptimizerConfig) -> Optimizer:
 
     def step(
         params, grads, state, *, lr, step_idx, gossip, mean,
-        comp_state=None, node_gaps=None,
+        comp_state=None, node_gaps=None, scalars=None,
     ):
         x, new_state, comp_state = run_update(
             spec,
@@ -158,6 +159,7 @@ def make_optimizer(cfg: OptimizerConfig) -> Optimizer:
             comp_state={} if comp_state is None else comp_state,
             stage=reference_stage,
             node_gaps=node_gaps,
+            scalars=scalars,
         )
         out = tree_map(lambda p, nx: nx.to(p.dtype), params, x)
         return out, new_state, comp_state

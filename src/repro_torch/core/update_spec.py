@@ -15,7 +15,8 @@ oracle) or the fused engine of :mod:`repro_torch.kernels.fused_update`
 
 Gradient preprocessing (global-norm clip, coupled weight decay, LARS trust
 ratios) needs reductions, so the *norms* are computed outside the stages
-(:func:`grad_scalars`); the resulting scalars are applied inside them.
+(:func:`grad_scalars`, or per node of stacked trees
+:func:`node_grad_scalars`); the resulting scalars are applied inside them.
 
 Phase table (paper Sec. 7 baselines + Alg. 2):
 
@@ -57,6 +58,7 @@ __all__ = [
     "post_is_free",
     "stage_plan",
     "grad_scalars",
+    "node_grad_scalars",
     "pre_io",
     "post_io",
     "pre_math",
@@ -249,15 +251,24 @@ def post_io(op: str) -> tuple[tuple[str, ...], tuple[str, ...]]:
     return POST_IO[op]
 
 
+def _bcast(v, like):
+    """A stage scalar broadcast against a leaf value: a scalar as it is; a
+    per-node ``(n,)`` tensor (stacked layout) reshaped to ``(n, 1, ...)``; a
+    plane's row column (``(rows, 1)`` or ``(n, rows, 1)``) as it is."""
+    if isinstance(v, torch.Tensor) and 0 < v.ndim < like.ndim:
+        v = v.reshape(tuple(v.shape) + (1,) * (like.ndim - v.ndim))
+    return v
+
+
 def _g_eff(ctx: MathCtx, s, x, g):
     """Clip-scale + coupled weight decay + LARS, folded into the stage
     (clip first, then ``wd*x + g``, then the trust ratio)."""
     if ctx.clip:
-        g = s["gs"] * g
+        g = _bcast(s["gs"], g) * g
     if ctx.coupled_wd:
         g = ctx.wd * x + g
     if ctx.lars:
-        g = s["r"] * g
+        g = _bcast(s["r"], g) * g
     return g
 
 
@@ -290,10 +301,7 @@ def staleness_damping(cfg, gap, device=None) -> torch.Tensor:
 def _sg_of(s, like):
     """The stage's damping factor, broadcast against a leaf value: scalar, or
     ``(n,)`` reshaped to ``(n, 1, ...)`` in the stacked layout."""
-    sg = s.get("sg", 1.0)
-    if isinstance(sg, torch.Tensor) and sg.ndim:
-        sg = sg.reshape(tuple(sg.shape) + (1,) * (like.ndim - sg.ndim))
-    return sg
+    return _bcast(s.get("sg", 1.0), like)
 
 
 def pre_math(op: str, ctx: MathCtx, s, **v):
@@ -403,6 +411,30 @@ def grad_scalars(cfg, x: Tree, g: Tree) -> dict[str, Any]:
     return s
 
 
+def node_grad_scalars(cfg, x: Tree, g: Tree) -> dict[str, Any]:
+    """:func:`grad_scalars` of each node of stacked ``(n, ...)`` trees: ``gs``
+    an ``(n,)`` tensor, ``r`` a tree of ``(n,)`` tensors, entry ``i`` equal to
+    ``grad_scalars(cfg, x[i], g[i])`` — each node clips by its own norm and
+    takes its own LARS norms, as inside ``repro``'s shard_map step.  A
+    feature that is off keeps its scalar 1.0, so without clip and LARS this
+    is ``grad_scalars`` itself (no reduction)."""
+    clip = cfg.grad_clip > 0.0
+    lars = bool(cfg.lars or cfg.algorithm == "pmsgd-lars")
+    if not (clip or lars):
+        return grad_scalars(cfg, x, g)
+    n = tree_leaves(g)[0].shape[0]
+    per = [
+        grad_scalars(cfg, tree_map(lambda a: a[i], x), tree_map(lambda a: a[i], g))
+        for i in range(n)
+    ]
+    s = dict(per[0])
+    if clip:
+        s["gs"] = torch.stack([p["gs"] for p in per])
+    if lars:
+        s["r"] = tree_map(lambda *rs: torch.stack(rs), *[p["r"] for p in per])
+    return s
+
+
 # ---------------------------------------------------------------------------
 # Stage executors + the phase walker
 # ---------------------------------------------------------------------------
@@ -416,8 +448,11 @@ def _f32_tree(tree: Tree) -> Tree:
 
 
 def leaf_scalars(scalars, n_leaves: int, ctx: MathCtx) -> list[dict]:
-    """Per-leaf ``{lr, gs, r, sg}``; ``r`` may be a tree of per-leaf scalars
-    (LARS), ``sg`` is the staleness damping (scalar, or ``(n,)``)."""
+    """Per-leaf ``{lr, gs, r, sg}``.  ``r`` may be a tree of per-leaf values
+    (LARS): scalars, per-node ``(n,)`` tensors, or a plane dict of row
+    columns; ``gs`` (clip) and ``sg`` (staleness damping) are scalars or
+    ``(n,)``.  The stage math broadcasts an ``(n,)`` value over the node
+    axis (:func:`_bcast`)."""
     r = scalars.get("r")
     if ctx.lars and isinstance(r, dict):
         rs = tree_leaves(r)

@@ -11,7 +11,7 @@ import triton.language as tl
 
 @triton.jit
 def fused_stage_kernel(
-    s_ptr, x_ptr, g_ptr, m_ptr, mix_ptr, xp_ptr, mp_ptr,
+    s_ptr, gs_ptr, r_ptr, x_ptr, g_ptr, m_ptr, mix_ptr, xp_ptr, mp_ptr,
     ox_ptr, op_ptr, om_ptr,
     numel, beta, omb, wd,
     OP: tl.constexpr,
@@ -19,16 +19,40 @@ def fused_stage_kernel(
     HAS_MIX: tl.constexpr, HAS_PREV: tl.constexpr,
     NESTEROV: tl.constexpr, COUPLED_WD: tl.constexpr, DECOUPLED_WD: tl.constexpr,
     CLIP: tl.constexpr, LARS: tl.constexpr,
+    NODE_GRID: tl.constexpr, GS_COL: tl.constexpr, R_COL: tl.constexpr,
     BLOCK: tl.constexpr,
 ):
     # beta, omb (= 1 - beta, rounded on the host as the plain version does)
-    # and wd are the MathCtx constants; s_ptr -> [lr, gs, r, sg]
-    pid = tl.program_id(0).to(tl.int64)
-    offs = pid * BLOCK + tl.arange(0, BLOCK).to(tl.int64)
-    mask = offs < numel
+    # and wd are the MathCtx constants; s_ptr -> [lr, gs, r, sg].
+    # NODE_GRID: a 2-D grid (blocks of one node's ``numel`` elements, nodes)
+    # over a stacked operand; else a 1-D grid over all ``numel`` elements.
+    # GS_COL / R_COL override the svec scalar: 0 none, 1 per node
+    # (``ptr[node]``), 2 per row (``ptr[node * rows + block]``: with BLOCK
+    # equal to the plane's row width a program covers exactly one row).
+    # Each is one scalar load per program.
+    if NODE_GRID:
+        blk = tl.program_id(0).to(tl.int64)
+        node = tl.program_id(1).to(tl.int64)
+        local = blk * BLOCK + tl.arange(0, BLOCK).to(tl.int64)
+        mask = local < numel
+        offs = node * numel + local
+    else:
+        pid = tl.program_id(0).to(tl.int64)
+        offs = pid * BLOCK + tl.arange(0, BLOCK).to(tl.int64)
+        mask = offs < numel
     lr = tl.load(s_ptr)
-    gs = tl.load(s_ptr + 1)
-    r = tl.load(s_ptr + 2)
+    if GS_COL == 1:
+        gs = tl.load(gs_ptr + node)
+    elif GS_COL == 2:
+        gs = tl.load(gs_ptr + node * tl.num_programs(0) + blk)
+    else:
+        gs = tl.load(s_ptr + 1)
+    if R_COL == 1:
+        r = tl.load(r_ptr + node)
+    elif R_COL == 2:
+        r = tl.load(r_ptr + node * tl.num_programs(0) + blk)
+    else:
+        r = tl.load(s_ptr + 2)
     sg = tl.load(s_ptr + 3)
     safe_lr = tl.maximum(lr, 1e-12)
 

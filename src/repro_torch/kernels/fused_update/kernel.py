@@ -20,11 +20,25 @@ bytes over 3.35 TB/s.  The design follows from that:
   parameter dtype and every other output in f32 (``update_spec``'s policy);
 * the traced scalars ``lr, gs, r, sg`` are read from a ``(4,)`` f32 device
   tensor, so a new lr recompiles nothing and the launch needs no host value;
+* per-node and per-row scalars (the counterpart of the reference kernel's
+  ``row_scalars`` operand, ``kernel.py:37-53,76,97,133``): ``gs`` and ``r``
+  may instead come from a compact f32 column, one float per node or per
+  plane row.  The grid is then 2-D, ``(blocks of one node, nodes)``, and a
+  program loads its one value with one scalar load: with ``BLOCK`` equal to
+  the plane's row width, a program is exactly one plane row, so no
+  per-element index arithmetic reads the column.  The TPU's ``(rows, 128)``
+  VMEM column was a layout artefact; the card needs one float per row.
+  The modes are ``tl.constexpr``: a stage without such columns compiles to
+  the 1-D kernel it always was;
 * offsets are 64-bit: a stacked lm_head leaf passes 2**31 elements at 14
   nodes;
 * ``(x - mix) / lr`` uses IEEE division (``div_rn``) like the plain version;
   Triton contracts ``a*b + c`` into FMAs where eager torch does not, so the
-  kernel and the plain version agree to about one ulp, not bitwise.
+  kernel and the plain version agree to about one ulp, not bitwise.  Some
+  ops (``decentlam_sa_post``'s m; bf16-x stages with clip + coupled wd +
+  LARS) contract differently at different positions of a block, so the same
+  element at another offset modulo ``BLOCK`` can differ by an ulp: the plane
+  and per-leaf launches agree bitwise on leaves of whole 1024-element rows.
 
 The caller may pass the same tensor as an input and as an output (``x``
 and ``m`` updated in place): each program loads its block before it stores
@@ -46,8 +60,10 @@ __all__ = [
     "stage_bytes",
 ]
 
-BLOCK = 1024
+BLOCK = 1024  # = planes.LANES: a per-row column's program covers one plane row
 NUM_WARPS = 4
+# column modes of the kernel's GS_COL / R_COL
+_COL_MODE = {"node": 1, "row": 2}
 
 # op -> kernel op code (the kernel body's constexpr ``OP``)
 OPS: dict[tuple[str, str], int] = {
@@ -78,12 +94,17 @@ def stage_io(kind: str, op: str, ctx: MathCtx):
 # ---------------------------------------------------------------------------
 
 
-def stage_plain(kind, op, ctx: MathCtx, svec: torch.Tensor, ins: dict, out_dtypes: dict):
-    """One stage on one leaf in plain torch: ``pre_math``/``post_math`` on f32
-    upcasts of ``ins``, with the scalars read from ``svec = [lr, gs, r, sg]``.
-    Returns ``{name: tensor}`` in ``out_dtypes``; like the kernel's, each
-    output is its own buffer (never an input, never another output)."""
-    s = {"lr": svec[0], "gs": svec[1], "r": svec[2], "sg": svec[3]}
+def stage_plain(kind, op, ctx: MathCtx, svec: torch.Tensor, ins: dict, out_dtypes: dict,
+                cols: dict | None = None):
+    """One stage on one leaf or plane in plain torch: ``pre_math``/``post_math``
+    on f32 upcasts of ``ins``, with the scalars read from ``svec = [lr, gs,
+    r, sg]`` and overridden by ``cols`` (``{"gs"|"r": tensor}``, each an
+    ``(n,)`` per-node value or a ``(rows, 1)`` / ``(n, rows, 1)`` row column,
+    broadcast by the stage math).  Returns ``{name: tensor}`` in
+    ``out_dtypes``; like the kernel's, each output is its own buffer (never
+    an input, never another output).  Counts its calls in
+    ``stage_plain.calls``."""
+    s = {"lr": svec[0], "gs": svec[1], "r": svec[2], "sg": svec[3], **(cols or {})}
     vals = {n: t.to(torch.float32) for n, t in ins.items()}
     math = pre_math if kind == "pre" else post_math
     res = math(op, ctx, s, **vals)
@@ -95,6 +116,7 @@ def stage_plain(kind, op, ctx: MathCtx, svec: torch.Tensor, ins: dict, out_dtype
             t = t.clone()
         seen.append(t)
         out[n] = t
+    stage_plain.calls += 1
     return out
 
 
@@ -103,14 +125,22 @@ def stage_bytes(ins: dict, outs: dict) -> int:
     return sum(t.numel() * t.element_size() for t in (*ins.values(), *outs.values()))
 
 
-def fused_stage_launch(kind, op, ctx: MathCtx, svec: torch.Tensor, ins: dict, outs: dict):
+def fused_stage_launch(kind, op, ctx: MathCtx, svec: torch.Tensor, ins: dict, outs: dict,
+                       *, nodes: int = 0, per_node: dict | None = None,
+                       per_row: dict | None = None):
     """Launch the stage kernel on CUDA tensors: ``ins`` are the op's operands
     (:func:`~repro_torch.core.update_spec.pre_io`/``post_io`` names), ``outs``
     the preallocated outputs (an output may be the same tensor as the input
-    of that name).  Checks device, dtype, shape and contiguity and raises on
-    anything the kernel does not take; counts its launches in
-    ``fused_stage_launch.launches`` and, per op, in
-    ``fused_stage_launch.launches_by_op``."""
+    of that name).
+
+    ``nodes > 0`` runs the 2-D grid over a stacked operand whose leading
+    ``nodes`` slices are the nodes; ``per_node`` (``{"gs"|"r": (nodes,)}``)
+    and ``per_row`` (``{"gs"|"r": (nodes * rows,)}``, operands shaped
+    ``(nodes, rows, BLOCK)`` or, at ``nodes=1``, ``(rows, BLOCK)``) override
+    the svec scalar of that name with a float32 column.  Checks device,
+    dtype, shape and contiguity and raises on anything the kernel does not
+    take; counts its launches in ``fused_stage_launch.launches`` and, per op,
+    in ``fused_stage_launch.launches_by_op``."""
     names_in, names_out = stage_io(kind, op, ctx)
     if tuple(ins) != tuple(names_in) or tuple(outs) != tuple(names_out):
         raise ValueError(
@@ -134,17 +164,44 @@ def fused_stage_launch(kind, op, ctx: MathCtx, svec: torch.Tensor, ins: dict, ou
         if name != "x" and t.dtype != torch.float32:
             raise ValueError(f"output {name!r} must be float32, got {t.dtype}")
 
+    numel = first.numel()
+    cols = {name: (t, "node") for name, t in (per_node or {}).items()}
+    for name, t in (per_row or {}).items():
+        if name in cols:
+            raise ValueError(f"{name!r} is given both per node and per row")
+        cols[name] = (t, "row")
+    if cols or nodes:
+        if nodes <= 0 or first.ndim < 1 or numel % nodes:
+            raise ValueError(f"a column needs nodes > 0 dividing the operand's "
+                             f"{numel} elements, got nodes={nodes}")
+        numel //= nodes  # one node's elements: the 2-D grid's row
+        if nodes > 65535:
+            raise ValueError(f"{nodes} nodes exceed the grid's second dimension (65535)")
+    rows = -(-numel // BLOCK)
+    for name, (t, mode) in cols.items():
+        if name not in ("gs", "r"):
+            raise ValueError(f"only gs and r take a column, got {name!r}")
+        if mode == "row" and (numel % BLOCK or first.shape[-1] != BLOCK):
+            raise ValueError(f"a per-row column needs operands of rows of {BLOCK}, "
+                             f"got {tuple(first.shape)}")
+        want = nodes if mode == "node" else nodes * rows
+        if (t.device != dev or t.dtype != torch.float32 or not t.is_contiguous()
+                or t.numel() != want):
+            raise ValueError(f"{name} column: {tuple(t.shape)} {t.dtype} on {t.device}; want "
+                             f"{want} contiguous float32 values on {dev} (one per {mode})")
+
     import triton
 
     from ._triton import fused_stage_kernel
 
-    numel = first.numel()
     dummy = svec
     ptr = lambda d, n: d.get(n, dummy)
-    grid = (triton.cdiv(numel, BLOCK),)
+    col = lambda n: cols[n][0] if n in cols else dummy
+    mode = lambda n: _COL_MODE[cols[n][1]] if n in cols else 0
+    grid = (triton.cdiv(numel, BLOCK), nodes) if nodes else (triton.cdiv(numel, BLOCK),)
     with torch.cuda.device(dev):
         fused_stage_kernel[grid](
-            svec,
+            svec, col("gs"), col("r"),
             ptr(ins, "x"), ptr(ins, "g"), ptr(ins, "m"), ptr(ins, "mix"),
             ptr(ins, "x_prev"), ptr(ins, "m_prev"),
             ptr(outs, "x"), ptr(outs, "payload"), ptr(outs, "m"),
@@ -154,6 +211,7 @@ def fused_stage_launch(kind, op, ctx: MathCtx, svec: torch.Tensor, ins: dict, ou
             HAS_MIX="mix" in ins, HAS_PREV="x_prev" in ins,
             NESTEROV=ctx.nesterov, COUPLED_WD=ctx.coupled_wd,
             DECOUPLED_WD=ctx.decoupled_wd, CLIP=ctx.clip, LARS=ctx.lars,
+            NODE_GRID=bool(nodes), GS_COL=mode("gs"), R_COL=mode("r"),
             BLOCK=BLOCK, num_warps=NUM_WARPS,
         )
     fused_stage_launch.launches += 1
@@ -163,9 +221,10 @@ def fused_stage_launch(kind, op, ctx: MathCtx, svec: torch.Tensor, ins: dict, ou
 
 
 def reset_launches() -> None:
-    """Set the launch counts to 0."""
+    """Set the launch counts, and the plain version's call count, to 0."""
     fused_stage_launch.launches = 0
     fused_stage_launch.launches_by_op = {}
+    stage_plain.calls = 0
 
 
 reset_launches()

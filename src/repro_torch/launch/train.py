@@ -12,6 +12,13 @@ Examples::
         --arch qwen3-0.6b --steps 5 --seq-len 256 --per-node-batch 4 \\
         --algorithm decentlam --topology exp --fused-update --fused-impl triton
 
+    # the same on flat parameter planes (2 stage launches per step), serving
+    # node 0's weights while it trains
+    PYTHONPATH=src python -m repro_torch.launch.train --nodes 4 \\
+        --arch qwen3-0.6b --steps 8 --seq-len 256 --per-node-batch 4 \\
+        --fused-update --fused-impl triton --flat-planes \\
+        --serve-while-training --publish-every 2
+
     # tiny LM on the host CPU (the kernel's plain version)
     PYTHONPATH=src python -m repro_torch.launch.train --nodes 4 --preset tiny \\
         --steps 2 --seq-len 32 --per-node-batch 2 --fused-update --device cpu
@@ -33,8 +40,8 @@ from ..data.pipeline import prefetch_to_device
 from ..data.synthetic import SyntheticLM, SyntheticLMConfig
 from ..models.transformer import count_params
 from ..train.step import TrainConfig, build_train_step
-from ..train.train_state import init_train_state
-from ..utils import resolve_device
+from ..train.train_state import init_train_state, model_plane_layout
+from ..utils import resolve_device, tree_map
 
 
 def _parse(argv=None):
@@ -62,6 +69,23 @@ def _parse(argv=None):
     p.add_argument("--fused-impl", dest="fused_impl", default="triton",
                    choices=["triton", "torch"],
                    help="the stage kernel (triton) or its plain version (torch)")
+    p.add_argument("--flat-planes", dest="flat_planes", action="store_true",
+                   help="keep the parameters and the optimizer state in dtype-bucketed "
+                   "plane buffers and run the update tail on them (one stage launch "
+                   "per bucket)")
+    p.add_argument("--serve-while-training", dest="serve_while_training",
+                   action="store_true",
+                   help="publish node 0's weights through the consensus-gated "
+                   "WeightPublisher every --publish-every steps and advance a "
+                   "continuous-batching ServeEngine one tick per train step over a "
+                   "synthetic request load")
+    p.add_argument("--publish-every", dest="publish_every", type=int, default=20,
+                   help="steps between publication offers")
+    p.add_argument("--publish-gap-threshold", dest="publish_gap_threshold", type=int,
+                   default=1, help="max incident gossip version gap a node may carry and "
+                   "still publish (see fleet_node_gaps)")
+    p.add_argument("--serve-requests", dest="serve_requests", type=int, default=8,
+                   help="synthetic requests for the serve demo")
     p.add_argument("--no-finite-guard", dest="finite_guard", action="store_false",
                    help="disable the non-finite-gradient skip guard")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -71,11 +95,54 @@ def _parse(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None, *, on_step=None) -> dict:
+def _serve_demo(args, cfg, layout, channel, device, runtime, on_serve):
+    """The serving-while-training demo: a publisher over the plane layout, an
+    engine (4 slots, prompts up to 32 tokens, 16 new) over it, and
+    ``--serve-requests`` requests of 4..32 tokens from ``default_rng(7)``.
+    Returns ``(publisher, engine, serve(step, state))``: node 0 offers its
+    weights every ``--publish-every`` steps, then the engine ticks once."""
+    import numpy as np
+
+    from ..core.gossip import fleet_node_gaps
+    from ..serve import Request, ServeEngine, WeightPublisher
+
+    pub = WeightPublisher(layout, gap_threshold=args.publish_gap_threshold)
+    engine = ServeEngine(cfg, slots=4, max_prompt=32, max_new=16, publisher=pub,
+                         runtime=runtime, device=device)
+    if on_serve is not None:
+        on_serve(engine, pub)
+    srng = np.random.default_rng(7)
+    for i in range(args.serve_requests):
+        n = int(srng.integers(4, 33))
+        engine.submit(Request(rid=i, tokens=srng.integers(0, cfg.vocab_size, n)
+                              .astype(np.int32), max_new_tokens=16))
+
+    def serve(step, state):
+        """One cooperative slice: maybe publish, then one engine tick."""
+        if step % args.publish_every == 0:
+            gaps = fleet_node_gaps(channel, state["channel"])
+            # node 0's iterate: its slice of each plane (one copy per
+            # bucket), or of each leaf on the per-leaf path
+            if "planes" in state:
+                src = {k: p[0] for k, p in state["planes"].items()}
+            else:
+                src = tree_map(lambda x: x[0], state["params"])
+            shipped = pub.offer(src, version=step + 1, gap=int(gaps[0]))
+            print(f"publish v{step + 1} gap={int(gaps[0])} -> "
+                  f"{'shipped' if shipped else 'held (gate)'}", flush=True)
+        engine.tick()
+
+    return pub, engine, serve
+
+
+def main(argv=None, *, on_step=None, serve_runtime=None, on_serve=None) -> dict:
     """Run the trainer; returns ``{losses, lrs, step_s, tokens_per_s,
     peak_mem_bytes, ...}`` (losses/lrs per step).  ``on_step(step)``, if
     given, is called after each step has finished on the device (a
-    profiler's ``step``, for example)."""
+    profiler's ``step``, for example).  With ``--serve-while-training`` the
+    engine takes ``serve_runtime`` (default: the engine's own, float32 with
+    the plain attention), ``on_serve(engine, publisher)`` sees both once
+    they exist, and the result holds the demo's ``"serve"`` stats."""
     args = _parse(argv)
     device = resolve_device(args.device)
     if args.arch:
@@ -97,17 +164,25 @@ def main(argv=None, *, on_step=None) -> dict:
         ),
         fused_update=args.fused_update,
         fused_impl=args.fused_impl,
+        flat_planes=args.flat_planes,
         finite_guard=args.finite_guard,
     )
     step_fn, channel = build_train_step(cfg, tcfg, n_nodes)
     opt = make_optimizer(tcfg.opt_config())
+    layout = model_plane_layout(cfg) if args.flat_planes or args.serve_while_training else None
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
-    state = init_train_state(cfg, opt, n_nodes, device=device, channel=channel)
+    state = init_train_state(cfg, opt, n_nodes, device=device, channel=channel,
+                             plane_layout=layout if args.flat_planes else None)
     n_params = count_params(state["params"]) // n_nodes
     print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params:,} "
           f"params/node x {n_nodes} nodes on {device}", flush=True)
+
+    serve = None
+    if args.serve_while_training:
+        pub, engine, serve = _serve_demo(args, cfg, layout, channel, device, serve_runtime,
+                                         on_serve)
 
     data = SyntheticLM(SyntheticLMConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq_len,
@@ -126,12 +201,15 @@ def main(argv=None, *, on_step=None) -> dict:
         step_times.append(time.perf_counter() - ts)
         if on_step is not None:
             on_step(step)
+        if serve is not None:
+            serve(step, state)
         losses.append(loss)
         lrs.append(float(metrics["lr"]))
         if step % args.log_every == 0 or step == args.steps - 1:
             print(f"step {step:5d} loss {loss:.4f} lr {lrs[-1]:.2e} "
                   f"({step_times[-1]:.3f}s)", flush=True)
     total = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) if cuda else None
 
     # steady state excludes step 0 (kernel JIT, cuBLAS/allocator warm-up)
     warm = step_times[1:] or step_times
@@ -145,6 +223,7 @@ def main(argv=None, *, on_step=None) -> dict:
         "algorithm": args.algorithm,
         "fused_update": args.fused_update,
         "fused_impl": args.fused_impl if args.fused_update else None,
+        "flat_planes": args.flat_planes,
         "device": torch.cuda.get_device_name(device) if cuda else "cpu",
         "losses": losses,
         "lrs": lrs,
@@ -152,10 +231,20 @@ def main(argv=None, *, on_step=None) -> dict:
         "step_s": step_s,
         "steps_timed": len(warm),
         "tokens_per_s": tokens / step_s,
-        "peak_mem_bytes": torch.cuda.max_memory_allocated(device) if cuda else None,
+        "peak_mem_bytes": peak,
     }
     print(f"done: {args.steps} steps in {total:.1f}s; steady step {step_s:.4f}s, "
           f"{result['tokens_per_s']:.0f} tokens/s", flush=True)
+    if serve is not None:
+        # drain what the cooperative ticks left in flight (unless the gate
+        # never cleared a single version: nothing to serve with)
+        done = engine.run_until_drained() if pub.current else engine.completions
+        ps, es = pub.stats(), engine.stats()
+        print(f"serve: {len(done)}/{args.serve_requests} requests done, {es['swaps']} weight "
+              f"swap(s); published {ps['published']}/{ps['offers']} offers (rate "
+              f"{ps['publish_rate']:.2f}, threshold {ps['gap_threshold']}, final "
+              f"v{ps['current_version']})", flush=True)
+        result["serve"] = {"publisher": ps, "engine": es, "completed": len(done)}
     if args.measure_json:
         with open(args.measure_json, "w") as f:
             json.dump({"measured_step_s": step_s, **result}, f, indent=2)

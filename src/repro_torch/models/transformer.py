@@ -139,10 +139,14 @@ def _stack(trees: list[Tree]) -> Tree:
     return tree_map(lambda *xs: torch.stack(xs, dim=0), *trees)
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator) -> Tree:
-    """One node's parameters, on the generator's device, in the reference's
-    draw order (embed, layers in order, final norm, lm_head)."""
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device: torch.device | str | None = None) -> Tree:
+    """One node's parameters, on the generator's device (or ``device``:
+    ``"meta"`` gives shapes and dtypes only), in the reference's draw order
+    (embed, layers in order, final norm, lm_head)."""
     init = Initializer(generator)
+    if device is not None:
+        init.device = torch.device(device)
     vp = cfg.vocab_padded(1)
     params: Tree = {"embed": embedding_init(init, vp, cfg.d_model)}
     params["groups"] = {

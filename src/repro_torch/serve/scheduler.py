@@ -26,8 +26,15 @@ The slot mechanics are the reference's:
   fixed slot count) with ``t`` pinned to 0 and their outputs ignored;
   admission replaces their entire per-slot cache under the admit mask.
 
-The reference's weight publisher (snapshot swaps between decode batches)
-is not ported yet: the engine serves one parameter tree.
+Weight swaps happen at the tick boundary — *between* decode batches, never
+inside one — by re-reading the :class:`~repro_torch.serve.publisher.
+WeightPublisher`'s current snapshot: a newer published version is copied
+to the device once (one copy per dtype bucket, the "swap stall"; the
+reference takes one transfer per leaf) and the parameters become views of
+those device planes; every later prefill and decode runs on them.
+In-flight requests continue on the new weights, the standard
+continuous-batching trade (the KV cache stays valid: the architecture is
+fixed).
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from ..configs.base import ModelConfig
 from ..models import transformer as T
 from ..train import serve as serve_mod
 from ..utils import resolve_device, tree_leaves, tree_map
+from .publisher import WeightPublisher
 from .sampling import greedy_token
 
 Tree = Any
@@ -84,11 +92,14 @@ class ServeEngine:
     the reference engine's default runtime is float32.  ``on_logits``, if
     given, sees every decode step's logits ``(slots, vocab)`` with a dict
     that maps each active slot to ``(request id, index of the generated
-    token its row yields)``; it observes and changes nothing.
+    token its row yields)``; it observes and changes nothing.  Instead of
+    ``params`` the engine may take a ``publisher`` and serve its newest
+    snapshot, swapped in between decode batches; one of the two is required.
     """
 
     def __init__(self, cfg: ModelConfig, *, slots: int, max_prompt: int, max_new: int,
-                 params: Tree, runtime: T.RuntimeConfig | None = None,
+                 params: Tree | None = None, publisher: WeightPublisher | None = None,
+                 runtime: T.RuntimeConfig | None = None,
                  eos_id: int | None = None, device=None,
                  on_logits: Callable[[torch.Tensor, dict[int, tuple[int, int]]], None]
                  | None = None):
@@ -106,7 +117,13 @@ class ServeEngine:
         self.decode_step = serve_mod.build_decode_step(
             cfg, scfg, target_len=target_len, per_slot_t=True
         )
-        self._params = tree_map(lambda x: x.to(self.device), params)
+        if publisher is None and params is None:
+            raise ValueError("pass a publisher or an initial params tree")
+        self._publisher = publisher
+        self._params: Tree | None = None
+        self.version: int | None = None
+        if params is not None:
+            self._params = tree_map(lambda x: x.to(self.device), params)
         self._cache: Tree | None = None
 
         # per-slot bookkeeping (host side)
@@ -121,8 +138,11 @@ class ServeEngine:
         self.completions: list[Completion] = []
 
         self.ticks = 0
+        self.waiting_ticks = 0
         self.decode_batches = 0
         self.prefills = 0
+        self.swaps = 0
+        self.swap_stall_s = 0.0
 
     # -- public API ---------------------------------------------------------
 
@@ -149,11 +169,17 @@ class ServeEngine:
         return not self._queue and not self._active.any()
 
     def tick(self) -> bool:
-        """One engine step: admission, then one decode batch.  Returns False
-        when there was nothing to do (engine idle)."""
+        """One engine step: swap point, admission, then one decode batch.
+        Returns False when there was nothing to do (engine idle)."""
         if self.idle:
             return False
         self.ticks += 1
+        self._maybe_swap()
+        if self._params is None:
+            # waiting on the publisher's first admitted version (the
+            # consensus gate may hold back early offers)
+            self.waiting_ticks += 1
+            return True
         with torch.inference_mode():
             self._admit()
             if self._active.any():
@@ -174,9 +200,32 @@ class ServeEngine:
             "decode_batches": self.decode_batches,
             "prefills": self.prefills,
             "completed": len(self.completions),
+            "swaps": self.swaps,
+            "swap_stall_s": self.swap_stall_s,
+            "version": self.version,
         }
 
     # -- internals ----------------------------------------------------------
+
+    def _maybe_swap(self) -> None:
+        """Snapshot-swap point (between decode batches, never inside one)."""
+        if self._publisher is None:
+            return
+        snap = self._publisher.current
+        if snap is None or snap.version == self.version:
+            return
+        t0 = time.perf_counter()
+        # one copy per dtype bucket off the publisher's host buffers (a copy
+        # also on the CPU: the writer rewrites them two publishes later),
+        # then the parameters as views of the device planes
+        planes = {k: v.to(self.device, copy=True) for k, v in snap.planes.items()}
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.swap_stall_s += time.perf_counter() - t0
+        if self.version is not None:
+            self.swaps += 1
+        self._params = self._publisher.layout.view_unpack(planes)
+        self.version = snap.version
 
     def _admit(self) -> None:
         free = [i for i in range(self.slots) if not self._active[i]]

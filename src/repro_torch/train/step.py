@@ -9,11 +9,22 @@ Per step:
    gradient zeroed before the update (its payload stays finite, so its
    neighbours keep mixing clean iterates) and its optimizer state restored
    after it;
-3. the algorithm's update tail through ``run_update`` with the stacked
+3. the gradient-preprocessing scalars per node: each node clips by its
+   own gradient norm and takes its own LARS norms
+   (:func:`~repro_torch.core.update_spec.node_grad_scalars`), as inside
+   ``repro``'s shard_map step, where each node's shard sees only itself;
+4. the algorithm's update tail through ``run_update`` with the stacked
    ``W @`` channel and the stacked mean — either the reference optimizer
    step or, with ``fused_update``, the fused stage engine
    (:mod:`repro_torch.kernels.fused_update`) writing ``x`` and ``m`` in
    place.
+
+With ``flat_planes`` the step runs on the train state's plane form
+(:mod:`repro_torch.train.train_state`): the gradient of each node is
+written straight into a stacked gradient plane through its views, and the
+tail runs on the planes — one stage launch per dtype bucket
+(``make_plane_stage``), the LARS ratios as row columns — writing the
+parameter plane, and so the parameter views, in place.
 
 This is the single-device counterpart of ``repro.train.step``'s shard_map
 step; the distributed transports come with a later slice.
@@ -30,12 +41,14 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.gossip import StackedChannel, make_stacked_mean
 from ..core.optimizers import OptimizerConfig, make_optimizer
+from ..core.planes import plane_scalars
 from ..core.schedules import ScheduleConfig, build_schedule
 from ..core.topology import build_topology
-from ..core.update_spec import run_update, update_spec
-from ..kernels.fused_update import make_stage
+from ..core.update_spec import node_grad_scalars, run_update, update_spec
+from ..kernels.fused_update import make_plane_stage, make_stage
 from ..models import transformer as T
 from ..utils import tree_leaves, tree_unflatten
+from .train_state import model_plane_layout
 
 Tree = Any
 
@@ -45,15 +58,19 @@ __all__ = ["TrainConfig", "build_train_step"]
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """The fields of ``repro.train.step.TrainConfig`` that the trainer sets in
-    this slice.  No ``grad_clip``: on stacked trees ``grad_scalars`` takes one
-    norm over all nodes, while repro's step clips each node by its own norm."""
+    this slice."""
 
     algorithm: str = "decentlam"
     topology: str = "exp"
     momentum: float = 0.9
+    weight_decay: float = 0.0
+    grad_clip: float = 0.0  # per node: each node clips by its own norm
     schedule: ScheduleConfig = ScheduleConfig()
     fused_update: bool = False
     fused_impl: str = "triton"  # triton | torch (the kernel's plain version)
+    # the update tail on the train state's plane form: one stage launch per
+    # dtype bucket, the parameters living in the planes (tp = 1)
+    flat_planes: bool = False
     # skip a node's optimizer update when its grad norm goes non-finite (the
     # skip count surfaces as the "skipped_nonfinite" metric)
     finite_guard: bool = True
@@ -62,14 +79,18 @@ class TrainConfig:
         return OptimizerConfig(
             algorithm=self.algorithm,
             momentum=self.momentum,
+            weight_decay=self.weight_decay,
+            grad_clip=self.grad_clip,
         )
 
 
-def _node_grads(params: Tree, batch: dict, cfg: ModelConfig, n_nodes: int):
+def _node_grads(params: Tree, batch: dict, cfg: ModelConfig, n_nodes: int, out=None):
     """Per-node loss and gradient, one node at a time, into a stacked f32
-    gradient tree.  Returns ``(grads, losses (n,))``."""
+    gradient tree (``out``'s leaves where given: the views of a gradient
+    plane).  Returns ``(grads, losses (n,))``."""
     leaves = tree_leaves(params)
-    g_leaves = [torch.empty(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
+    g_leaves = (tree_leaves(out) if out is not None else
+                [torch.empty(p.shape, dtype=torch.float32, device=p.device) for p in leaves])
     b = batch["tokens"].shape[0] // n_nodes
     losses = []
     for i in range(n_nodes):
@@ -83,9 +104,10 @@ def _node_grads(params: Tree, batch: dict, cfg: ModelConfig, n_nodes: int):
 
 
 def _node_grad_norms(grads: Tree, n_nodes: int) -> torch.Tensor:
-    """(n,) f32 global gradient norm per node.  Float32 accumulation of the
-    squares, so it is non-finite exactly when the reference's sum of squares
-    is."""
+    """(n,) f32 global gradient norm per node (of a stacked tree or of
+    stacked planes, whose zero pads add nothing).  Float32 accumulation of
+    the squares, so it is non-finite exactly when the reference's sum of
+    squares is."""
     per_leaf = [
         torch.linalg.vector_norm(gl.reshape(n_nodes, -1), dim=1) for gl in tree_leaves(grads)
     ]
@@ -117,7 +139,12 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_nodes: int):
     lr_fn = build_schedule(tcfg.schedule)
     channel = StackedChannel(topology, telemetry=True)
     mean = make_stacked_mean(n_nodes)
-    stage = make_stage(tcfg.fused_impl, inplace=True) if tcfg.fused_update else None
+    if tcfg.flat_planes:
+        layout = model_plane_layout(cfg)
+        stage = make_plane_stage(tcfg.fused_impl if tcfg.fused_update else "torch",
+                                 inplace=True)
+    else:
+        stage = make_stage(tcfg.fused_impl, inplace=True) if tcfg.fused_update else None
 
     def train_step(state: Tree, batch: dict):
         params, opt_state = state["params"], state["opt"]
@@ -125,29 +152,58 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_nodes: int):
         dev = tree_leaves(params)[0].device
         lr = torch.full((), lr_fn(step_idx), dtype=torch.float32, device=dev)
 
-        grads, losses = _node_grads(params, batch, cfg, n_nodes)
+        planes = g_planes = None
+        if tcfg.flat_planes:
+            planes = state["planes"]
+            # every segment element is written below; the pads are zeroed
+            # (inert in the tail and in the finite guard's norms)
+            g_planes = {k: torch.empty(p.shape, dtype=torch.float32, device=dev)
+                        for k, p in planes.items()}
+            layout.zero_pads(g_planes, leading=1)
+            grads, losses = _node_grads(params, batch, cfg, n_nodes,
+                                        out=layout.view_unpack(g_planes, leading=1))
+        else:
+            grads, losses = _node_grads(params, batch, cfg, n_nodes)
 
         bad, saved = None, None
         if tcfg.finite_guard:
-            finite = torch.isfinite(_node_grad_norms(grads, n_nodes))
-            bad = torch.nonzero(~finite).reshape(-1)  # one host sync per step
+            norms = _node_grad_norms(g_planes if planes is not None else grads, n_nodes)
+            bad = torch.nonzero(~torch.isfinite(norms)).reshape(-1)  # one host sync per step
         if bad is not None and bad.numel():
-            for gl in tree_leaves(grads):
+            for gl in tree_leaves(g_planes if planes is not None else grads):
                 gl[bad] = 0.0
             saved = {k: [t[bad].clone() for t in tree_leaves(v)] for k, v in opt_state.items()}
 
-        if tcfg.fused_update:
+        if planes is not None:
+            new_x, new_opt, comp = run_update(
+                spec, ocfg, x=planes, g=g_planes, state=opt_state, lr=lr,
+                step_idx=step_idx, gossip=channel, mean=mean,
+                comp_state=state["channel"], stage=stage,
+                scalars=plane_scalars(ocfg, layout, params, grads, stacked=True),
+            )
+            for k, p in planes.items():
+                if new_x[k] is not p:
+                    # a state bucket that is the parameter plane itself
+                    # (d2's x_prev of f32 parameters) keeps the old values
+                    for v in new_opt.values():
+                        if v.get(k) is p:
+                            v[k] = p.clone()
+                    p.copy_(new_x[k])
+            new_params = params  # the views now read the new planes
+        elif tcfg.fused_update:
             new_params, new_opt, comp = run_update(
                 spec, ocfg, x=params, g=grads, state=opt_state, lr=lr,
                 step_idx=step_idx, gossip=channel, mean=mean,
                 comp_state=state["channel"], stage=stage,
+                scalars=node_grad_scalars(ocfg, params, grads),
             )
         else:
             new_params, new_opt, comp = opt.step(
                 params, grads, opt_state, lr=lr, step_idx=step_idx,
                 gossip=channel, mean=mean, comp_state=state["channel"],
+                scalars=node_grad_scalars(ocfg, params, grads),
             )
-        del grads
+        del grads, g_planes
         if saved is not None:
             # out of place: state buckets may share buffers (d2's m_prev is m)
             new_opt = {
@@ -162,6 +218,8 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_nodes: int):
         }
         new_state = {"step": step_idx + 1, "params": new_params, "opt": new_opt,
                      "channel": comp}
+        if planes is not None:
+            new_state["planes"] = planes
         return new_state, metrics
 
     return train_step, channel
