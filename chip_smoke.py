@@ -12,7 +12,8 @@ result line):
 2. hold the Triton ``fused_update`` stage kernel against its plain version
    on the card, for every (kind, op, ctx) that ``stage_plan`` yields for the
    11 algorithms x {plain, nesterov, lars+clip+wd}, with x in float32 and in
-   bfloat16, at a ragged and at a large leaf size;
+   bfloat16, at a ragged and at a large leaf size, and count the cases where
+   the two agree bit for bit;
 3. the main path: ``repro_torch.launch.train`` on qwen3-0.6b at full width,
    4 stacked nodes, exp topology, decentlam, ``--fused-update --fused-impl
    triton``, 8 steps; finite losses and exactly 28 kernel launches per step
@@ -79,11 +80,11 @@ result line):
     chunked mLSTM);
 14. the stage kernel's plane launch (one launch per bucket, gs per node and
     the LARS ratio per plane row) against its plain version at phase 2's
-    tolerances, for every op x {plain, lars + clip + coupled wd}, on a small
-    stacked plane (x in f32 and bf16) and on qwen3-0.6b's full (4, 648000,
-    1024) plane; and against the per-leaf launches on the same inputs, bit
-    for bit on every segment's true elements (any leaf that differs is
-    printed);
+    tolerances, for every op x {plain, lars + clip + coupled wd (with sg
+    per node too)}, on a small stacked plane (x in f32 and bf16) and on
+    qwen3-0.6b's full (4, 648000, 1024) plane; and against the per-leaf
+    launches on the same inputs, bit for bit on every segment's true
+    elements (a leaf that differs in any bit is printed and fails);
 15. the flat-plane training main path: phase 3's run with ``--flat-planes``
     (2 stage launches per step instead of 28), profiled; the plane stages
     timed at the full plane beside their bound, plain version and library
@@ -96,7 +97,27 @@ result line):
     node 0's parameter plane byte for byte, swaps only between decode
     batches, every request completes, and the requests admitted after the
     last swap get a fresh engine's tokens on that snapshot; the host-to-device
-    copy of each swap.
+    copy of each swap;
+17. the staleness main path: phase 15's run with ``--algorithm decentlam-sa
+    --gossip-delay 1 --track-consensus``: 2 launches per step, gossip_gap 0
+    then 1, every decentlam_sa_post launch with the per-node sg column
+    (``SG_COL``) holding max(0.5**gap, 0); step time, device busy,
+    consensus_sq, peak memory; one gossip round on the full plane timed
+    alone (undelayed, delay 1, int8-row-ef and its encode/decode), and
+    decentlam_sa_post at the full plane beside its bound and plain version;
+18. compressed gossip: phase 15's run with ``--compression int8-row-ef``:
+    finite losses, the egress telemetry equal to the f32 sum of wire_bytes
+    per round, step time, device busy, peak memory;
+19. at 4 layers, 3 steps: the kernel path against the plain path for nine
+    delay / compression / decentlam-sa / da-dmsgd / grad-accum / bf16
+    configurations, then three claims bit for bit on the final parameters
+    and optimizer state: --gossip-delay 0 == no delay, decentlam-sa at gap 0
+    == decentlam, flat planes == per leaf at delay 1;
+20. checkpoint and resume at full width, 2 layers, 2 nodes, delay 1 and
+    int8-row-ef on planes: a resumed run == an unbroken one bit for bit,
+    channel state included; the same checkpoint resumed without
+    ``--flat-planes`` equals the saved planes unpacked and trains on; GB,
+    save and restore seconds (under ``build/ckpt_smoke``, removed after).
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Triton kernels compile at first use into
@@ -108,6 +129,7 @@ run.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -214,7 +236,7 @@ def phase_kernel_vs_plain(torch):
     sizes = {"ragged": 4 * 12_345, "large": 4 * 1_048_583}
     gen = torch.Generator(device="cuda").manual_seed(0)
     svec = _svec(torch)
-    worst = 0.0
+    worst, bitwise, cases = 0.0, 0, 0
     t0 = time.perf_counter()
     for (kind, op, ctx) in stages:
         for x_dtype in (torch.float32, torch.bfloat16):
@@ -224,6 +246,8 @@ def phase_kernel_vs_plain(torch):
                 got = {n: torch.empty_like(w) for n, w in want.items()}
                 fused_stage_launch(kind, op, ctx, svec, ins, got)
                 torch.cuda.synchronize()
+                cases += 1
+                bitwise += all(_same_bits(torch, got[n], want[n]) for n in want)
                 for n in want:
                     tol = BF16_TOL if got[n].dtype == torch.bfloat16 else F32_TOL
                     w, g = want[n].float(), got[n].float()
@@ -238,7 +262,8 @@ def phase_kernel_vs_plain(torch):
         f"(kind, op, ctx) stages of {len(ALGORITHMS)} algorithms x {len(feats)} feature "
         f"sets, x in f32/bf16, sizes {sorted(sizes.values())} "
         f"(f32 rtol {F32_TOL}, bf16 rtol {BF16_TOL}; worst f32 error / scale "
-        f"{worst:.3g}) in {time.perf_counter() - t0:.1f}s")
+        f"{worst:.3g}) in {time.perf_counter() - t0:.1f}s; kernel == plain bit for bit on "
+        f"{bitwise} of {cases} cases")
 
 
 def _train_argv(steps, impl, depth=0):
@@ -249,12 +274,13 @@ def _train_argv(steps, impl, depth=0):
     return argv + (["--depth", str(depth)] if depth else [])
 
 
-def _profiled_train(torch, extra=()):
+def _profiled_train(torch, extra=(), watch=None):
     """``train.main`` on the main path (with the ``extra`` flags), profiled:
     MAIN["steps"] + 3 steps; steps 1..MAIN["steps"]-1 run unprofiled (the
     step time), the profiler warms up on the next one and records the last
-    two (where the device time goes).  Returns ``(result, launches by op,
-    total launches, profiler events, unprofiled step ms)``."""
+    two (where the device time goes).  ``watch(step, state, metrics)``, if
+    given, sees every step.  Returns ``(result, launches by op, total
+    launches, profiler events, unprofiled step ms)``."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from repro_torch.kernels.fused_update.kernel import fused_stage_launch, reset_launches
@@ -266,8 +292,12 @@ def _profiled_train(torch, extra=()):
                  schedule=schedule(wait=MAIN["steps"], warmup=1, active=2, repeat=1),
                  on_trace_ready=lambda p: traced.append(p.events())) as prof:
         reset_launches()
-        res = train.main(_train_argv(steps, "triton") + list(extra),
-                         on_step=lambda _: prof.step())
+        def on_step(*args):
+            if watch is not None:
+                watch(*args)
+            prof.step()
+
+        res = train.main(_train_argv(steps, "triton") + list(extra), on_step=on_step)
         launches = dict(fused_stage_launch.launches_by_op)
         total = fused_stage_launch.launches
     if len(traced) != 1:
@@ -1357,13 +1387,17 @@ def _plane_operands(torch, layout, names, x_dtype, gen, pool=None):
 
 
 def _plane_scalars(torch, layout, lars, gen):
-    """Stage scalars: lr, and with ``lars`` a per-node clip scale and per-leaf
-    per-node LARS ratios (scattered to row columns)."""
+    """Stage scalars: lr and sg, and with ``lars`` a per-node clip scale and
+    staleness damping and per-leaf per-node LARS ratios (scattered to row
+    columns)."""
     from repro_torch.utils import tree_unflatten
 
     n = MAIN["nodes"]
     s = {"lr": torch.tensor(0.01, device="cuda"), "sg": 0.6}
     if lars:
+        # the staleness damping per node, as a delayed channel's gaps give it
+        s["sg"] = torch.pow(0.5, torch.randint(0, 4, (n,), generator=gen, device="cuda")
+                            .float())
         s["gs"] = 0.5 + torch.rand(n, generator=gen, device="cuda")
         r = [0.5 + torch.rand(n, generator=gen, device="cuda") for _ in range(layout.n_leaves)]
         s["r_leaves"] = tree_unflatten(layout.template, r)
@@ -1398,11 +1432,13 @@ def _plane_case(torch, layout, kind, op, ctx, x_dtype, gen, pool=None):
 
     worst = 0.0
     one = torch.tensor(1.0, device="cuda")
-    svec = torch.stack([s["lr"], one, one, torch.tensor(s["sg"], device="cuda")])
+    svec = torch.stack([s["lr"], one, one, one if ctx.lars else torch.tensor(s["sg"],
+                                                                           device="cuda")])
     out_dtypes = {n: got[n][key].dtype for n in names_out}
     for i in range(MAIN["nodes"]):
         ins = {n: ops[n][key][i] for n in names_in}
-        cols = {"gs": s["gs"][i], "r": s["r"][key][i]} if ctx.lars else None
+        cols = ({"gs": s["gs"][i], "r": s["r"][key][i], "sg": s["sg"][i]} if ctx.lars
+                else None)
         want = stage_plain(kind, op, ctx, svec, ins, out_dtypes, cols)
         for n in names_out:
             w, g = want[n].float(), got[n][key][i].float()
@@ -1475,15 +1511,13 @@ def phase_plane_kernel_vs_plain(torch):
                 differ[f"full {op} {cname}"] = bad
     del pool
     torch.cuda.empty_cache()
-    # where they part: a leaf whose size per node is not a whole number of
-    # 1024-element rows sits at other positions in a per-leaf launch's blocks
-    # than in its plane rows, and Triton contracts some ops into FMAs
-    # differently at different positions of a block (both within ~1 ulp of
-    # the plain version)
     for case, bad in differ.items():
         log(f"  plane != per-leaf launches in some bit: {case}: {bad}")
+    if differ:
+        raise RuntimeError(f"the plane launch and the per-leaf launches differ in some bit on "
+                           f"{len(differ)} of {cases} cases: {sorted(differ)}")
     log(f"phase 14: plane stage kernel == plain version on {cases} cases (every op x "
-        f"{list(PLANE_CTXS)}, gs per node and r per row under lars-clip-wd; small plane "
+        f"{list(PLANE_CTXS)}, gs and sg per node and r per row under lars-clip-wd; small plane "
         f"({MAIN['nodes']}, {small.rows[skey]}, 1024) of {len(PLANE_SMALL_LEAVES)} leaves, x "
         f"f32/bf16, {small_s:.1f}s; full {shape} f32, {full.n_leaves} leaves, "
         f"{time.perf_counter() - t1:.1f}s; worst f32 error / scale {worst:.3g}, f32 rtol "
@@ -1653,7 +1687,8 @@ def phase_flat_planes_main_path(torch, leaf, per_stage):
         f"{F32_TOL})")
     del after, px, pm, qx, qm, state
     torch.cuda.empty_cache()
-    return {"launches": launches, "plane": plane}
+    return {"launches": launches, "plane": plane, "step_ms": step_ms,
+            "peak": res["peak_mem_bytes"], "busy_ms": prof["busy_ms"]}
 
 
 
@@ -1772,6 +1807,491 @@ def phase_serve_while_training(torch):
     torch.cuda.empty_cache()
 
 
+
+# ---------------------------------------------------------------------------
+# Stale and compressed gossip, checkpoint and resume (phases 17-20)
+# ---------------------------------------------------------------------------
+
+# phase 17: the staleness main path (on phase 3's run)
+STALE = ["--flat-planes", "--algorithm", "decentlam-sa", "--gossip-delay", "1",
+         "--track-consensus"]
+# phase 18: compressed gossip at full width and depth
+COMPRESSED = ["--flat-planes", "--compression", "int8-row-ef"]
+# f32 operations per element of decentlam_sa_post: (x - mix) / lr (2), the
+# momentum beta*m + (sg*drift + (1 - sg)*g) (5), x - lr*(sg*(beta*m) + drift) (4)
+SA_FLOPS = 11
+# reckoned peaks (GiB; one f32 plane copy is 9.89 GiB): x, m, g, the two
+# ring slots (the payload written into one of them) and the mix; x, m, g,
+# the payload, the residual, the decoded payload and the mix
+PEAK_GIB = {"delay 1": 59.3, "int8-row-ef": 69.2}
+
+
+def _watch_sg(torch):
+    """Wrap the fused engine's launcher so that every decentlam_sa_post
+    launch records the per-node sg column it was given (None without one).
+    Returns ``(records, undo)``; the launch and its counts are the
+    launcher's own."""
+    from repro_torch.kernels.fused_update import ops
+
+    launch, seen = ops.fused_stage_launch, []
+
+    def recorded(kind, op, ctx, svec, ins, outs, **kw):
+        if op == "decentlam_sa_post":
+            seen.append((kw.get("per_node") or {}).get("sg"))
+        return launch(kind, op, ctx, svec, ins, outs, **kw)
+
+    ops.fused_stage_launch = recorded
+    return seen, lambda: setattr(ops, "fused_stage_launch", launch)
+
+
+def _sa_post_timing(torch):
+    """decentlam_sa_post at qwen3-0.6b's full stacked plane (4, 648000, 1024)
+    f32 with sg per node (the SG_COL launch): kernel time beside its bound,
+    the plain version node by node (checked against the kernel first); no
+    single PyTorch call computes the stage."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.update_spec import MathCtx
+    from repro_torch.kernels.fused_update.kernel import (
+        fused_stage_launch,
+        stage_bytes,
+        stage_io,
+        stage_plain,
+    )
+    from repro_torch.train.train_state import model_plane_layout
+
+    full = model_plane_layout(get_config(MAIN["arch"]))
+    (key,) = full.buckets
+    n = MAIN["nodes"]
+    shape = (n, full.rows[key], 1024)
+    ctx, op = MathCtx(beta=0.9), "decentlam_sa_post"
+    svec = _svec(torch, lr=3e-3)
+    sg = torch.tensor([1.0, 0.5, 0.5, 0.25], device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    names_in, names_out = stage_io("post", op, ctx)
+    ins = {nm: torch.randn(shape, generator=gen, device="cuda") for nm in names_in}
+    ins["mix"].mul_(0.01).add_(ins["x"])
+    outs = {nm: torch.empty(shape, device="cuda") for nm in names_out}
+    launch = lambda: fused_stage_launch("post", op, ctx, svec, ins, outs, nodes=n,
+                                        per_node={"sg": sg})
+    launch()
+    torch.cuda.synchronize()
+    f32 = {nm: torch.float32 for nm in names_out}
+    one = lambda i: {nm: t[i] for nm, t in ins.items()}
+    err, bitwise = 0.0, True
+    for i in range(n):
+        want = stage_plain("post", op, ctx, svec, one(i), f32, {"sg": sg[i]})
+        for nm in names_out:
+            torch.testing.assert_close(outs[nm][i], want[nm], rtol=F32_TOL,
+                                       atol=F32_TOL * float(want[nm].abs().max()))
+            err = max(err, float((outs[nm][i] - want[nm]).abs().max()))
+            bitwise = bitwise and _same_bits(torch, outs[nm][i], want[nm])
+        del want
+
+    def plain():
+        for i in range(n):
+            stage_plain("post", op, ctx, svec, one(i), f32, {"sg": sg[i]})
+
+    ms = _time_ms(torch, launch, 5)
+    plain_ms = _time_ms(torch, plain, 2)
+    numel = outs["x"].numel()
+    nbytes = stage_bytes(ins, outs)
+    bound_ms, by = _bound(nbytes, numel * SA_FLOPS)
+    del ins, outs
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": by, "err": err, "bytes": nbytes, "shape": shape, "bitwise": bitwise}
+
+
+def _gossip_timing(torch):
+    """One gossip round on qwen3-0.6b's full stacked plane (4, 648000, 1024)
+    f32, timed with CUDA events after a warm-up round: the undelayed mix,
+    the mix at delay 1 (ring write and two delay groups), and int8-row-ef
+    (the encode/decode of each node's payload alone, and the whole round).
+    Beside each, the bytes it must move over 3.35 TB/s: a mix reads the n
+    payloads and writes the n mixed ones; the delayed one also writes the
+    ring slot and reads the stale slot; the compressed one also reads and
+    writes the residual and writes and reads the decoded payloads (the
+    encode/decode alone: the payload and the residual read, the residual
+    and the decoded payload written)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.gossip import DelayedStackedChannel, StackedChannel
+    from repro_torch.core.topology import build_topology
+    from repro_torch.train.train_state import model_plane_layout
+
+    full = model_plane_layout(get_config(MAIN["arch"]))
+    (key,) = full.buckets
+    topo = build_topology("exp", MAIN["nodes"])
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    payload = {key: torch.randn((MAIN["nodes"], full.rows[key], 1024), generator=gen,
+                                device="cuda")}
+    plane = payload[key].numel() * 4
+    out = {}
+    cases = {"undelayed": (StackedChannel(topo), 2 * plane),
+             "delay 1": (DelayedStackedChannel(topo, 1), 5 * plane),
+             "int8-row-ef": (StackedChannel(topo, compression="int8-row-ef"), 7 * plane)}
+    for name, (ch, nbytes) in cases.items():
+        box = {"state": ch.init(payload), "step": 0}
+
+        def round_():
+            box["state"], mixed = ch.apply(box["state"], payload, box["step"])
+            box["step"] += 1
+            del mixed
+
+        ms = _time_ms(torch, round_, 3)
+        out[name] = (ms, nbytes / HBM_BYTES_PER_S * 1e3)
+        if name == "int8-row-ef":
+            dest = torch.empty_like(payload[key])
+            enc_ms = _time_ms(torch, lambda: ch._encode_decode(payload[key],
+                                                                box["state"]["comp"][key], dest), 3)
+            out["int8-row-ef encode + decode"] = (enc_ms, 4 * plane / HBM_BYTES_PER_S * 1e3)
+            del dest
+        del box
+        torch.cuda.empty_cache()
+    del payload
+    torch.cuda.empty_cache()
+    for name, (ms, bound) in out.items():
+        log(f"  gossip round on the full plane, {name}: {ms:.2f} ms (its bytes over 3.35 TB/s: "
+            f"{bound:.2f} ms, {bound / ms:.1%})")
+    return out
+
+
+def phase_staleness_main_path(torch, flat):
+    """Phase 15's run with ``--algorithm decentlam-sa --gossip-delay 1
+    --track-consensus``: 2 stage launches per step, gossip_gap 0 at step 0
+    and 1 after, every decentlam_sa_post launch in the SG_COL mode with sg
+    per node == max(0.5**gap, 0), profiled; then the stage timed at the full
+    plane beside its bound."""
+    import math
+
+    from repro_torch.core.gossip import DelayedStackedChannel, fleet_node_gaps
+    from repro_torch.core.topology import build_topology
+    from repro_torch.kernels.fused_update.kernel import fused_stage_launch
+
+    gaps_seen = []
+    ring = DelayedStackedChannel(build_topology("exp", MAIN["nodes"]), 1)  # reads the counts
+    watch = lambda step, state, metrics: gaps_seen.append(
+        fleet_node_gaps(ring, state["channel"]).tolist())
+    seen, undo = _watch_sg(torch)
+    try:
+        res, launches, total, events, step_ms = _profiled_train(torch, STALE, watch)
+    finally:
+        undo()
+    by_col = dict(fused_stage_launch.launches_by_col)
+    steps = len(res["losses"])
+    if not all(math.isfinite(v) for v in res["losses"]):
+        raise RuntimeError(f"non-finite loss on the staleness path: {res['losses']}")
+    want = {"grad_step": steps, "decentlam_sa_post": steps}
+    if total != 2 * steps or launches != want:
+        raise RuntimeError(f"fused_update launched {total} times ({launches}), want {want}")
+    if res["gossip_gaps"] != [0.0] + [1.0] * (steps - 1):
+        raise RuntimeError(f"gossip_gap per step {res['gossip_gaps']}, want 0 then 1")
+    if len(seen) != steps or any(c is None for c in seen) or \
+            by_col.get(("decentlam_sa_post", "sg")) != steps:
+        raise RuntimeError(f"decentlam_sa_post took the per-node sg column on "
+                           f"{by_col.get(('decentlam_sa_post', 'sg'))} of {steps} launches")
+    sgs = [c.tolist() for c in seen]
+    want_sg = [[max(0.5 ** g, 0.0) for g in gaps] for gaps in gaps_seen]
+    if sgs != want_sg:
+        raise RuntimeError(f"sg per node {sgs} != max(0.5**gap, 0) {want_sg}")
+    peak = res["peak_mem_bytes"] / 2**30
+    log(f"phase 17: decentlam-sa, --gossip-delay 1, flat planes, qwen3-0.6b full width x "
+        f"{res['n_nodes']} nodes, {steps} steps: losses {[round(v, 4) for v in res['losses']]}; "
+        f"fused_update launches {total} = 2 per step ({launches}), every decentlam_sa_post "
+        f"launch with the per-node sg column ({by_col[('decentlam_sa_post', 'sg')]}); "
+        f"gossip_gap per step {res['gossip_gaps']}")
+    log(f"  node gaps per step {gaps_seen}; sg per node, as the kernel read it, {sgs} "
+        f"(== max(0.5**gap, 0))")
+    log(f"  consensus_sq per step {res['consensus_sq']}")
+    log(f"  step {step_ms:.1f} ms (phase 15, flat planes without delay: {flat['step_ms']:.1f}), "
+        f"peak memory {peak:.2f} GiB (reckoned {PEAK_GIB['delay 1']} GiB; phase 15: "
+        f"{flat['peak'] / 2**30:.2f} GiB), step times "
+        f"{[round(t, 4) for t in res['step_times_s']]}")
+    prof = _profile_report(torch, events, step_ms, 1e3 * sum(res["step_times_s"][-2:]) / 2)
+    log(f"  device busy {prof['busy_ms']:.1f} ms/step (phase 15: {flat['busy_ms']:.1f})")
+    torch.cuda.empty_cache()
+    gossip = _gossip_timing(torch)
+    sa = _sa_post_timing(torch)
+    grad_bound = flat["plane"]["grad_step"]["bound_ms"]
+    log(f"  plane decentlam_sa_post on {sa['shape']} f32, sg per node: kernel {sa['ms']:.3f} ms, "
+        f"bound {sa['bound_ms']:.3f} ms by {sa['bound_by']} ({sa['bytes'] / 1e9:.2f} GB / "
+        f"3.35 TB/s; {sa['bound_ms'] / sa['ms']:.1%} of it), plain version "
+        f"{sa['plain_ms']:.3f} ms, library null, max |kernel - plain| {sa['err']:.3g} "
+        f"(bitwise equal: {sa['bitwise']})")
+    tail = flat["plane"]["grad_step"]["ms"] + sa["ms"]
+    log(f"  tail {tail:.3f} ms/step (grad_step {flat['plane']['grad_step']['ms']:.3f} + "
+        f"decentlam_sa_post {sa['ms']:.3f}) against its bound {grad_bound + sa['bound_ms']:.3f} "
+        f"ms ({grad_bound:.3f} + {sa['bound_ms']:.3f})")
+    return {"launches": launches, "sa": sa, "step_ms": step_ms, "peak": res["peak_mem_bytes"],
+            "gossip": gossip}
+
+
+def phase_compressed_main_path(torch, flat):
+    """Phase 15's run with ``--compression int8-row-ef``: finite losses, the
+    telemetry's egress bytes == the f32 running sum of wire_bytes x edge
+    classes per round, as the reference's telemetry accumulates them; step
+    time, the encode/decode and mix device time, peak memory."""
+    import math
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.compression import wire_bytes
+    from repro_torch.core.topology import build_topology
+    from repro_torch.train.train_state import model_plane_layout
+
+    tele = []
+    watch = lambda step, state, metrics: tele.append(
+        (float(state["channel"]["t"]["bytes"]), int(state["channel"]["t"]["rounds"])))
+    res, launches, total, events, step_ms = _profiled_train(torch, COMPRESSED, watch)
+    steps = len(res["losses"])
+    if not all(math.isfinite(v) for v in res["losses"]):
+        raise RuntimeError(f"non-finite loss with int8-row-ef gossip: {res['losses']}")
+    layout = model_plane_layout(get_config(MAIN["arch"]))
+    (key,) = layout.buckets
+    per_node = 4.0 * layout.rows[key] * 1024
+    classes = len(build_topology("exp", MAIN["nodes"]).edge_classes(0))
+    per_round = np.float32(classes * wire_bytes(per_node, "int8-row-ef"))
+    want, expect = np.float32(0.0), []
+    for _ in range(steps):
+        want = np.float32(want + per_round)
+        expect.append((float(want), len(expect) + 1))
+    if tele != expect:
+        raise RuntimeError(f"telemetry (bytes, rounds) per step {tele}, want {expect}")
+    peak = res["peak_mem_bytes"] / 2**30
+    log(f"phase 18: decentlam, --compression int8-row-ef, flat planes, qwen3-0.6b full width x "
+        f"{res['n_nodes']} nodes, {steps} steps: losses {[round(v, 4) for v in res['losses']]}; "
+        f"fused_update launches {total} ({launches}); egress bytes per node "
+        f"{tele[-1][0]:.6g} after {tele[-1][1]} rounds == the f32 sum of {classes} edge classes "
+        f"x wire_bytes({per_node:.0f}) = {float(per_round):.6g} per round")
+    log(f"  step {step_ms:.1f} ms (phase 15: {flat['step_ms']:.1f}), peak memory {peak:.2f} GiB "
+        f"(reckoned {PEAK_GIB['int8-row-ef']} GiB), step times "
+        f"{[round(t, 4) for t in res['step_times_s']]}")
+    prof = _profile_report(torch, events, step_ms, 1e3 * sum(res["step_times_s"][-2:]) / 2)
+    log(f"  device busy {prof['busy_ms']:.1f} ms/step (phase 15: {flat['busy_ms']:.1f}); the "
+        f"gossip rounds alone at the full plane: phase 17")
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "peak": res["peak_mem_bytes"]}
+
+
+# phase 19: each configuration at 4 layers, 3 steps, kernel path vs plain path
+KERNEL_VS_PLAIN = {
+    "decentlam-sa, delay 1, planes": ["--algorithm", "decentlam-sa", "--gossip-delay", "1",
+                                      "--flat-planes"],
+    "decentlam-sa, delay 2, per leaf": ["--algorithm", "decentlam-sa", "--gossip-delay", "2"],
+    "decentlam-sa, delay 1, int8-row-ef, planes": ["--algorithm", "decentlam-sa",
+                                                   "--gossip-delay", "1", "--compression",
+                                                   "int8-row-ef", "--flat-planes"],
+    "decentlam, bf16": ["--compression", "bf16"],
+    "decentlam, int8": ["--compression", "int8"],
+    "decentlam, topk:0.01": ["--compression", "topk:0.01"],
+    "da-dmsgd, delay 1": ["--algorithm", "da-dmsgd", "--gossip-delay", "1"],
+    "decentlam, grad-accum 2": ["--grad-accum", "2"],
+    "decentlam, dtype bfloat16": ["--dtype", "bfloat16"],
+}
+
+
+def _last_state(holder):
+    """An ``on_step`` hook keeping a reference to the latest step's state
+    (the run's final state once ``train.main`` returns)."""
+
+    def hook(step, state, metrics):
+        holder["state"] = state
+
+    return hook
+
+
+def _state_leaves(state, layout):
+    """Parameters, then optimizer state, in leaf order; a plane-form state's
+    optimizer buckets as views of their leaves, so that they compare like a
+    per-leaf state's tensors."""
+    from repro_torch.utils import tree_leaves
+
+    opt = state["opt"]
+    if "planes" in state:
+        opt = {k: layout.view_unpack(v, leading=1) for k, v in opt.items()}
+    return tree_leaves(state["params"]) + tree_leaves(opt)
+
+
+def phase_gossip_kernel_vs_plain(torch):
+    """At 4 layers, 3 steps: the kernel path against the plain path for each
+    configuration of KERNEL_VS_PLAIN (losses to LOSS_RTOL); then on the
+    kernel path, bit for bit: --gossip-delay 0 == no delay, decentlam-sa on an
+    undelayed channel (gap 0) == decentlam, and flat planes == per leaf for
+    decentlam-sa at delay 1."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.train.train_state import model_plane_layout
+
+    depth, steps = 4, 3
+    layout = model_plane_layout(dataclasses.replace(get_config(MAIN["arch"]), n_layers=depth))
+    rows = []
+    for name, extra in KERNEL_VS_PLAIN.items():
+        kern = train.main(_train_argv(steps, "triton", depth) + extra)
+        plain = train.main(_train_argv(steps, "torch", depth) + extra)
+        a, b = kern["losses"], plain["losses"]
+        rel = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+        if not all(map(math.isfinite, a)) or not rel <= LOSS_RTOL:
+            raise RuntimeError(f"{name}: kernel losses {a} vs plain {b} (rtol {LOSS_RTOL})")
+        rows.append(f"{name}: max rel diff {rel:.3g}{' (bitwise)' if a == b else ''}")
+    torch.cuda.empty_cache()
+    log(f"phase 19: {depth} layers, {steps} steps, kernel path == plain path (loss rtol "
+        f"{LOSS_RTOL}) in {len(rows)} configurations:")
+    for r in rows:
+        log(f"  {r}")
+
+    pairs = {
+        "--gossip-delay 0 == no delay": (["--gossip-delay", "0"], []),
+        "decentlam-sa at gap 0 == decentlam (planes)": (
+            ["--algorithm", "decentlam-sa", "--flat-planes"], ["--flat-planes"]),
+        "flat planes == per leaf, decentlam-sa at delay 1": (
+            ["--algorithm", "decentlam-sa", "--gossip-delay", "1", "--flat-planes"],
+            ["--algorithm", "decentlam-sa", "--gossip-delay", "1"]),
+    }
+    for name, (one, other) in pairs.items():
+        ha, hb = {}, {}
+        ra = train.main(_train_argv(steps, "triton", depth) + one, on_step=_last_state(ha))
+        rb = train.main(_train_argv(steps, "triton", depth) + other, on_step=_last_state(hb))
+        sa = _state_leaves(ha.pop("state"), layout)
+        sb = _state_leaves(hb.pop("state"), layout)
+        same = (ra["losses"] == rb["losses"] and len(sa) == len(sb)
+                and all(_same_bits(torch, x, y) for x, y in zip(sa, sb)))
+        if not same:
+            raise RuntimeError(f"{name}: not bit for bit (losses {ra['losses']} vs "
+                               f"{rb['losses']})")
+        log(f"  {name}: losses and the final parameters and optimizer state bit for bit "
+            f"({len(sa)} tensors)")
+        del sa, sb
+        torch.cuda.empty_cache()
+
+
+# phase 20: checkpoint and resume at full width, 2 layers, 2 nodes
+CKPT = ["--nodes", "2", "--arch", "qwen3-0.6b", "--depth", "2", "--seq-len",
+        str(MAIN["seq_len"]), "--per-node-batch", str(MAIN["per_node_batch"]),
+        "--algorithm", "decentlam-sa", "--gossip-delay", "1", "--compression", "int8-row-ef",
+        "--fused-update", "--fused-impl", "triton", "--log-every", "1", "--steps", "4"]
+
+
+def _host_copy(state) -> dict:
+    """Leaf path -> host copy of a state's parameters, optimizer and
+    channel state."""
+    from repro_torch.utils import tree_leaves, tree_paths
+
+    tree = {k: state[k] for k in ("params", "opt", "channel")}
+    return {p: t.detach().cpu().clone() for p, t in zip(tree_paths(tree), tree_leaves(tree))}
+
+
+def phase_checkpoint_resume(torch):
+    """Phase 17's algorithm with delay 1 and int8-row-ef on planes, qwen3-0.6b
+    at full width, 2 layers, 2 nodes: 4 steps unbroken (saving at steps 2
+    and 4) against 2 steps, a state restored with --resume from the step-2
+    checkpoint in a fresh directory, and 2 more: losses, parameters,
+    optimizer and the whole channel state bit for bit.  Then the resumed
+    run's checkpoint restored without --flat-planes: parameters and
+    momentum equal the saved planes unpacked, the channel state starts
+    afresh, and 2 more steps have finite losses."""
+    import dataclasses
+    import shutil
+
+    import repro_torch.launch.train as train
+    from repro_torch.configs import get_config
+    from repro_torch.core.schedules import ScheduleConfig
+    from repro_torch.data.synthetic import SyntheticLM, SyntheticLMConfig
+    from repro_torch.train.step import TrainConfig, build_train_step
+    from repro_torch.train.train_state import model_plane_layout
+    from repro_torch.utils import tree_leaves, tree_paths
+
+    root = os.path.join(HERE, "build", "ckpt_smoke")
+    a, b = os.path.join(root, "unbroken"), os.path.join(root, "resumed")
+    free = shutil.disk_usage(HERE).free
+    log(f"phase 20: {free / 1e9:.1f} GB free on the checkout's disk")
+    save, restore = train.save_checkpoint, train.restore_checkpoint
+    times = {"save": [], "restore": []}
+
+    def timed(kind, fn):
+        def wrapped(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            times[kind].append(time.perf_counter() - t)
+            return out
+        return wrapped
+
+    train.save_checkpoint = timed("save", save)
+    train.restore_checkpoint = timed("restore", restore)
+    try:
+        ha, hb = {}, {}
+        ra = train.main(CKPT + ["--flat-planes", "--ckpt-dir", a, "--ckpt-every", "2"],
+                        on_step=_last_state(ha))
+        straight = _host_copy(ha.pop("state"))
+        torch.cuda.empty_cache()
+        gb = os.path.getsize(os.path.join(a, "step_00000002", "state.npz")) / 1e9
+        os.makedirs(b)
+        os.replace(os.path.join(a, "step_00000002"), os.path.join(b, "step_00000002"))
+        shutil.rmtree(a)
+        rb = train.main(CKPT + ["--flat-planes", "--ckpt-dir", b, "--resume"],
+                        on_step=_last_state(hb))
+        resumed = _host_copy(hb.pop("state"))
+        torch.cuda.empty_cache()
+        if rb["start_step"] != 2 or rb["losses"] != ra["losses"][2:]:
+            raise RuntimeError(f"resumed losses {rb['losses']} from step {rb['start_step']}, "
+                               f"unbroken {ra['losses']}")
+        differ = [k for k in straight if not _same_bits(torch, straight[k], resumed[k])]
+        if sorted(straight) != sorted(resumed) or differ:
+            raise RuntimeError(f"resumed state != unbroken state: {differ or 'keys differ'}")
+        chan = [k for k in straight if k.startswith("channel/")]
+        log(f"  unbroken {ra['losses']} == 2 steps, save, --resume, 2 steps {rb['losses']}; "
+            f"the final state bit for bit in all {len(straight)} tensors "
+            f"({len(chan)} of the channel: {chan})")
+        shutil.rmtree(os.path.join(b, "step_00000002"))
+
+        # the same checkpoint into the per-leaf form, then 2 steps on it
+        cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=2)
+        layout = model_plane_layout(cfg)
+        tcfg = TrainConfig(algorithm="decentlam-sa", gossip_delay=1, compression="int8-row-ef",
+                           fused_update=True, fused_impl="triton",
+                           schedule=ScheduleConfig(kind="warmup_cosine", peak_lr=3e-3,
+                                                   warmup_steps=1, total_steps=6))
+        step_fn, channel = build_train_step(cfg, tcfg, 2)
+        state = train.resume_state(b, cfg, channel, None, False, 2, torch.device("cuda"))
+        saved_m = {"float32": resumed["opt/m/float32"]}
+        m_tree = layout.unpack(saved_m, dtype=torch.float32, leading=1)
+        got = dict(zip(tree_paths(state["params"]), tree_leaves(state["params"])))
+        want_m = dict(zip(tree_paths(m_tree), tree_leaves(m_tree)))
+        got_m = dict(zip(tree_paths(state["opt"]["m"]), tree_leaves(state["opt"]["m"])))
+        bad = [p for p, t in got.items() if not _same_bits(torch, t.cpu(), resumed[f"params/{p}"])]
+        bad += [p for p, t in got_m.items() if not _same_bits(torch, t.cpu(), want_m[p])]
+        # the residual and the ring start afresh; the telemetry carries on
+        fresh = all(not t.any() for k, v in state["channel"].items() if k != "t"
+                    for t in tree_leaves(v))
+        fresh = fresh and all(_same_bits(torch, state["channel"]["t"][k].cpu(),
+                                         resumed[f"channel/t/{k}"]) for k in ("bytes", "rounds"))
+        if bad or sorted(got_m) != sorted(want_m) or not fresh:
+            raise RuntimeError(f"per-leaf resume: {bad} differ from the saved planes, channel "
+                               f"re-initialized: {fresh}")
+        n_leaves = len(got)
+        del got, got_m, m_tree
+        data = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=MAIN["seq_len"],
+                                             per_node_batch=MAIN["per_node_batch"], n_nodes=2))
+        losses = []
+        for k in (4, 5):
+            state, metrics = step_fn(state, {n: torch.from_numpy(v).cuda()
+                                             for n, v in data.batch(k).items()})
+            losses.append(float(metrics["loss"]))
+        if state["step"] != 6 or not all(map(math.isfinite, losses)):
+            raise RuntimeError(f"per-leaf resume: losses {losses} to step {state['step']}")
+        del state
+        torch.cuda.empty_cache()
+        log(f"  the resumed run's step-4 checkpoint without --flat-planes: {n_leaves} parameter "
+            f"leaves and every momentum leaf == the saved planes unpacked, the channel state "
+            f"re-initialized (zeros) but for the telemetry; 2 more steps, losses {losses}")
+        log(f"  {gb:.2f} GB per checkpoint; save {[round(t, 1) for t in times['save']]} s, "
+            f"restore {[round(t, 1) for t in times['restore']]} s")
+    finally:
+        train.save_checkpoint, train.restore_checkpoint = save, restore
+        shutil.rmtree(root, ignore_errors=True)
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -1825,6 +2345,10 @@ def main() -> int:
     flat = timed("15 flat-plane train main path", phase_flat_planes_main_path, main_path,
                  per_stage)
     timed("16 serve while training", phase_serve_while_training)
+    stale = timed("17 staleness train main path", phase_staleness_main_path, flat)
+    timed("18 compressed gossip train main path", phase_compressed_main_path, flat)
+    timed("19 gossip kernel vs plain path", phase_gossip_kernel_vs_plain)
+    timed("20 checkpoint and resume", phase_checkpoint_resume)
     log(f"phase times (s): {phases}; total {time.perf_counter() - t0:.1f}s")
     # one record per specialization of the Triton kernel on the training main
     # path (times per step, summed over the 14 leaves), and the flash and
@@ -1857,6 +2381,21 @@ def main() -> int:
         "bound_by": rec["bound_by"],
         "library_ms": rec["library_ms"],
     } for op, rec in flat["plane"].items()]
+    # the staleness path's post stage with sg per node (SG_COL), phase 17
+    sa = stale["sa"]
+    records.append({
+        "name": "fused_update[plane decentlam_sa_post, sg per node]",
+        "route": "triton",
+        "source": "src/repro_torch/kernels/fused_update/_triton.py",
+        "replaces": "src/repro/kernels/fused_update/kernel.py:66",
+        "launches": stale["launches"]["decentlam_sa_post"],
+        "max_abs_err": sa["err"],
+        "ms": sa["ms"],
+        "plain_ms": sa["plain_ms"],
+        "bound_ms": sa["bound_ms"],
+        "bound_by": sa["bound_by"],
+        "library_ms": sa["library_ms"],
+    })
     records.append({
         "name": "flash_attention[causal, f32, hd 64]",
         "route": "cuda",

@@ -77,6 +77,11 @@ class Segment:
 class PlaneLayout:
     """Static packing plan for one tree template (see the module docstring)."""
 
+    # the reference layout's shard metadata at tp = 1 (its defaults), which
+    # checkpoint manifests record
+    tp = 1
+    model_axis = "model"
+
     def __init__(self, template: Tree, segments: dict[str, tuple[Segment, ...]],
                  rows: dict[str, int]):
         self.template = template  # the structure leaves are unflattened into

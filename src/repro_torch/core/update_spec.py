@@ -465,11 +465,13 @@ def leaf_scalars(scalars, n_leaves: int, ctx: MathCtx) -> list[dict]:
     ]
 
 
-def reference_stage(kind, op, ctx, operands, scalars, like_x):
+def reference_stage(kind, op, ctx, operands, scalars, like_x, *, out=None):
     """Plain torch oracle executor: per-leaf :func:`pre_math`/:func:`post_math`.
 
     Output dtype policy (matched by the fused executor): ``x`` keeps the
-    dtype of ``like_x``; ``payload`` and ``m`` are f32.
+    dtype of ``like_x``; ``payload`` and ``m`` are f32.  ``out`` (``{name:
+    tree}``) names buffers that outputs are copied into, as the fused
+    executors write into them.
     """
     names = tuple(operands)
     first = operands[names[0]]
@@ -479,6 +481,7 @@ def reference_stage(kind, op, ctx, operands, scalars, like_x):
     per_leaf_s = leaf_scalars(scalars, n_leaves, ctx)
     math = pre_math if kind == "pre" else post_math
 
+    into = {n: tree_leaves(t) for n, t in (out or {}).items()}
     out_cols: dict[str, list] = {}
     for i in range(n_leaves):
         vals = {n: cols[n][i].to(torch.float32) for n in names}
@@ -486,6 +489,8 @@ def reference_stage(kind, op, ctx, operands, scalars, like_x):
         for name, val in res.items():
             if name == "x":
                 val = val.to(x_like[i].dtype)
+            if name in into:
+                val = into[name][i].copy_(val)
             out_cols.setdefault(name, []).append(val)
     return {n: tree_unflatten(first, col) for n, col in out_cols.items()}
 
@@ -535,8 +540,13 @@ def run_update(
             payload = _f32_tree(env["g"])  # nothing to fuse
         else:
             ins, _ = pre_io(ph.pre, ctx)
+            # a channel that records payloads (a delay ring) may offer the
+            # buffer the payload would be copied into: the stage writes there
+            slot = (gossip.payload_slot(comp_state)
+                    if ph.comm == "gossip" and isinstance(gossip, GossipChannel) else None)
             out = stage(
-                "pre", ph.pre, ctx, {n: env[n] for n in ins}, scalars, env["x"]
+                "pre", ph.pre, ctx, {n: env[n] for n in ins}, scalars, env["x"],
+                **({"out": {"payload": slot}} if slot is not None else {}),
             )
             payload = out.pop("payload")
             env.update(out)

@@ -11,7 +11,7 @@ import triton.language as tl
 
 @triton.jit
 def fused_stage_kernel(
-    s_ptr, gs_ptr, r_ptr, x_ptr, g_ptr, m_ptr, mix_ptr, xp_ptr, mp_ptr,
+    s_ptr, gs_ptr, r_ptr, sg_ptr, x_ptr, g_ptr, m_ptr, mix_ptr, xp_ptr, mp_ptr,
     ox_ptr, op_ptr, om_ptr,
     numel, beta, omb, wd,
     OP: tl.constexpr,
@@ -20,7 +20,7 @@ def fused_stage_kernel(
     NESTEROV: tl.constexpr, COUPLED_WD: tl.constexpr, DECOUPLED_WD: tl.constexpr,
     CLIP: tl.constexpr, LARS: tl.constexpr,
     NODE_GRID: tl.constexpr, GS_COL: tl.constexpr, R_COL: tl.constexpr,
-    BLOCK: tl.constexpr,
+    SG_COL: tl.constexpr, BLOCK: tl.constexpr,
 ):
     # beta, omb (= 1 - beta, rounded on the host as the plain version does)
     # and wd are the MathCtx constants; s_ptr -> [lr, gs, r, sg].
@@ -53,7 +53,10 @@ def fused_stage_kernel(
         r = tl.load(r_ptr + node * tl.num_programs(0) + blk)
     else:
         r = tl.load(s_ptr + 2)
-    sg = tl.load(s_ptr + 3)
+    if SG_COL == 1:
+        sg = tl.load(sg_ptr + node)
+    else:
+        sg = tl.load(s_ptr + 3)
     safe_lr = tl.maximum(lr, 1e-12)
 
     if HAS_X:

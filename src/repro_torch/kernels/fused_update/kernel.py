@@ -32,13 +32,23 @@ bytes over 3.35 TB/s.  The design follows from that:
   the 1-D kernel it always was;
 * offsets are 64-bit: a stacked lm_head leaf passes 2**31 elements at 14
   nodes;
-* ``(x - mix) / lr`` uses IEEE division (``div_rn``) like the plain version;
-  Triton contracts ``a*b + c`` into FMAs where eager torch does not, so the
-  kernel and the plain version agree to about one ulp, not bitwise.  Some
-  ops (``decentlam_sa_post``'s m; bf16-x stages with clip + coupled wd +
-  LARS) contract differently at different positions of a block, so the same
-  element at another offset modulo ``BLOCK`` can differ by an ulp: the plane
-  and per-leaf launches agree bitwise on leaves of whole 1024-element rows.
+* ``(x - mix) / lr`` uses IEEE division (``div_rn``) like the plain
+  version, and the launch passes ``enable_fp_fusion=False``: Triton would
+  otherwise contract ``a*b + c`` into FMAs, and contract some ops (the
+  ``decentlam_sa_post`` momentum, bf16-x stages with clip + coupled wd +
+  LARS) differently at different positions of a block, so that the same
+  element at another offset modulo ``BLOCK`` came out an ulp apart and the
+  plane and per-leaf launches disagreed.  With every multiply and add
+  rounded on its own, as the plain version's eager ops round them, an
+  element's result depends on its operands only.  The stage does at most
+  ~10 flops per element against 12-28 bytes, so the unfused arithmetic
+  costs no time on a bytes-bound kernel;
+* the staleness damping ``sg`` may come per node from a column too
+  (``SG_COL``): the stacked step's delayed channel reports each node's
+  incident version gap, so ``decentlam_sa_post`` damps each node by its
+  own ``max(sa_damping ** gap, sa_floor)``.  The reference's Pallas stage
+  takes only a scalar ``sg``, since inside its shard_map each node sees its
+  own; the stacked port needs the ``(n,)`` column, as it needs ``gs``.
 
 The caller may pass the same tensor as an input and as an output (``x``
 and ``m`` updated in place): each program loads its block before it stores
@@ -62,8 +72,10 @@ __all__ = [
 
 BLOCK = 1024  # = planes.LANES: a per-row column's program covers one plane row
 NUM_WARPS = 4
-# column modes of the kernel's GS_COL / R_COL
+# column modes of the kernel's GS_COL / R_COL / SG_COL
 _COL_MODE = {"node": 1, "row": 2}
+# the svec scalars a column may override, and in which modes
+_COL_NAMES = {"gs": ("node", "row"), "r": ("node", "row"), "sg": ("node",)}
 
 # op -> kernel op code (the kernel body's constexpr ``OP``)
 OPS: dict[tuple[str, str], int] = {
@@ -100,10 +112,10 @@ def stage_plain(kind, op, ctx: MathCtx, svec: torch.Tensor, ins: dict, out_dtype
     on f32 upcasts of ``ins``, with the scalars read from ``svec = [lr, gs,
     r, sg]`` and overridden by ``cols`` (``{"gs"|"r": tensor}``, each an
     ``(n,)`` per-node value or a ``(rows, 1)`` / ``(n, rows, 1)`` row column,
-    broadcast by the stage math).  Returns ``{name: tensor}`` in
-    ``out_dtypes``; like the kernel's, each output is its own buffer (never
-    an input, never another output).  Counts its calls in
-    ``stage_plain.calls``."""
+    broadcast by the stage math; ``{"sg": (n,)}`` a per-node damping).
+    Returns ``{name: tensor}`` in ``out_dtypes``; like the kernel's, each
+    output is its own buffer (never an input, never another output).
+    Counts its calls in ``stage_plain.calls``."""
     s = {"lr": svec[0], "gs": svec[1], "r": svec[2], "sg": svec[3], **(cols or {})}
     vals = {n: t.to(torch.float32) for n, t in ins.items()}
     math = pre_math if kind == "pre" else post_math
@@ -137,10 +149,12 @@ def fused_stage_launch(kind, op, ctx: MathCtx, svec: torch.Tensor, ins: dict, ou
     ``nodes`` slices are the nodes; ``per_node`` (``{"gs"|"r": (nodes,)}``)
     and ``per_row`` (``{"gs"|"r": (nodes * rows,)}``, operands shaped
     ``(nodes, rows, BLOCK)`` or, at ``nodes=1``, ``(rows, BLOCK)``) override
-    the svec scalar of that name with a float32 column.  Checks device,
-    dtype, shape and contiguity and raises on anything the kernel does not
-    take; counts its launches in ``fused_stage_launch.launches`` and, per op,
-    in ``fused_stage_launch.launches_by_op``."""
+    the svec scalar of that name with a float32 column; ``sg`` takes a
+    column per node only.  Checks device, dtype, shape and contiguity and
+    raises on anything the kernel does not take; counts its launches in
+    ``fused_stage_launch.launches``, per op in
+    ``fused_stage_launch.launches_by_op`` and, for each column it read, in
+    ``fused_stage_launch.launches_by_col[(op, name)]``."""
     names_in, names_out = stage_io(kind, op, ctx)
     if tuple(ins) != tuple(names_in) or tuple(outs) != tuple(names_out):
         raise ValueError(
@@ -179,8 +193,8 @@ def fused_stage_launch(kind, op, ctx: MathCtx, svec: torch.Tensor, ins: dict, ou
             raise ValueError(f"{nodes} nodes exceed the grid's second dimension (65535)")
     rows = -(-numel // BLOCK)
     for name, (t, mode) in cols.items():
-        if name not in ("gs", "r"):
-            raise ValueError(f"only gs and r take a column, got {name!r}")
+        if mode not in _COL_NAMES.get(name, ()):
+            raise ValueError(f"{name!r} takes no column per {mode} (columns: {_COL_NAMES})")
         if mode == "row" and (numel % BLOCK or first.shape[-1] != BLOCK):
             raise ValueError(f"a per-row column needs operands of rows of {BLOCK}, "
                              f"got {tuple(first.shape)}")
@@ -201,7 +215,7 @@ def fused_stage_launch(kind, op, ctx: MathCtx, svec: torch.Tensor, ins: dict, ou
     grid = (triton.cdiv(numel, BLOCK), nodes) if nodes else (triton.cdiv(numel, BLOCK),)
     with torch.cuda.device(dev):
         fused_stage_kernel[grid](
-            svec, col("gs"), col("r"),
+            svec, col("gs"), col("r"), col("sg"),
             ptr(ins, "x"), ptr(ins, "g"), ptr(ins, "m"), ptr(ins, "mix"),
             ptr(ins, "x_prev"), ptr(ins, "m_prev"),
             ptr(outs, "x"), ptr(outs, "payload"), ptr(outs, "m"),
@@ -211,12 +225,15 @@ def fused_stage_launch(kind, op, ctx: MathCtx, svec: torch.Tensor, ins: dict, ou
             HAS_MIX="mix" in ins, HAS_PREV="x_prev" in ins,
             NESTEROV=ctx.nesterov, COUPLED_WD=ctx.coupled_wd,
             DECOUPLED_WD=ctx.decoupled_wd, CLIP=ctx.clip, LARS=ctx.lars,
-            NODE_GRID=bool(nodes), GS_COL=mode("gs"), R_COL=mode("r"),
-            BLOCK=BLOCK, num_warps=NUM_WARPS,
+            NODE_GRID=bool(nodes), GS_COL=mode("gs"), R_COL=mode("r"), SG_COL=mode("sg"),
+            BLOCK=BLOCK, num_warps=NUM_WARPS, enable_fp_fusion=False,
         )
     fused_stage_launch.launches += 1
     by_op = fused_stage_launch.launches_by_op
     by_op[op] = by_op.get(op, 0) + 1
+    by_col = fused_stage_launch.launches_by_col
+    for name in cols:
+        by_col[(op, name)] = by_col.get((op, name), 0) + 1
     return outs
 
 
@@ -224,6 +241,7 @@ def reset_launches() -> None:
     """Set the launch counts, and the plain version's call count, to 0."""
     fused_stage_launch.launches = 0
     fused_stage_launch.launches_by_op = {}
+    fused_stage_launch.launches_by_col = {}
     stage_plain.calls = 0
 
 

@@ -20,12 +20,15 @@ CUDA leaf under ``impl="triton"`` launches the kernel or raises.
 the same name (the stage is elementwise, so this is exact).  It saves one
 copy of the parameters and of the momentum at the end of every step — 21 GB
 at qwen3-0.6b x 4 nodes — and mutates the caller's trees.  ``payload`` is
-always a fresh buffer, so it never aliases ``x``.
+a fresh buffer, or the one ``out`` names (a delay ring's next slot), so it
+never aliases ``x``.
 
-Per-node scalars (stacked trees): a clip scale ``gs`` of shape ``(n,)``
-and LARS ratios ``r`` that are ``(n,)`` per leaf
-(:func:`~repro_torch.core.update_spec.node_grad_scalars`) launch the
-kernel's 2-D grid, one value per node.
+Per-node scalars (stacked trees): a clip scale ``gs`` of shape ``(n,)``,
+LARS ratios ``r`` that are ``(n,)`` per leaf
+(:func:`~repro_torch.core.update_spec.node_grad_scalars`) and a staleness
+damping ``sg`` of shape ``(n,)`` (a delayed stacked channel's incident
+gaps through ``staleness_damping``) launch the kernel's 2-D grid, one value
+per node.
 
 ``make_plane_stage`` is the flat path: operands are
 :class:`~repro_torch.core.planes.PlaneLayout` buffers (one contiguous
@@ -60,20 +63,16 @@ IMPLS = ("triton", "torch")
 
 def _scalar(v, dev) -> torch.Tensor:
     if isinstance(v, torch.Tensor):
-        if v.ndim:
-            raise NotImplementedError(
-                "the fused stage takes scalar stage scalars; a per-node (n,) "
-                "staleness damping comes with the staleness slice"
-            )
         return v.to(device=dev, dtype=torch.float32)
     return torch.full((), float(v), dtype=torch.float32, device=dev)
 
 
 def _split_scalars(s: dict, dev) -> tuple[torch.Tensor, dict]:
-    """``svec = [lr, gs, r, sg]`` and the tensors among ``gs``, ``r`` that are
-    not scalars (per-node values or row columns; their svec slot holds 1)."""
+    """``svec = [lr, gs, r, sg]`` and the tensors among ``gs``, ``r``, ``sg``
+    that are not scalars (per-node values or, for ``gs`` and ``r``, row
+    columns; their svec slot holds 1)."""
     cols = {}
-    for k in ("gs", "r"):
+    for k in ("gs", "r", "sg"):
         v = s[k]
         if isinstance(v, torch.Tensor) and v.ndim:
             cols[k] = v.to(device=dev, dtype=torch.float32)
@@ -82,17 +81,20 @@ def _split_scalars(s: dict, dev) -> tuple[torch.Tensor, dict]:
     return svec, cols
 
 
-def _run(kind, op, ctx, ins, out_dtypes, svec, *, per_node, per_row, nodes, impl, inplace):
+def _run(kind, op, ctx, ins, out_dtypes, svec, *, per_node, per_row, nodes, impl, inplace,
+         out=None):
     """One stage on one leaf or bucket: the plain version for CPU tensors or
     ``impl="torch"``, else the kernel (which raises on what it cannot take).
     ``per_node`` holds ``(n,)`` values, ``per_row`` row columns; the kernel
-    runs its 2-D grid over ``nodes`` when there are any."""
+    runs its 2-D grid over ``nodes`` when there are any.  ``out`` names
+    buffers to write outputs into."""
     names_out = tuple(out_dtypes)
     first = next(iter(ins.values()))
     reuse = {
         n: ins[n] for n in names_out
         if inplace and n in ins and ins[n].dtype == out_dtypes[n]
     }
+    reuse.update(out or {})
     if first.device.type == "cpu" or impl == "torch":
         res = stage_plain(kind, op, ctx, svec, ins, out_dtypes, {**per_node, **per_row})
         for n, buf in reuse.items():
@@ -110,10 +112,11 @@ def _run(kind, op, ctx, ins, out_dtypes, svec, *, per_node, per_row, nodes, impl
     return res
 
 
-def fused_stage(kind, op, ctx: MathCtx, operands, scalars, like_x, *,
+def fused_stage(kind, op, ctx: MathCtx, operands, scalars, like_x, *, out=None,
                 impl: str = "triton", inplace: bool = False):
     """Fused stage executor (signature of ``reference_stage``), one launch
-    per leaf.  Per-node ``(n,)`` ``gs`` or ``r`` launch the 2-D grid."""
+    per leaf.  Per-node ``(n,)`` ``gs``, ``r`` or ``sg`` launch the 2-D
+    grid."""
     if impl not in IMPLS:
         raise ValueError(f"unknown fused impl {impl!r}; one of {IMPLS}")
     names = tuple(operands)
@@ -124,6 +127,7 @@ def fused_stage(kind, op, ctx: MathCtx, operands, scalars, like_x, *,
     per_leaf_s = leaf_scalars(scalars, n_leaves, ctx)
     _, names_out = stage_io(kind, op, ctx)
 
+    out_leaves = {n: tree_leaves(t) for n, t in (out or {}).items()}
     out_cols: dict[str, list] = {n: [] for n in names_out}
     for i in range(n_leaves):
         ins = {n: cols[n][i] for n in names}
@@ -131,13 +135,14 @@ def fused_stage(kind, op, ctx: MathCtx, operands, scalars, like_x, *,
         out_dtypes = {n: (likes[i].dtype if n == "x" else torch.float32) for n in names_out}
         res = _run(kind, op, ctx, ins, out_dtypes, svec, per_node=node_cols, per_row={},
                    nodes=ins[names[0]].shape[0] if node_cols else 0,
-                   impl=impl, inplace=inplace)
+                   impl=impl, inplace=inplace,
+                   out={n: leaves[i] for n, leaves in out_leaves.items()})
         for n in names_out:
             out_cols[n].append(res[n])
     return {n: tree_unflatten(first, col) for n, col in out_cols.items()}
 
 
-def fused_plane_stage(kind, op, ctx: MathCtx, operands, scalars, like_x, *,
+def fused_plane_stage(kind, op, ctx: MathCtx, operands, scalars, like_x, *, out=None,
                       impl: str = "triton", inplace: bool = False):
     """Whole-plane stage executor (signature of ``reference_stage``).
 
@@ -147,7 +152,8 @@ def fused_plane_stage(kind, op, ctx: MathCtx, operands, scalars, like_x, *,
     dtype buckets and each stage issues exactly one launch per bucket.  The
     LARS ratio, when per leaf, arrives as the layout's row columns
     (``{bucket: (rows, 1)}`` or ``(n, rows, 1)``) and the kernel reads one
-    float per row; a per-node ``(n,)`` clip scale one float per node."""
+    float per row; a per-node ``(n,)`` clip scale or staleness damping one
+    float per node."""
     if impl not in IMPLS:
         raise ValueError(f"unknown fused impl {impl!r}; one of {IMPLS}")
     names = tuple(operands)
@@ -159,7 +165,7 @@ def fused_plane_stage(kind, op, ctx: MathCtx, operands, scalars, like_x, *,
     if r_cols is not None and sorted(r_cols) != buckets:
         raise ValueError(f"row columns for {sorted(r_cols)}, operands in {buckets}")
 
-    out: dict[str, dict] = {n: {} for n in names_out}
+    res_out: dict[str, dict] = {n: {} for n in names_out}
     for key in buckets:
         ins = {n: operands[n][key] for n in names}
         first = ins[names[0]]
@@ -175,10 +181,11 @@ def fused_plane_stage(kind, op, ctx: MathCtx, operands, scalars, like_x, *,
             raise ValueError("per-node scalars need stacked (n, rows, LANES) planes")
         out_dtypes = {n: (like_x[key].dtype if n == "x" else torch.float32) for n in names_out}
         res = _run(kind, op, ctx, ins, out_dtypes, svec, per_node=per_node, per_row=per_row,
-                   nodes=first.shape[0] if first.ndim == 3 else 1, impl=impl, inplace=inplace)
+                   nodes=first.shape[0] if first.ndim == 3 else 1, impl=impl, inplace=inplace,
+                   out={n: t[key] for n, t in (out or {}).items()})
         for n in names_out:
-            out[n][key] = res[n]
-    return out
+            res_out[n][key] = res[n]
+    return res_out
 
 
 def make_stage(impl: str = "triton", *, inplace: bool = False):
@@ -200,14 +207,6 @@ def make_plane_stage(impl: str = "triton", *, inplace: bool = False):
     if impl == "torch":
         return reference_stage
     return functools.partial(fused_plane_stage, impl=impl, inplace=inplace)
-
-
-def make_stage(impl: str = "triton", *, inplace: bool = False):
-    """Stage executor for ``run_update``: ``triton`` (the kernel) or
-    ``torch`` (its plain version)."""
-    if impl not in IMPLS:
-        raise ValueError(f"unknown fused impl {impl!r}; one of {IMPLS}")
-    return functools.partial(fused_stage, impl=impl, inplace=inplace)
 
 
 def decentlam_update(params, mixed, momentum, lr, *, beta: float, impl: str = "triton"):

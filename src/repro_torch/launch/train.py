@@ -2,8 +2,12 @@
 
 Runs DecentLaM (or any of the eleven algorithms) on synthetic LM data with
 the node replicas stacked on one card (``--nodes N``), the ``W @`` gossip
-between them, and the update tail either through the reference optimizer
-step or, with ``--fused-update``, through the fused stage kernel.
+between them — delayed (``--gossip-delay``) and compressed
+(``--compression``) as asked — and the update tail either through the
+reference optimizer step or, with ``--fused-update``, through the fused
+stage kernel.  ``--ckpt-dir`` checkpoints every ``--ckpt-every`` steps and
+at the end; ``--resume`` continues from the latest checkpoint there
+(elastically reshaped when ``--nodes`` differs).
 
 Examples::
 
@@ -19,9 +23,21 @@ Examples::
         --fused-update --fused-impl triton --flat-planes \\
         --serve-while-training --publish-every 2
 
-    # tiny LM on the host CPU (the kernel's plain version)
+    # staleness-aware DecentLaM over one round of gossip delay, per-node
+    # damping in the stage kernel, with the consensus distance per step
+    PYTHONPATH=src python -m repro_torch.launch.train --nodes 4 \\
+        --arch qwen3-0.6b --steps 8 --seq-len 256 --per-node-batch 4 \\
+        --fused-update --fused-impl triton --flat-planes \\
+        --algorithm decentlam-sa --gossip-delay 1 --track-consensus
+
+    # tiny LM on the host CPU (the kernel's plain version), int8 gossip with
+    # error feedback, checkpointed every 2 steps; then resumed to step 6
     PYTHONPATH=src python -m repro_torch.launch.train --nodes 4 --preset tiny \\
-        --steps 2 --seq-len 32 --per-node-batch 2 --fused-update --device cpu
+        --steps 4 --seq-len 32 --per-node-batch 2 --fused-update --device cpu \\
+        --compression int8-row-ef --ckpt-dir build/ckpt --ckpt-every 2
+    PYTHONPATH=src python -m repro_torch.launch.train --nodes 4 --preset tiny \\
+        --steps 6 --seq-len 32 --per-node-batch 2 --fused-update --device cpu \\
+        --compression int8-row-ef --ckpt-dir build/ckpt --resume
 """
 
 from __future__ import annotations
@@ -38,10 +54,21 @@ from ..core.optimizers import make_optimizer
 from ..core.schedules import ScheduleConfig
 from ..data.pipeline import prefetch_to_device
 from ..data.synthetic import SyntheticLM, SyntheticLMConfig
-from ..models.transformer import count_params
+from ..models.transformer import RuntimeConfig, count_params
+from ..train.checkpoint import (
+    check_plane_manifest,
+    elastic_reshape,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from ..train.step import TrainConfig, build_train_step
-from ..train.train_state import init_train_state, model_plane_layout
-from ..utils import resolve_device, tree_map
+from ..train.train_state import (
+    ensure_channel_state,
+    init_train_state,
+    model_plane_layout,
+    reconcile_plane_state,
+)
+from ..utils import resolve_device, tree_leaves, tree_map
 
 
 def _parse(argv=None):
@@ -59,12 +86,26 @@ def _parse(argv=None):
     p.add_argument("--steps", type=int, default=200)
     p.add_argument("--algorithm", default="decentlam")
     p.add_argument("--topology", default="exp")
+    p.add_argument("--gossip-delay", dest="gossip_delay", type=int, default=0,
+                   help="hold gossip payloads back k rounds (delayed stacked channel; "
+                   "bounded staleness)")
+    p.add_argument("--compression", default=None,
+                   help="gossip compressor: bf16 | int8 | int8-row | int8-row-ef | topk:<rate>")
     p.add_argument("--momentum", type=float, default=0.9)
+    p.add_argument("--sa-damping", dest="sa_damping", type=float, default=0.5,
+                   help="decentlam-sa: base of the per-gap momentum damping "
+                   "(sg = sa_damping**version_gap, per node, read off the delayed channel)")
+    p.add_argument("--sa-floor", dest="sa_floor", type=float, default=0.0,
+                   help="decentlam-sa: lower bound on the damping factor")
     p.add_argument("--lr", type=float, default=3e-3)
     p.add_argument("--warmup", type=int, default=20)
     p.add_argument("--seq-len", dest="seq_len", type=int, default=128)
     p.add_argument("--per-node-batch", dest="per_node_batch", type=int, default=8)
     p.add_argument("--heterogeneity", type=float, default=0.2)
+    p.add_argument("--grad-accum", dest="grad_accum", type=int, default=1,
+                   help="microbatches per node and step (gradients summed in f32)")
+    p.add_argument("--dtype", default="float32",
+                   help="activation / compute dtype of the forward pass (parameters stay f32)")
     p.add_argument("--fused-update", dest="fused_update", action="store_true")
     p.add_argument("--fused-impl", dest="fused_impl", default="triton",
                    choices=["triton", "torch"],
@@ -88,6 +129,15 @@ def _parse(argv=None):
                    help="synthetic requests for the serve demo")
     p.add_argument("--no-finite-guard", dest="finite_guard", action="store_false",
                    help="disable the non-finite-gradient skip guard")
+    p.add_argument("--max-skipped-steps", dest="max_skipped_steps", type=int, default=0,
+                   help="abort once this many steps had their update skipped by the finite "
+                   "guard (0 = no budget)")
+    p.add_argument("--ckpt-dir", dest="ckpt_dir", default=None)
+    p.add_argument("--ckpt-every", dest="ckpt_every", type=int, default=100)
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the latest checkpoint under --ckpt-dir")
+    p.add_argument("--track-consensus", dest="track_consensus", action="store_true",
+                   help="report (1/n) sum_i ||x_i - x_bar||^2 after every step")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--measure-json", dest="measure_json", default=None,
                    help="write the run's step time, tokens/s and peak memory here")
@@ -135,14 +185,41 @@ def _serve_demo(args, cfg, layout, channel, device, runtime, on_serve):
     return pub, engine, serve
 
 
+def resume_state(ckpt_dir: str, cfg, channel, layout, flat_planes: bool, n_nodes: int,
+                 device) -> dict:
+    """The latest checkpoint under ``ckpt_dir`` as a run's state on
+    ``device``: elastically reshaped when it holds another node count,
+    checked against the plane layout, its optimizer buckets (and parameters)
+    in the form the run keeps (``flat_planes``), its channel state kept
+    where it matches ``channel``."""
+    host, manifest = restore_checkpoint(ckpt_dir)
+    stored_n = tree_leaves(host["params"])[0].shape[0]
+    if stored_n != n_nodes:
+        print(f"elastic reshape {stored_n} -> {n_nodes}", flush=True)
+        host = elastic_reshape(host, n_nodes)
+    cur_layout = layout or model_plane_layout(cfg)
+    check_plane_manifest(manifest, cur_layout)
+    state = {k: v if k == "step" else tree_map(lambda t: t.to(device), v)
+             for k, v in host.items()}
+    del host
+    state = reconcile_plane_state(state, cur_layout, flat_planes)
+    state = ensure_channel_state(state, channel, cur_layout if flat_planes else None)
+    print(f"resumed from step {state['step']}", flush=True)
+    return state
+
+
 def main(argv=None, *, on_step=None, serve_runtime=None, on_serve=None) -> dict:
     """Run the trainer; returns ``{losses, lrs, step_s, tokens_per_s,
-    peak_mem_bytes, ...}`` (losses/lrs per step).  ``on_step(step)``, if
-    given, is called after each step has finished on the device (a
-    profiler's ``step``, for example).  With ``--serve-while-training`` the
-    engine takes ``serve_runtime`` (default: the engine's own, float32 with
-    the plain attention), ``on_serve(engine, publisher)`` sees both once
-    they exist, and the result holds the demo's ``"serve"`` stats."""
+    peak_mem_bytes, ...}`` (losses/lrs per step, and ``gossip_gaps`` and,
+    with ``--track-consensus``, ``consensus_sq`` per step).  ``on_step(step,
+    state, metrics)``, if given, is called after each step has finished on
+    the device (a profiler's ``step``, for example).  With
+    ``--serve-while-training`` the engine takes ``serve_runtime`` (default:
+    the engine's own, float32 with the plain attention), ``on_serve(engine,
+    publisher)`` sees both once they exist, and the result holds the demo's
+    ``"serve"`` stats.  With ``--resume`` the run continues from the latest
+    checkpoint's step to ``--steps``, and the result's lists cover the steps
+    it ran."""
     args = _parse(argv)
     device = resolve_device(args.device)
     if args.arch:
@@ -156,15 +233,22 @@ def main(argv=None, *, on_step=None, serve_runtime=None, on_serve=None) -> dict:
     tcfg = TrainConfig(
         algorithm=args.algorithm,
         topology=args.topology,
+        gossip_delay=args.gossip_delay,
+        compression=args.compression,
         momentum=args.momentum,
+        sa_damping=args.sa_damping,
+        sa_floor=args.sa_floor,
+        grad_accum=args.grad_accum,
         schedule=ScheduleConfig(
             kind="warmup_cosine", peak_lr=args.lr,
             warmup_steps=min(args.warmup, max(args.steps // 5, 1)),
             total_steps=max(args.steps, 2),
         ),
+        runtime=RuntimeConfig(dtype=args.dtype),
         fused_update=args.fused_update,
         fused_impl=args.fused_impl,
         flat_planes=args.flat_planes,
+        track_consensus=args.track_consensus,
         finite_guard=args.finite_guard,
     )
     step_fn, channel = build_train_step(cfg, tcfg, n_nodes)
@@ -173,8 +257,13 @@ def main(argv=None, *, on_step=None, serve_runtime=None, on_serve=None) -> dict:
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
-    state = init_train_state(cfg, opt, n_nodes, device=device, channel=channel,
-                             plane_layout=layout if args.flat_planes else None)
+    if args.resume and args.ckpt_dir:
+        state = resume_state(args.ckpt_dir, cfg, channel, layout, args.flat_planes, n_nodes,
+                             device)
+    else:
+        state = init_train_state(cfg, opt, n_nodes, device=device, channel=channel,
+                                 plane_layout=layout if args.flat_planes else None)
+    start = state["step"]
     n_params = count_params(state["params"]) // n_nodes
     print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params:,} "
           f"params/node x {n_nodes} nodes on {device}", flush=True)
@@ -190,9 +279,18 @@ def main(argv=None, *, on_step=None, serve_runtime=None, on_serve=None) -> dict:
         heterogeneity=args.heterogeneity,
     ))
 
-    losses, lrs, step_times = [], [], []
+    def checkpoint(state):
+        return save_checkpoint(args.ckpt_dir, state,
+                               metadata={"n_nodes": n_nodes, "algorithm": args.algorithm},
+                               plane_layout=layout if args.flat_planes else None)
+
+    losses, lrs, gaps, consensus, step_times = [], [], [], [], []
+    skipped_steps, saved = 0, False
     t0 = time.perf_counter()
-    for step, batch in enumerate(prefetch_to_device(data.batch, device, args.steps)):
+    batches = prefetch_to_device(lambda k: data.batch(start + k), device,
+                                 max(args.steps - start, 0))
+    for k, batch in enumerate(batches):
+        step = start + k
         ts = time.perf_counter()
         state, metrics = step_fn(state, batch)
         loss = float(metrics["loss"])  # waits for the step's device work
@@ -200,20 +298,36 @@ def main(argv=None, *, on_step=None, serve_runtime=None, on_serve=None) -> dict:
             torch.cuda.synchronize(device)
         step_times.append(time.perf_counter() - ts)
         if on_step is not None:
-            on_step(step)
+            on_step(step, state, metrics)
+        if args.max_skipped_steps and metrics["skipped_nonfinite"] > 0:
+            skipped_steps += 1
+            if skipped_steps > args.max_skipped_steps:
+                raise RuntimeError(
+                    f"aborting at step {step}: the finite guard skipped the optimizer update "
+                    f"on {skipped_steps} steps, exceeding --max-skipped-steps="
+                    f"{args.max_skipped_steps} — the gradients are persistently non-finite"
+                )
         if serve is not None:
             serve(step, state)
         losses.append(loss)
         lrs.append(float(metrics["lr"]))
+        gaps.append(metrics["gossip_gap"])
+        msg = f"step {step:5d} loss {loss:.4f} lr {lrs[-1]:.2e}"
+        if args.track_consensus:
+            consensus.append(float(metrics["consensus_sq"]))
+            msg += f" consensus {consensus[-1]:.3e}"
         if step % args.log_every == 0 or step == args.steps - 1:
-            print(f"step {step:5d} loss {loss:.4f} lr {lrs[-1]:.2e} "
-                  f"({step_times[-1]:.3f}s)", flush=True)
+            print(f"{msg} ({step_times[-1]:.3f}s)", flush=True)
+        saved = bool(args.ckpt_dir) and (step + 1) % args.ckpt_every == 0
+        if saved:
+            print(f"checkpointed -> {checkpoint(state)}", flush=True)
     total = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(device) if cuda else None
 
-    # steady state excludes step 0 (kernel JIT, cuBLAS/allocator warm-up)
+    # steady state excludes the run's first step (kernel JIT, cuBLAS and
+    # allocator warm-up)
     warm = step_times[1:] or step_times
-    step_s = sum(warm) / len(warm)
+    step_s = sum(warm) / len(warm) if warm else float("nan")
     tokens = n_nodes * args.per_node_batch * args.seq_len
     result = {
         "arch": args.arch or args.preset,
@@ -225,15 +339,19 @@ def main(argv=None, *, on_step=None, serve_runtime=None, on_serve=None) -> dict:
         "fused_impl": args.fused_impl if args.fused_update else None,
         "flat_planes": args.flat_planes,
         "device": torch.cuda.get_device_name(device) if cuda else "cpu",
+        "start_step": start,
         "losses": losses,
         "lrs": lrs,
+        "gossip_gaps": gaps,
         "step_times_s": step_times,
         "step_s": step_s,
         "steps_timed": len(warm),
         "tokens_per_s": tokens / step_s,
         "peak_mem_bytes": peak,
     }
-    print(f"done: {args.steps} steps in {total:.1f}s; steady step {step_s:.4f}s, "
+    if args.track_consensus:
+        result["consensus_sq"] = consensus
+    print(f"done: {len(losses)} steps in {total:.1f}s; steady step {step_s:.4f}s, "
           f"{result['tokens_per_s']:.0f} tokens/s", flush=True)
     if serve is not None:
         # drain what the cooperative ticks left in flight (unless the gate
@@ -249,6 +367,8 @@ def main(argv=None, *, on_step=None, serve_runtime=None, on_serve=None) -> dict:
         with open(args.measure_json, "w") as f:
             json.dump({"measured_step_s": step_s, **result}, f, indent=2)
         print(f"wrote {args.measure_json}")
+    if args.ckpt_dir and not saved:  # the final state, unless the last step saved it
+        print(f"checkpointed -> {checkpoint(state)}", flush=True)
     return result
 
 

@@ -214,22 +214,26 @@ def _embed(tokens, params, cfg: ModelConfig, dtype, positions):
     return x
 
 
-def forward_loss(params: Tree, batch: dict, cfg: ModelConfig):
+def forward_loss(params: Tree, batch: dict, cfg: ModelConfig,
+                 rt: RuntimeConfig = RuntimeConfig(dtype="float32")):
     """batch: tokens (B, S), targets (B, S).  Returns ``(loss, metrics)``;
     the ported families have no auxiliary losses, so the total is the cross
-    entropy.  mLSTM layers run the cell's plain version, as the reference
-    trains with ``mlstm_impl="ref"`` (the kernel has no backward)."""
+    entropy.  Activations compute in ``rt.cdtype``: the embedding table and
+    the lm_head (or tied) weights are cast to it where the reference casts
+    them, and every layer casts its weights to the activations' dtype.  mLSTM
+    layers run the cell's plain version, as the reference trains with
+    ``mlstm_impl="ref"`` (the kernel has no backward)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
-    table = params["embed"]["table"]
+    dt = rt.cdtype
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    x = _embed(tokens, params, cfg, table.dtype, positions)
+    x = _embed(tokens, params, cfg, dt, positions)
     for gi, g in enumerate(block_groups(cfg)):
         for lp in _layers(params["groups"][f"g{gi}"], g.count):
             x = _block_fwd(x, lp, cfg, g, positions)
     x = norm_apply(x, params["final_norm"], cfg.norm_type)
-    w = table.T if cfg.tie_embeddings else params["lm_head"]["w"]
-    logits = lm_head_logits(x, w)
+    w = params["embed"]["table"].T if cfg.tie_embeddings else params["lm_head"]["w"]
+    logits = lm_head_logits(x, w.to(dt))
     loss = softmax_xent_sharded(
         logits.reshape(B * S, -1), batch["targets"].reshape(-1), vocab_size=cfg.vocab_size
     )

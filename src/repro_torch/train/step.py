@@ -26,6 +26,14 @@ tail runs on the planes — one stage launch per dtype bucket
 (``make_plane_stage``), the LARS ratios as row columns — writing the
 parameter plane, and so the parameter views, in place.
 
+Stale and compressed gossip: ``gossip_delay > 0`` gossips through a
+:class:`~repro_torch.core.gossip.DelayedStackedChannel` (ring buffers in
+the channel state, one slot per gossip call of the step), and
+``compression`` encodes each node's payload before the mix.  The delayed
+channel reports each node's incident version gap, ``(n,)``, which
+``decentlam-sa`` turns into its per-node damping ``sg``; the fused engine
+reads it as one float per node.
+
 This is the single-device counterpart of ``repro.train.step``'s shard_map
 step; the distributed transports come with a later slice.
 """
@@ -39,7 +47,7 @@ from typing import Any
 import torch
 
 from ..configs.base import ModelConfig
-from ..core.gossip import StackedChannel, make_stacked_mean
+from ..core.gossip import DelayedStackedChannel, GossipChannel, StackedChannel, make_stacked_mean
 from ..core.optimizers import OptimizerConfig, make_optimizer
 from ..core.planes import plane_scalars
 from ..core.schedules import ScheduleConfig, build_schedule
@@ -52,25 +60,35 @@ from .train_state import model_plane_layout
 
 Tree = Any
 
-__all__ = ["TrainConfig", "build_train_step"]
+__all__ = ["TrainConfig", "build_train_step", "build_gossip_channel"]
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The fields of ``repro.train.step.TrainConfig`` that the trainer sets in
-    this slice."""
+    """The fields of ``repro.train.step.TrainConfig`` that the single-process
+    trainer reads, with the reference's defaults — except ``runtime``, whose
+    default computes in float32 (the reference CLI's ``--dtype`` default)."""
 
     algorithm: str = "decentlam"
     topology: str = "exp"
+    gossip_delay: int = 0  # hold payloads back k rounds (delayed stacked channel)
+    compression: str | None = None
     momentum: float = 0.9
     weight_decay: float = 0.0
     grad_clip: float = 0.0  # per node: each node clips by its own norm
+    # decentlam-sa gap-damping schedule (read off the delayed channel's
+    # version gaps; inert for the other algorithms)
+    sa_damping: float = 0.5
+    sa_floor: float = 0.0
+    grad_accum: int = 1  # microbatches per node, gradients summed in f32
     schedule: ScheduleConfig = ScheduleConfig()
+    runtime: T.RuntimeConfig = T.RuntimeConfig(dtype="float32")
     fused_update: bool = False
     fused_impl: str = "triton"  # triton | torch (the kernel's plain version)
     # the update tail on the train state's plane form: one stage launch per
     # dtype bucket, the parameters living in the planes (tp = 1)
     flat_planes: bool = False
+    track_consensus: bool = False  # add (1/n) sum_i ||x_i - x_bar||^2 to the metrics
     # skip a node's optimizer update when its grad norm goes non-finite (the
     # skip count surfaces as the "skipped_nonfinite" metric)
     finite_guard: bool = True
@@ -81,26 +99,74 @@ class TrainConfig:
             momentum=self.momentum,
             weight_decay=self.weight_decay,
             grad_clip=self.grad_clip,
+            sa_damping=self.sa_damping,
+            sa_floor=self.sa_floor,
         )
 
 
-def _node_grads(params: Tree, batch: dict, cfg: ModelConfig, n_nodes: int, out=None):
+def build_gossip_channel(tcfg: TrainConfig, topology, gossips_per_step: int) -> GossipChannel:
+    """The transport for a train config: the delayed stacked channel (one
+    ring slot per gossip call of the step) when ``gossip_delay > 0``, else
+    the stacked channel; compressed as configured, telemetry on."""
+    if tcfg.gossip_delay > 0:
+        return DelayedStackedChannel(topology, tcfg.gossip_delay,
+                                     calls_per_step=gossips_per_step,
+                                     compression=tcfg.compression, telemetry=True)
+    return StackedChannel(topology, compression=tcfg.compression, telemetry=True)
+
+
+def _node_grads(params: Tree, batch: dict, cfg: ModelConfig, n_nodes: int, out=None,
+                rt: T.RuntimeConfig = T.RuntimeConfig(dtype="float32"), accum: int = 1):
     """Per-node loss and gradient, one node at a time, into a stacked f32
     gradient tree (``out``'s leaves where given: the views of a gradient
-    plane).  Returns ``(grads, losses (n,))``."""
+    plane).  With ``accum`` > 1 each node's rows split into ``accum``
+    microbatches, and the gradient and the loss accumulate ``g += g_j /
+    accum`` in f32 from zeros, as the reference's scan does.  Returns
+    ``(grads, losses (n,))``."""
     leaves = tree_leaves(params)
     g_leaves = (tree_leaves(out) if out is not None else
                 [torch.empty(p.shape, dtype=torch.float32, device=p.device) for p in leaves])
     b = batch["tokens"].shape[0] // n_nodes
+    if b % accum:
+        raise ValueError(f"{b} rows per node do not split into {accum} microbatches")
+    mb = b // accum
     losses = []
     for i in range(n_nodes):
         leaves_i = [p[i].detach().requires_grad_() for p in leaves]
-        batch_i = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
-        loss, _ = T.forward_loss(tree_unflatten(params, leaves_i), batch_i, cfg)
-        for gl, gi in zip(g_leaves, torch.autograd.grad(loss, leaves_i)):
-            gl[i].copy_(gi)
-        losses.append(loss.detach())
+        params_i = tree_unflatten(params, leaves_i)
+        loss_i = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        for j in range(accum):
+            lo = i * b + j * mb
+            batch_j = {k: v[lo:lo + mb] for k, v in batch.items()}
+            loss, _ = T.forward_loss(params_i, batch_j, cfg, rt)
+            grads = torch.autograd.grad(loss, leaves_i)
+            if accum == 1:
+                for gl, gi in zip(g_leaves, grads):
+                    gl[i].copy_(gi)
+                loss_i = loss.detach()
+                continue
+            if j == 0:
+                for gl in g_leaves:
+                    gl[i].zero_()
+            for gl, gi in zip(g_leaves, grads):
+                gl[i].add_(gi.to(torch.float32) / accum)
+            loss_i = loss_i + loss.detach().to(torch.float32) / accum
+            del grads
+        losses.append(loss_i)
     return tree_unflatten(params, g_leaves), torch.stack(losses)
+
+
+def _consensus_sq(x: Tree, n_nodes: int) -> torch.Tensor:
+    """``(1/n) sum_i ||x_i - x_bar||^2`` over all leaves of a stacked tree (or
+    of stacked planes, whose zero pads add nothing), node by node: the
+    reference's per-node sums, then their sum over nodes."""
+    total = torch.zeros((), dtype=torch.float32, device=tree_leaves(x)[0].device)
+    for leaf in tree_leaves(x):
+        xb = torch.sum(leaf.to(torch.float32), dim=0) / n_nodes
+        per_node = torch.stack([torch.sum((leaf[i].to(torch.float32) - xb) ** 2)
+                                for i in range(n_nodes)])
+        total = total + torch.sum(per_node) / n_nodes
+    return total
 
 
 def _node_grad_norms(grads: Tree, n_nodes: int) -> torch.Tensor:
@@ -137,8 +203,11 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_nodes: int):
     opt = make_optimizer(ocfg)
     spec = update_spec(ocfg)
     lr_fn = build_schedule(tcfg.schedule)
-    channel = StackedChannel(topology, telemetry=True)
+    if tcfg.grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {tcfg.grad_accum}")
+    channel = build_gossip_channel(tcfg, topology, opt.gossips_per_step)
     mean = make_stacked_mean(n_nodes)
+    rt = tcfg.runtime
     if tcfg.flat_planes:
         layout = model_plane_layout(cfg)
         stage = make_plane_stage(tcfg.fused_impl if tcfg.fused_update else "torch",
@@ -161,9 +230,10 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_nodes: int):
                         for k, p in planes.items()}
             layout.zero_pads(g_planes, leading=1)
             grads, losses = _node_grads(params, batch, cfg, n_nodes,
-                                        out=layout.view_unpack(g_planes, leading=1))
+                                        layout.view_unpack(g_planes, leading=1), rt,
+                                        tcfg.grad_accum)
         else:
-            grads, losses = _node_grads(params, batch, cfg, n_nodes)
+            grads, losses = _node_grads(params, batch, cfg, n_nodes, None, rt, tcfg.grad_accum)
 
         bad, saved = None, None
         if tcfg.finite_guard:
@@ -211,11 +281,18 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_nodes: int):
                 for k, v in new_opt.items()
             }
 
+        gaps = channel.node_gaps(comp)
         metrics = {
             "loss": torch.mean(losses),
             "lr": lr,
             "skipped_nonfinite": 0.0 if bad is None else float(bad.numel()),
+            # fleet-worst incident gossip gap of this round (0 on undelayed
+            # channels): the signal the serving publisher gates on
+            "gossip_gap": float(torch.as_tensor(gaps).max()),
         }
+        if tcfg.track_consensus:
+            metrics["consensus_sq"] = _consensus_sq(planes if planes is not None else new_params,
+                                                    n_nodes)
         new_state = {"step": step_idx + 1, "params": new_params, "opt": new_opt,
                      "channel": comp}
         if planes is not None:

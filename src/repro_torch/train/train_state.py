@@ -12,6 +12,14 @@ state are plane dicts, and the update writes the planes in place.  This
 keeps the reference's numbers (its step packs ``params`` and the gradient
 anew every step, ``repro/train/step.py:402-404``) without that per-step
 pack and unpack: two copies of 10.6 GB at qwen3-0.6b x 4 nodes in f32.
+
+On resume (:mod:`repro_torch.train.checkpoint`), :func:`reconcile_plane_state`
+converts the optimizer buckets between tree and plane form, so checkpoints
+are interchangeable across ``--flat-planes``, and (re)builds the parameter
+planes; :func:`ensure_channel_state` keeps the restored channel state where
+its structure and shapes match the current channel's and re-initializes the
+rest.  The channel state has the stacked channels' layout (ring slots
+``(ring, n, ...)``, scalar telemetry; see :mod:`repro_torch.core.gossip`).
 """
 
 from __future__ import annotations
@@ -25,11 +33,12 @@ from ..core.gossip import GossipChannel
 from ..core.optimizers import Optimizer
 from ..core.planes import PlaneLayout
 from ..models import transformer as T
-from ..utils import tree_map
+from ..utils import tree_leaves, tree_map
 
 Tree = Any
 
-__all__ = ["init_train_state", "model_plane_layout"]
+__all__ = ["init_train_state", "model_plane_layout", "ensure_channel_state",
+           "reconcile_plane_state"]
 
 
 def model_plane_layout(cfg: ModelConfig) -> PlaneLayout:
@@ -79,3 +88,116 @@ def init_train_state(
         "opt": opt.init(stacked),
         "channel": channel.init(stacked) if channel is not None else {},
     }
+
+
+def _merge_channel(abstract: Tree, old: Tree, device) -> Tree:
+    """Keep restored leaves whose shape and dtype match the abstract spec;
+    zeros for anything missing or reshaped (channel state is zero at init,
+    so zeros == ``channel.init``)."""
+    if isinstance(abstract, dict):
+        if not isinstance(old, dict):
+            old = {}
+        return {k: _merge_channel(v, old.get(k), device) for k, v in abstract.items()}
+    if isinstance(old, torch.Tensor):
+        if old.shape == abstract.shape and old.dtype == abstract.dtype:
+            return old
+    return torch.zeros(abstract.shape, dtype=abstract.dtype,
+                       device=device if abstract.device.type == "meta" else abstract.device)
+
+
+def _subtree_matches(abstract: Tree, old: Tree) -> bool:
+    if not isinstance(old, dict) or tree_map(lambda _: 0, abstract) != tree_map(lambda _: 0,
+                                                                                 old):
+        return False
+    return all(isinstance(o, torch.Tensor) and o.shape == a.shape and o.dtype == a.dtype
+               for a, o in zip(tree_leaves(abstract), tree_leaves(old)))
+
+
+def _channel_template(state: Tree, plane_layout: PlaneLayout | None) -> Tree:
+    """Meta tensors shaped like the step's gossip payload: the stacked f32
+    planes on the plane path, else the stacked parameter tree."""
+    if plane_layout is not None:
+        n = tree_leaves(state["params"])[0].shape[0]
+        return {k: torch.empty((n,) + shape, dtype=torch.float32, device="meta")
+                for k, (shape, _) in plane_layout.plane_shapes().items()}
+    return tree_map(lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta"),
+                    state["params"])
+
+
+def ensure_channel_state(state: Tree, channel: GossipChannel | None,
+                         plane_layout: PlaneLayout | None = None) -> Tree:
+    """Reconcile a restored state's ``"channel"`` bucket with the current
+    channel's structure (``repro.train.train_state.ensure_channel_state``).
+
+    Matching sub-nodes survive — error-feedback residuals and delay rings
+    resume bit for bit on a same-shape restart; anything missing (an older
+    checkpoint, a newly enabled delay or compression, an elastic reshape, a
+    resume across ``--flat-planes``) is zero-initialized on the parameters'
+    device.  The expected structure comes from ``channel.init`` on meta
+    tensors, so nothing is allocated for what is kept.  Delay ring slots
+    resume whole or not at all: a restored ``count`` beside a re-initialized
+    ``hist`` would skip the warmup rule and mix zero payloads at full weight.
+
+    One conversion goes beyond the reference's: ``repro``'s trainer keeps
+    its telemetry per node (``(n,)``, every entry equal), the stacked
+    channels as scalars; a per-node telemetry vector restores as its node-0
+    entry, so a resume from a ``repro`` checkpoint keeps the telemetry."""
+    if channel is None:
+        return {**state, "channel": {}}
+    device = tree_leaves(state["params"])[0].device
+    abstract = channel.init(_channel_template(state, plane_layout))
+    old = state.get("channel", {})
+    if not isinstance(old, dict):
+        old = {}
+    merged: Tree = {}
+    for key, abs_v in abstract.items():
+        old_v = old.get(key)
+        if key == "delay":
+            merged[key] = {}
+            for slot_key, abs_slot in abs_v.items():
+                old_slot = old_v.get(slot_key) if isinstance(old_v, dict) else None
+                merged[key][slot_key] = (old_slot if _subtree_matches(abs_slot, old_slot)
+                                         else _merge_channel(abs_slot, None, device))
+        elif key == "t" and isinstance(old_v, dict):
+            per_node = {k: v[0] if isinstance(v, torch.Tensor) and v.ndim == 1
+                        and abs_v.get(k) is not None and abs_v[k].ndim == 0
+                        and bool((v == v[0]).all()) else v
+                        for k, v in old_v.items()}
+            merged[key] = _merge_channel(abs_v, per_node, device)
+        else:
+            merged[key] = _merge_channel(abs_v, old_v, device)
+    return {**state, "channel": merged}
+
+
+def reconcile_plane_state(state: Tree, plane_layout: PlaneLayout, flat_planes: bool) -> Tree:
+    """Bring a restored state into the form this run keeps (tp = 1).
+
+    Each optimizer bucket converts between tree and plane form
+    (``repro.train.train_state.reconcile_plane_state``): a plane-form bucket
+    is recognized by its top-level keys being the layout's dtype-bucket
+    names, and all optimizer buckets are f32, packed and unpacked with the
+    stacked node axis.  With ``flat_planes`` the parameter tree is packed
+    into stacked planes (``state["planes"]``) and ``"params"`` becomes views
+    of them, as :func:`init_train_state` lays them out; without, a state
+    that holds planes keeps its parameters as plain tensors.  The channel
+    state is not converted (its structure is transport-internal):
+    :func:`ensure_channel_state` re-initializes it across formats."""
+    buckets = set(plane_layout.segments)
+    new_opt: Tree = {}
+    for k, v in state.get("opt", {}).items():
+        is_plane = isinstance(v, dict) and set(v) == buckets
+        if flat_planes and not is_plane:
+            new_opt[k] = plane_layout.pack(v, dtype=torch.float32, leading=1)
+        elif not flat_planes and is_plane:
+            new_opt[k] = plane_layout.unpack(v, dtype=torch.float32, leading=1)
+        else:
+            new_opt[k] = v
+    new = {k: v for k, v in state.items() if k != "planes"}
+    new["opt"] = new_opt
+    if flat_planes:
+        planes = plane_layout.pack(state["params"], leading=1)
+        new["planes"] = planes
+        new["params"] = plane_layout.view_unpack(planes, leading=1)
+    elif "planes" in state:
+        new["params"] = tree_map(lambda x: x.clone(), state["params"])
+    return new

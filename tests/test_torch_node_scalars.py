@@ -163,9 +163,16 @@ def test_fused_engine_takes_per_node_scalars_bitwise():
     got = tfused.make_stage("triton")("pre", "grad_step", ctx, ops, s, ops["x"])
     for k in SHAPES:
         assert torch.equal(got["payload"][k], want["payload"][k])
-    with pytest.raises(NotImplementedError, match="staleness"):
-        tfused.make_stage("triton")("pre", "grad_step", ctx, ops, {**s, "sg": torch.ones(N)},
-                                    ops["x"])
+    # a per-node (n,) staleness damping takes the kernel's SG_COL mode
+    sg = torch.tensor([1.0, 0.5, 0.25, 0.5])[:N]
+    post = {"x": ops["x"], "mix": from_numpy(g), "m": from_numpy(x), "g": ops["g"]}
+    want = tspec.reference_stage("post", "decentlam_sa_post", ctx, post, {**s, "sg": sg},
+                                 post["x"])
+    got = tfused.make_stage("triton")("post", "decentlam_sa_post", ctx, post, {**s, "sg": sg},
+                                      post["x"])
+    for k in SHAPES:
+        assert torch.equal(got["x"][k], want["x"][k])
+        assert torch.equal(got["m"][k], want["m"][k])
 
 
 def test_trainer_clips_each_node_by_its_own_norm():

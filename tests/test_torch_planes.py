@@ -361,11 +361,18 @@ def test_plane_stage_rejects_what_it_cannot_take():
                                            "g": {"float32": x["float32"][0]}},
                                           {"lr": 0.1, "gs": torch.ones(N)},
                                           {"float32": x["float32"][0]})
-    with pytest.raises(NotImplementedError):
-        tfused.make_plane_stage("triton")("post", "decentlam_sa_post",
-                                          tspec.MathCtx(beta=0.9),
-                                          {n: x for n in ("x", "mix", "m", "g")},
-                                          {"lr": 0.1, "sg": torch.ones(N)}, x)
+    # a per-node (n,) staleness damping is one float per node (SG_COL)
+    sg = torch.linspace(0.25, 1.0, N)
+    gen = torch.Generator().manual_seed(5)
+    ops = {n: {"float32": torch.randn(N, 64, LANES, generator=gen)}
+           for n in ("x", "mix", "m", "g")}
+    got = tfused.make_plane_stage("triton")("post", "decentlam_sa_post",
+                                            tspec.MathCtx(beta=0.9), ops,
+                                            {"lr": 0.1, "sg": sg}, ops["x"])
+    want = tspec.reference_stage("post", "decentlam_sa_post", tspec.MathCtx(beta=0.9), ops,
+                                 {"lr": torch.tensor(0.1), "sg": sg}, ops["x"])
+    for k in ("x", "m"):
+        assert torch.equal(got[k]["float32"], want[k]["float32"])
     with pytest.raises(ValueError):
         tfused.make_plane_stage("pallas")
 

@@ -21,6 +21,8 @@ import pytest
 import torch
 
 from repro.configs import tiny_lm as jtiny_lm
+from repro.core import gossip as jgossip
+from repro.core import topology as jtopo
 from repro.core.planes import PlaneLayout as JPlaneLayout
 from repro.models import transformer as jT
 from repro.serve import Request as JRequest
@@ -154,12 +156,21 @@ def test_fleet_node_gaps_staleness_free_and_the_delayed_branch():
     gaps = tgossip.fleet_node_gaps(ch, state)
     assert gaps.dtype == np.int32 and gaps.tolist() == [0, 0, 0, 0]
 
-    class Delayed(tgossip.StackedChannel):
-        def has_staleness(self):
-            return True
-
-    with pytest.raises(NotImplementedError, match="delayed"):
-        tgossip.fleet_node_gaps(Delayed(ttopo.build_topology("ring", 4)), state)
+    # the delayed branch: a ring with one edge of delay 3, against the
+    # reference's gaps after each round (round 0 is fresh)
+    D = np.zeros((4, 4), np.int64)
+    D[1, 2] = 3
+    tch = tgossip.DelayedStackedChannel(ttopo.build_topology("ring", 4), D)
+    jch = jgossip.DelayedStackedChannel(jtopo.build_topology("ring", 4), D)
+    tst, jst = tch.init({"w": torch.zeros(4, 6)}), jch.init({"w": jnp.zeros((4, 6))})
+    for step in range(4):
+        x = np.random.default_rng(step).standard_normal((4, 6)).astype(np.float32)
+        tst, _ = tch.apply(tst, {"w": torch.from_numpy(x)}, step)
+        jst, _ = jch.apply(jst, {"w": jnp.asarray(x)}, step)
+        gaps = tgossip.fleet_node_gaps(tch, tst)
+        assert gaps.dtype == np.int32
+        np.testing.assert_array_equal(gaps, jgossip.fleet_node_gaps(jch, jst))
+    assert gaps.tolist() == [0, 3, 3, 0]
 
 
 # ---------------------------------------------------------------------------
