@@ -117,7 +117,29 @@ result line):
     int8-row-ef on planes: a resumed run == an unbroken one bit for bit,
     channel state included; the same checkpoint resumed without
     ``--flat-planes`` equals the saved planes unpacked and trains on; GB,
-    save and restore seconds (under ``build/ckpt_smoke``, removed after).
+    save and restore seconds (under ``build/ckpt_smoke``, removed after);
+21. one process per node: phase 15's run with ``--simulate-nodes 4
+    --gossip-impl ppermute``, 4 ranks sharing the card over gloo (every
+    message staged through pinned host memory), 3 steps: finite losses,
+    exactly 2 stage launches per rank and step (the plane stage at a node
+    axis of 1), the step-0 loss equal to phase 15's to 1e-5 relative; the
+    backend, step time, gossip seconds per round, staged GB/s, each rank's
+    peak memory and the card's; the plane stages at one rank's (1, 648000,
+    1024) beside phase 15's tail;
+22. at 4 layers, 3 steps, in one spawned group of 4 ranks: the distributed
+    step against the stacked step for ppermute, allgather, decentlam-sa at
+    delay 1, pmsgd (the psum mean), da-dmsgd and bf16 messages (the
+    reference's distributed-vs-oracle tolerances), int8-row-ef and top-k
+    (finite, egress telemetry), then bit for bit on every rank: planes ==
+    per leaf, ``--fused-impl triton`` == ``torch``, delay 0 == undelayed
+    for every algorithm;
+23. checkpoint, resume and the drill at full width, 2 layers, 4 ranks,
+    decentlam-sa at delay 1 on planes: a resumed run == an unbroken one bit
+    for bit on every rank, the ring included; GB, save and restore seconds;
+    ``--failure-drill`` 4 -> 2 with finite losses, the survivors' state ==
+    ``elastic_reshape`` of the gathered state bit for bit (files under
+    ``build/dist_smoke``, removed after).  Every spawned group has a
+    deadline: a hung rank fails the phase.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Triton kernels compile at first use into
@@ -1526,11 +1548,12 @@ def phase_plane_kernel_vs_plain(torch):
 
 
 
-def phase_plane_timing(torch):
+def phase_plane_timing(torch, nodes=MAIN["nodes"]):
     """The flat-plane path's two stages at qwen3-0.6b's full stacked plane
-    (4, 648000, 1024) f32, one launch each per step: kernel time, bound,
-    the plain version (node by node: its temporaries over the whole plane
-    would not fit) and, for grad_step, ``torch.addcmul``."""
+    (4, 648000, 1024) f32 — or ``(nodes, 648000, 1024)``: one rank's plane
+    is (1, ...) — one launch each per step: kernel time, bound, the plain
+    version (node by node: its temporaries over the whole plane would not
+    fit) and, for grad_step, ``torch.addcmul``."""
     from repro_torch.configs import get_config
     from repro_torch.core.update_spec import MathCtx
     from repro_torch.kernels.fused_update.kernel import (
@@ -1543,7 +1566,7 @@ def phase_plane_timing(torch):
 
     full = model_plane_layout(get_config(MAIN["arch"]))
     (key,) = full.buckets
-    shape = (MAIN["nodes"], full.rows[key], 1024)
+    shape = (nodes, full.rows[key], 1024)
     ctx = MathCtx(beta=0.9)
     svec = _svec(torch, lr=3e-3)
     gen = torch.Generator(device="cuda").manual_seed(15)
@@ -1559,11 +1582,11 @@ def phase_plane_timing(torch):
         f32 = {n: torch.float32 for n in names_out}
 
         def plain():
-            for i in range(MAIN["nodes"]):
+            for i in range(nodes):
                 stage_plain(kind, op, ctx, svec, {n: t[i] for n, t in ins.items()}, f32)
 
         err = 0.0
-        for i in range(MAIN["nodes"]):
+        for i in range(nodes):
             want = stage_plain(kind, op, ctx, svec, {n: t[i] for n, t in ins.items()}, f32)
             for n in names_out:
                 torch.testing.assert_close(outs[n][i], want[n], rtol=F32_TOL,
@@ -1688,7 +1711,7 @@ def phase_flat_planes_main_path(torch, leaf, per_stage):
     del after, px, pm, qx, qm, state
     torch.cuda.empty_cache()
     return {"launches": launches, "plane": plane, "step_ms": step_ms,
-            "peak": res["peak_mem_bytes"], "busy_ms": prof["busy_ms"]}
+            "peak": res["peak_mem_bytes"], "busy_ms": prof["busy_ms"], "losses": res["losses"]}
 
 
 
@@ -2292,6 +2315,504 @@ def phase_checkpoint_resume(torch):
         train.save_checkpoint, train.restore_checkpoint = save, restore
         shutil.rmtree(root, ignore_errors=True)
 
+# ---------------------------------------------------------------------------
+# One process per node over torch.distributed (phases 21-23)
+# ---------------------------------------------------------------------------
+
+# phase 21: the distributed main path, phase 15's flags on 4 ranks sharing the
+# card (gloo, messages staged through pinned host memory)
+DIST = ["--simulate-nodes", str(MAIN["nodes"]), "--gossip-impl", "ppermute", "--arch",
+        MAIN["arch"], "--topology", "exp", "--algorithm", "decentlam", "--seq-len",
+        str(MAIN["seq_len"]), "--per-node-batch", str(MAIN["per_node_batch"]), "--flat-planes",
+        "--fused-update", "--fused-impl", "triton", "--log-every", "1"]
+DIST_STEPS = 3
+# a deadline for every spawned group: a hung rank fails the phase
+DIST_TIMEOUT_S = 600
+# reckoned device memory per rank at its gossip (GiB): x, m, g, the payload
+# and the mix (2.47 GiB per f32 plane copy at full width), the forward's
+# activations and a CUDA context
+DIST_RANK_GIB = 13.0
+DIST_DIR = os.path.join(HERE, "build", "dist_smoke")
+
+
+def _dist_record(tag, step, state, metrics):
+    """``on_step`` hook of the spawned ranks: each rank appends its stage
+    launch counts after the step (cumulative, from its own fresh process,
+    whose counts start at 0) to ``DIST_DIR/<tag>.<rank>``."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels.fused_update.kernel import fused_stage_launch
+
+    rec = {"step": step, "launches": fused_stage_launch.launches,
+           "by_op": dict(fused_stage_launch.launches_by_op), "loss": float(metrics["loss"])}
+    with open(os.path.join(DIST_DIR, f"{tag}.{dist.get_rank()}"), "a") as f:
+        f.write(json.dumps(rec) + "\n")
+
+
+def _dist_records(tag, world):
+    out = []
+    for r in range(world):
+        with open(os.path.join(DIST_DIR, f"{tag}.{r}")) as f:
+            out.append([json.loads(line) for line in f])
+    return out
+
+
+def phase_dist_main_path(torch, flat):
+    """Phase 15's run as 4 processes, one node each (``--simulate-nodes 4
+    --gossip-impl ppermute``), 3 steps: finite losses, exactly 2 stage
+    launches per step on every rank (the plane stage at a node axis of 1),
+    the step-0 loss equal to phase 15's to 1e-5 relative (both depend only
+    on the init and the data); the backend, step time, gossip seconds per
+    round and the staged GB/s, each rank's peak memory and the card's; the
+    stage kernel at one rank's (1, 648000, 1024) plane beside phase 15's
+    plane tail."""
+    import functools
+    import shutil
+
+    from repro_torch.launch import train
+
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    os.makedirs(DIST_DIR)
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    need = MAIN["nodes"] * DIST_RANK_GIB * 2**30
+    log(f"phase 21: {free / 2**30:.2f} of {total / 2**30:.2f} GiB free before the spawn, "
+        f"{need / 2**30:.1f} GiB reckoned for {MAIN['nodes']} ranks")
+    if free < need:
+        raise RuntimeError(f"{free / 2**30:.2f} GiB free, {need / 2**30:.1f} GiB reckoned")
+    measure = os.path.join(DIST_DIR, "measure.json")
+    res = train.main(DIST + ["--steps", str(DIST_STEPS), "--measure-json", measure,
+                             "--timeout", str(DIST_TIMEOUT_S)],
+                     on_step=functools.partial(_dist_record, "main"))
+    steps = len(res["losses"])
+    if steps != DIST_STEPS or not all(math.isfinite(v) for v in res["losses"]):
+        raise RuntimeError(f"distributed losses {res['losses']}")
+    recs = _dist_records("main", MAIN["nodes"])
+    counts = [[r["launches"] for r in rank] for rank in recs]
+    want = [[2 * (k + 1) for k in range(steps)]] * MAIN["nodes"]
+    by_op = [rank[-1]["by_op"] for rank in recs]
+    if counts != want or any(b != {op: steps for op in STAGE_FLOPS} for b in by_op):
+        raise RuntimeError(f"stage launches per rank after each step {counts} ({by_op}), "
+                           f"want {want[0]}: one per stage and step")
+    loss0, ref0 = res["losses"][0], flat["losses"][0]
+    if not abs(loss0 - ref0) <= 1e-5 * abs(ref0):
+        raise RuntimeError(f"step-0 loss {loss0} != phase 15's {ref0} (rtol 1e-5)")
+    gossip_s = res["gossip_s_per_round"]
+    staged = res["staged_bytes_per_round"]
+    step_ms = 1e3 * res["step_s"]
+    log(f"phase 21: qwen3-0.6b full width, {MAIN['nodes']} processes x 1 node ({res['backend']} "
+        f"on {sorted(set(res['devices']))}), {steps} steps: losses "
+        f"{[round(v, 4) for v in res['losses']]}; step 0 {loss0!r} == phase 15's {ref0!r} "
+        f"(rel {abs(loss0 - ref0) / abs(ref0):.2g}); fused_update launches per rank {counts} "
+        f"= 2 per step ({by_op[0]})")
+    log(f"  step {step_ms:.1f} ms (mean of steps 1..{steps - 1}; phase 15, stacked: "
+        f"{flat['step_ms']:.1f}), step times {[round(t, 3) for t in res['step_times_s']]}")
+    log(f"  gossip (channel.apply between device syncs, host clock) per rank and round: "
+        f"{[round(t, 3) for t in gossip_s]} s; staged through host memory per round "
+        f"{[round(b / 1e9, 3) for b in staged]} GB (device -> host and back), "
+        f"{[round(b / t / 1e9, 3) for b, t in zip(staged, gossip_s)]} GB/s")
+    peaks = [p / 2**30 for p in res["peak_mem_bytes_by_rank"]]
+    log(f"  peak memory per rank {[round(p, 2) for p in peaks]} GiB (reckoned "
+        f"{DIST_RANK_GIB}), card in use at most {res['card_used_bytes'] / 2**30:.2f} GiB of "
+        f"{total / 2**30:.2f} (phase 15, stacked: {flat['peak'] / 2**30:.2f} GiB)")
+    one = phase_plane_timing(torch, nodes=1)
+    tail = sum(p["ms"] for p in one.values())
+    full = sum(p["ms"] for p in flat["plane"].values())
+    fmt = lambda v: "null" if v is None else f"{v:.3f} ms"
+    for op, p in one.items():
+        log(f"  per rank: plane {op} on {p['shape']} f32: kernel {p['ms']:.3f} ms, bound "
+            f"{p['bound_ms']:.3f} ms ({p['bound_ms'] / p['ms']:.1%} of it), plain version "
+            f"{p['plain_ms']:.3f} ms, library {fmt(p['library_ms'])}, max |kernel - plain| "
+            f"{p['err']:.3g}")
+    log(f"  per rank tail {tail:.3f} ms/step (2 launches at n = 1) beside phase 15's stacked "
+        f"tail {full:.3f} ms (n = 4; {full / MAIN['nodes']:.3f} per node)")
+    return {"res": res, "one": one}
+
+
+# phase 22: each configuration at 4 layers, 3 steps, in one spawned group
+# (name, TrainConfig fields, what it is held to: the reference's
+# distributed-vs-oracle tolerance on the final parameters against the
+# stacked run, that tolerance over lr on the optimizer state; "finite"; or
+# None, a run kept for the bitwise pairs below)
+DIST_VS_STACKED = [
+    ("ppermute, per leaf", {}, 2e-5),
+    ("ppermute, planes", {"flat_planes": True}, None),
+    ("ppermute, planes, plain stage", {"flat_planes": True, "fused_impl": "torch"}, None),
+    ("allgather, planes", {"flat_planes": True, "gossip_impl": "allgather"}, 2e-5),
+    ("decentlam-sa, delay 1, planes", {"flat_planes": True, "algorithm": "decentlam-sa",
+                                       "gossip_delay": 1}, 2e-5),
+    ("pmsgd, planes", {"flat_planes": True, "algorithm": "pmsgd"}, 2e-5),
+    ("da-dmsgd, planes", {"flat_planes": True, "algorithm": "da-dmsgd"}, 2e-5),
+    ("bf16, planes", {"flat_planes": True, "compression": "bf16"}, 5e-2),
+    ("int8-row-ef, planes", {"flat_planes": True, "compression": "int8-row-ef"}, "finite"),
+    ("topk:0.01, per leaf", {"compression": "topk:0.01"}, "finite"),
+]
+# pairs that must agree bit for bit within the distributed path
+DIST_LR = 3e-3  # peak lr of phase 22's runs
+DIST_BITWISE = [("planes == per leaf", "ppermute, planes", "ppermute, per leaf"),
+                ("--fused-impl triton == torch", "ppermute, planes",
+                 "ppermute, planes, plain stage")]
+
+
+def _dist_tcfg(depth, fields):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.schedules import ScheduleConfig
+    from repro_torch.train.step import TrainConfig
+
+    cfg = dataclasses.replace(get_config(MAIN["arch"]), n_layers=depth)
+    tcfg = TrainConfig(**{"fused_update": True, "fused_impl": "triton",
+                          "schedule": ScheduleConfig(kind="warmup_cosine", peak_lr=DIST_LR,
+                                                     warmup_steps=1, total_steps=3),
+                          **fields})
+    return cfg, tcfg
+
+
+def _comparable(state, layout):
+    """Leaf path -> tensor of a state's parameters and optimizer state, a
+    plane-form state's optimizer buckets as their leaves (``layout``), so
+    that a plane run and a per-leaf run compare leaf by leaf."""
+    from repro_torch.utils import tree_leaves, tree_paths
+
+    opt = state.get("opt", {})
+    if layout is not None:
+        opt = {k: layout.view_unpack(v, leading=1) for k, v in opt.items()}
+    tree = {"params": state["params"], "opt": opt}
+    return dict(zip(tree_paths(tree), tree_leaves(tree)))
+
+
+def _dist_vs_stacked_rank(group, depth, steps):
+    """The body of phase 22 on one rank (see :func:`phase_dist_vs_stacked`).
+    Rank 0 returns the report lines; any failed check raises.  Only the
+    configurations held against the stacked run gather their parameters and
+    optimizer state to rank 0 (compared there on the card); the finite and
+    bitwise checks run on each rank's own node, their verdicts gathered."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.compression import wire_bytes
+    from repro_torch.core.gossip import DelayedPpermuteChannel, PpermuteChannel, make_psum_mean
+    from repro_torch.core.optimizers import ALGORITHMS, OptimizerConfig, make_optimizer
+    from repro_torch.core.topology import build_topology
+    from repro_torch.core.update_spec import run_update, update_spec
+    from repro_torch.data.synthetic import SyntheticLM, SyntheticLMConfig
+    from repro_torch.train.step import build_dist_train_step, build_train_step
+    from repro_torch.train.train_state import gather_state, init_train_state, model_plane_layout
+
+    lead = group.rank == 0
+    dev = group.device
+    lines, kept = [], {}
+
+    def every(value):
+        out = [None] * group.world
+        dist.all_gather_object(out, value, group=group.pg)
+        return out
+
+    def run(build, n, cfg, tcfg, layout):
+        step_fn, channel = build()
+        state = init_train_state(cfg, make_optimizer(tcfg.opt_config()), n, device=dev,
+                                 channel=channel, plane_layout=layout)
+        data = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=MAIN["seq_len"],
+                                             per_node_batch=MAIN["per_node_batch"],
+                                             n_nodes=group.world))
+        losses = []
+        for k in range(steps):
+            batch = {key: torch.from_numpy(v).to(dev) for key, v in data.batch(k).items()}
+            state, metrics = step_fn(state, batch)
+            losses.append(float(metrics["loss"]))
+        return state, losses
+
+    for name, fields, tol in DIST_VS_STACKED:
+        cfg, tcfg = _dist_tcfg(depth, fields)
+        layout = model_plane_layout(cfg) if tcfg.flat_planes else None
+        t0 = time.perf_counter()
+        state, losses = run(lambda: build_dist_train_step(cfg, tcfg, group), 1, cfg, tcfg,
+                            layout)
+        dist_s = time.perf_counter() - t0
+        mine = _comparable(state, layout)
+        line = f"{name}: losses {[round(v, 4) for v in losses]} ({dist_s:.1f} s)"
+        if not all(map(math.isfinite, losses)):
+            raise RuntimeError(f"{name}: distributed losses {losses}")
+        if any(name in pair[1:] for pair in DIST_BITWISE):
+            kept[name] = {k: v.detach().cpu() for k, v in mine.items()}
+        if tol == "finite":
+            # one node's f32 payload: the plane (pads included) or the leaves
+            per_node = (4.0 * 1024 * sum(layout.rows.values()) if layout is not None
+                        else 4.0 * sum(v[0].numel() for k, v in mine.items()
+                                       if k.startswith("params/")))
+            classes = len(build_topology(tcfg.topology, group.world).edge_classes(0))
+            per_round = np.float32(classes * wire_bytes(per_node, tcfg.compression))
+            want = np.float32(0.0)
+            for _ in range(steps):
+                want = np.float32(want + per_round)
+            t = state["channel"]["t"]
+            ok = (all(bool(torch.isfinite(v).all()) for v in mine.values())
+                  and (float(t["bytes"][0]), int(t["rounds"][0])) == (float(want), steps))
+            if not all(every(ok)):
+                raise RuntimeError(f"{name}: non-finite state or telemetry {t} != "
+                                   f"({float(want)}, {steps}) on some rank")
+            line += (f"; every parameter and optimizer tensor finite on every rank; egress "
+                     f"telemetry {float(want):.6g} B after {steps} rounds == the f32 sum of "
+                     f"wire_bytes")
+        elif tol is not None:
+            host = gather_state({"step": steps, "params": state["params"], "opt": state["opt"]},
+                                group)
+            del state, mine
+            torch.cuda.empty_cache()
+            if lead:
+                got = _comparable(host, layout)
+                sstate, slosses = run(lambda: build_train_step(cfg, tcfg, group.world),
+                                      group.world, cfg, tcfg, layout)
+                want = _comparable(sstate, layout)
+                if sorted(want) != sorted(got):
+                    raise RuntimeError(f"{name}: leaves differ from the stacked run's")
+                errs = {part: max(float((got[k].to(dev) - want[k]).abs().max()) for k in want
+                                  if k.startswith(part)) for part in ("params", "opt")}
+                del sstate, want, got
+                # the momentum is the mix's difference over lr: the parameter
+                # tolerance carries over to it divided by the peak lr
+                tols = {"params": tol, "opt": tol / DIST_LR}
+                if not all(errs[p] < tols[p] for p in errs):
+                    raise RuntimeError(f"{name}: max |distributed - stacked| {errs} (tol {tols})")
+                line += (f"; stacked {[round(v, 4) for v in slosses]}; max |distributed - "
+                         f"stacked| {errs['params']:.3g} over the final parameters (< {tol}), "
+                         f"{errs['opt']:.3g} over the optimizer state (< {tol} / lr)")
+            del host
+        lines.append(line)
+        state = mine = None
+        torch.cuda.empty_cache()
+        dist.barrier(group=group.pg)
+
+    for what, a, b in DIST_BITWISE:
+        fa, fb = kept[a], kept[b]
+        ok = sorted(fa) == sorted(fb) and all(_same_bits(torch, fa[k], fb[k]) for k in fa)
+        if not all(every(ok)):
+            raise RuntimeError(f"{what}: not bit for bit on some rank")
+        lines.append(f"{what}: every rank's final parameters and optimizer state bit for bit "
+                     f"({len(fa)} tensors)")
+    kept.clear()
+
+    # --gossip-delay 0 == the undelayed channel: DelayedPpermuteChannel at
+    # delay 0 against PpermuteChannel, two updates of each algorithm on
+    # seeded payloads (the reference's claim, tests/test_distributed.py)
+    topo = build_topology("exp", group.world)
+    rng = np.random.default_rng(22 + group.rank)
+    shapes = {"a": (1, 300, 77), "b": (1, 4096)}
+    for algo in ALGORITHMS:
+        ocfg = OptimizerConfig(algorithm=algo, momentum=0.9)
+        opt = make_optimizer(ocfg)
+        x = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+             for k, s in shapes.items()}
+        g = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+             for k, s in shapes.items()}
+        outs = []
+        for ch in (PpermuteChannel(topo, group, telemetry=True),
+                   DelayedPpermuteChannel(topo, group, 0, calls_per_step=opt.gossips_per_step,
+                                          telemetry=True)):
+            xs, st, cs = {k: v.clone() for k, v in x.items()}, opt.init(x), ch.init(x)
+            for step in range(2):
+                xs, st, cs = run_update(update_spec(ocfg), ocfg, x=xs, g=g, state=st, lr=0.05,
+                                        step_idx=step, gossip=ch,
+                                        mean=make_psum_mean(group, group.world), comp_state=cs)
+            outs.append(xs)
+        if not all(every(all(_same_bits(torch, outs[0][k], outs[1][k]) for k in x))):
+            raise RuntimeError(f"{algo}: delay 0 != undelayed on some rank")
+    lines.append(f"--gossip-delay 0 == undelayed: DelayedPpermuteChannel(delay=0) == "
+                 f"PpermuteChannel bit for bit, 2 updates of each of {len(ALGORITHMS)} "
+                 f"algorithms on every rank")
+    return lines if lead else None
+
+
+def phase_dist_vs_stacked(torch):
+    """At 4 layers, 3 steps, in one spawned group of 4 ranks through the
+    library: each configuration of DIST_VS_STACKED on the distributed step,
+    its final parameters and optimizer state gathered to rank 0 and held
+    against the stacked step's (rank 0 runs it) at the reference's
+    distributed-vs-oracle tolerances (2e-5; 5e-2 with bf16 messages;
+    int8-row-ef and top-k finite, with the egress telemetry); then bit for
+    bit within the distributed path: planes == per leaf, the stage kernel
+    == its plain version, and delay 0 == undelayed for every algorithm."""
+    from repro_torch.launch.mesh import run_ranks
+
+    depth, steps = 4, 3
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lines = run_ranks(_dist_vs_stacked_rank, MAIN["nodes"], depth, steps,
+                      timeout_s=DIST_TIMEOUT_S)[0]
+    held = sum(isinstance(tol, float) for _, _, tol in DIST_VS_STACKED)
+    log(f"phase 22: {depth} layers, {steps} steps, {MAIN['nodes']} ranks on the card, "
+        f"distributed == stacked in {held} configurations, the finite ones, and the "
+        f"bitwise claims ({time.perf_counter() - t0:.1f} s):")
+    for line in lines:
+        log(f"  {line}")
+
+
+# phase 23: checkpoint, resume and the drill at full width, 2 layers, 4 ranks
+DIST_CKPT = ["--simulate-nodes", str(MAIN["nodes"]), "--arch", MAIN["arch"], "--depth", "2",
+             "--seq-len", str(MAIN["seq_len"]), "--per-node-batch", str(MAIN["per_node_batch"]),
+             "--algorithm", "decentlam-sa", "--gossip-delay", "1", "--flat-planes",
+             "--fused-update", "--fused-impl", "triton", "--log-every", "1", "--timeout",
+             str(DIST_TIMEOUT_S)]
+
+
+def _check_shrink(group, gathered, state):
+    """``on_shrink`` hook of phase 23: gather the survivors' rebuilt state
+    to rank 0 and hold it against ``elastic_reshape`` of the state gathered
+    before the shrink, bit for bit (every parameter and optimizer tensor; the
+    channel state starts afresh).  Rank 0 returns ``(tensors, differing)``."""
+    import torch
+
+    from repro_torch.train.checkpoint import elastic_reshape
+    from repro_torch.train.train_state import gather_state
+    from repro_torch.utils import tree_leaves, tree_paths
+
+    now = gather_state(state, group)
+    if now is None:
+        return None
+    want = elastic_reshape(gathered, group.world)
+    tree_a = {k: now[k] for k in ("params", "opt")}
+    tree_b = {k: want[k] for k in ("params", "opt")}
+    pa = dict(zip(tree_paths(tree_a), tree_leaves(tree_a)))
+    pb = dict(zip(tree_paths(tree_b), tree_leaves(tree_b)))
+    differ = [k for k in pb if k not in pa or not _same_bits(torch, pa[k], pb[k])]
+    fresh = all(not bool(t.any()) for k, t in zip(tree_paths(now.get("channel", {})),
+                                                   tree_leaves(now.get("channel", {}))))
+    return len(pb), differ, fresh
+
+
+def _dist_resume_rank(group, root, argv):
+    """The checkpoint half of phase 23 on one rank, through the trainer's
+    own pieces: 4 steps unbroken, with a checkpoint after step 2 (the state
+    gathered to rank 0, which writes it); then the trainer's resume path
+    (``_resume_ranks``: read on rank 0, scatter, reconcile) on a fresh
+    channel and steps 2 and 3 again.  Each rank holds its final state
+    against the unbroken one bit for bit; rank 0 returns the report."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.optimizers import make_optimizer
+    from repro_torch.data.synthetic import SyntheticLM, SyntheticLMConfig
+    from repro_torch.launch import train
+    from repro_torch.train.checkpoint import save_checkpoint
+    from repro_torch.train.step import build_dist_train_step
+    from repro_torch.train.train_state import gather_state, init_train_state, model_plane_layout
+    from repro_torch.utils import tree_leaves, tree_paths
+
+    args = train._parse(argv)
+    cfg, tcfg = train._model_config(args), train._train_config(args)
+    layout = model_plane_layout(cfg)
+    dev, lead = group.device, group.rank == 0
+    data = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
+                                         per_node_batch=args.per_node_batch,
+                                         n_nodes=group.world))
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def batch(k):
+        return {key: torch.from_numpy(v).to(dev) for key, v in data.batch(k).items()}
+
+    def host_copy(state):
+        tree = {k: state[k] for k in ("params", "opt", "channel")}
+        return {p: t.detach().cpu().clone() for p, t in zip(tree_paths(tree), tree_leaves(tree))}
+
+    step_fn, channel = build_dist_train_step(cfg, tcfg, group)
+    state = init_train_state(cfg, make_optimizer(tcfg.opt_config()), 1, device=dev,
+                             channel=channel, plane_layout=layout)
+    losses_a, save_s = [], None
+    for k in range(4):
+        state, metrics = step_fn(state, batch(k))
+        losses_a.append(float(metrics["loss"]))
+        if k == 1:
+            sync()
+            t = time.perf_counter()
+            host = gather_state(state, group)
+            if lead:
+                save_checkpoint(root, host, metadata={"n_nodes": group.world,
+                                                      "channel_layout": "per-node"},
+                                plane_layout=layout)
+            del host
+            save_s = time.perf_counter() - t
+            dist.barrier(group=group.pg)
+    straight = host_copy(state)
+    del state
+    torch.cuda.empty_cache()
+
+    step_fn, channel = build_dist_train_step(cfg, tcfg, group)
+    t = time.perf_counter()
+    state = train._resume_ranks(group, root, cfg, channel, layout, True)
+    sync()
+    restore_s = time.perf_counter() - t
+    losses_b = []
+    for k in (2, 3):
+        state, metrics = step_fn(state, batch(k))
+        losses_b.append(float(metrics["loss"]))
+    resumed = host_copy(state)
+    del state
+    torch.cuda.empty_cache()
+    differ = sorted(set(straight) ^ set(resumed)) + [
+        k for k in straight if k in resumed and not _same_bits(torch, straight[k], resumed[k])]
+    verdicts = [None] * group.world
+    dist.all_gather_object(verdicts, differ, group=group.pg)
+    if not lead:
+        return None
+    return {"losses_a": losses_a, "losses_b": losses_b, "save_s": save_s,
+            "restore_s": restore_s, "differ": verdicts, "tensors": sorted(straight),
+            "gb": os.path.getsize(os.path.join(root, "step_00000002", "state.npz")) / 1e9}
+
+
+def phase_dist_checkpoint_resume(torch):
+    """Phase 17's algorithm at delay 1 on planes, qwen3-0.6b at full width, 2
+    layers, 4 processes: 4 steps unbroken against 2 steps, a checkpoint
+    (gathered to rank 0 and written), the trainer's resume (read on rank 0
+    and scattered) and 2 more: losses, and every rank's parameters,
+    optimizer and channel state (the ring and its count included) bit for
+    bit; GB, save and restore seconds.  Then --failure-drill 4 -> 2 over 3
+    steps: finite losses, and the survivors' state after the shrink ==
+    elastic_reshape of the gathered state bit for bit."""
+    import shutil
+
+    import repro_torch.launch.train as train
+    from repro_torch.launch.mesh import run_ranks
+
+    root = os.path.join(DIST_DIR, "ckpt")
+    os.makedirs(DIST_DIR, exist_ok=True)
+    free = shutil.disk_usage(HERE).free
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    try:
+        rep = run_ranks(_dist_resume_rank, MAIN["nodes"], root, DIST_CKPT + ["--steps", "4"],
+                        timeout_s=DIST_TIMEOUT_S)[0]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if rep["losses_b"] != rep["losses_a"][2:] or any(rep["differ"]):
+        raise RuntimeError(f"resumed losses {rep['losses_b']}, unbroken {rep['losses_a']}; "
+                           f"tensors that differ per rank {rep['differ']}")
+    chan = [k for k in rep["tensors"] if k.startswith("channel/")]
+    log(f"phase 23: 2 layers, {MAIN['nodes']} processes, decentlam-sa at delay 1 on planes: "
+        f"unbroken {rep['losses_a']} == 2 steps, save, resume, 2 steps {rep['losses_b']}; "
+        f"every rank's final state bit for bit in all {len(rep['tensors'])} tensors "
+        f"({len(chan)} of the channel: {chan}); {time.perf_counter() - t:.1f} s")
+    log(f"  {rep['gb']:.2f} GB per checkpoint ({free / 1e9:.1f} GB free on the disk); save "
+        f"(gather to rank 0, write) {rep['save_s']:.1f} s, restore (read on rank 0, scatter, "
+        f"to the device) {rep['restore_s']:.1f} s")
+
+    t = time.perf_counter()
+    rc = train.main(DIST_CKPT + ["--steps", "3", "--failure-drill"], on_shrink=_check_shrink)
+    n_tensors, differ, fresh = rc["on_shrink"]
+    if (not all(map(math.isfinite, rc["losses"])) or rc["n_nodes"] != MAIN["nodes"] // 2
+            or differ or not fresh):
+        raise RuntimeError(f"drill: losses {rc['losses']} on {rc['n_nodes']} nodes, "
+                           f"{differ[:5]} differ from elastic_reshape, channel fresh {fresh}")
+    log(f"  --failure-drill {rc['drill']}: losses {rc['losses']} (finite), the survivors' "
+        f"state == elastic_reshape of the gathered state bit for bit in {n_tensors} tensors, "
+        f"the channel state re-initialized; {time.perf_counter() - t:.1f} s")
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -2349,6 +2870,9 @@ def main() -> int:
     timed("18 compressed gossip train main path", phase_compressed_main_path, flat)
     timed("19 gossip kernel vs plain path", phase_gossip_kernel_vs_plain)
     timed("20 checkpoint and resume", phase_checkpoint_resume)
+    timed("21 distributed train main path", phase_dist_main_path, flat)
+    timed("22 distributed vs stacked", phase_dist_vs_stacked)
+    timed("23 distributed checkpoint, resume, drill", phase_dist_checkpoint_resume)
     log(f"phase times (s): {phases}; total {time.perf_counter() - t0:.1f}s")
     # one record per specialization of the Triton kernel on the training main
     # path (times per step, summed over the 14 leaves), and the flash and

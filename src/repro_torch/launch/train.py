@@ -1,4 +1,5 @@
-"""Decentralized trainer: ``n`` nodes stacked on one device.
+"""Decentralized trainer: ``n`` nodes stacked on one device, or one process
+per node.
 
 Runs DecentLaM (or any of the eleven algorithms) on synthetic LM data with
 the node replicas stacked on one card (``--nodes N``), the ``W @`` gossip
@@ -7,7 +8,17 @@ between them — delayed (``--gossip-delay``) and compressed
 reference optimizer step or, with ``--fused-update``, through the fused
 stage kernel.  ``--ckpt-dir`` checkpoints every ``--ckpt-every`` steps and
 at the end; ``--resume`` continues from the latest checkpoint there
-(elastically reshaped when ``--nodes`` differs).
+(elastically reshaped when the node count differs).
+
+``--simulate-nodes N`` runs ``repro``'s trainer layout instead: N spawned
+processes, one node each, gossiping over ``torch.distributed``
+(``--gossip-impl ppermute`` or ``allgather``; :mod:`repro_torch.launch.mesh`
+picks NCCL with a card per rank, else gloo).  Rank 0 gathers the state for
+checkpoints and writes them; ``--failure-drill`` shrinks the group to n/2
+halfway (rank 0 gathers the state and collapses it with
+``elastic_reshape``, the upper half of the ranks leave, the survivors form
+a new group and resume).  Under ``torchrun`` (``RANK`` and ``WORLD_SIZE``
+set) the same flags run this process as one rank of the launched group.
 
 Examples::
 
@@ -30,6 +41,22 @@ Examples::
         --fused-update --fused-impl triton --flat-planes \\
         --algorithm decentlam-sa --gossip-delay 1 --track-consensus
 
+    # one process per node: 4 ranks sharing the card over gloo (NCCL with a
+    # card per rank), flat planes, the stage kernel at a node axis of 1
+    PYTHONPATH=src python -m repro_torch.launch.train --simulate-nodes 4 \\
+        --arch qwen3-0.6b --steps 3 --seq-len 256 --per-node-batch 4 \\
+        --gossip-impl ppermute --fused-update --fused-impl triton --flat-planes
+
+    # the same on the host CPU, with a checkpoint and the shrink to 2 nodes
+    PYTHONPATH=src python -m repro_torch.launch.train --simulate-nodes 4 \\
+        --device cpu --arch qwen3-0.6b --smoke --steps 6 --seq-len 32 \\
+        --per-node-batch 2 --fused-update --ckpt-dir build/ckpt --failure-drill
+
+    # several cards, one process each (NCCL)
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch qwen3-0.6b --steps 5 --seq-len 256 --per-node-batch 4 --fused-update \\
+        --flat-planes
+
     # tiny LM on the host CPU (the kernel's plain version), int8 gossip with
     # error feedback, checkpointed every 2 steps; then resumed to step 6
     PYTHONPATH=src python -m repro_torch.launch.train --nodes 4 --preset tiny \\
@@ -45,6 +72,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 
 import torch
@@ -61,13 +89,16 @@ from ..train.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
-from ..train.step import TrainConfig, build_train_step
+from ..train.step import TrainConfig, build_dist_train_step, build_train_step
 from ..train.train_state import (
     ensure_channel_state,
+    gather_state,
     init_train_state,
     model_plane_layout,
     reconcile_plane_state,
+    scatter_state,
 )
+from .mesh import init_node_group, run_ranks, subgroup
 from ..utils import resolve_device, tree_leaves, tree_map
 
 
@@ -76,6 +107,19 @@ def _parse(argv=None):
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--nodes", type=int, default=4,
                    help="decentralized nodes, stacked as replicas on the one device")
+    p.add_argument("--simulate-nodes", dest="simulate_nodes", type=int, default=0,
+                   help="run N processes, one node each, over torch.distributed (replaces "
+                   "--nodes)")
+    p.add_argument("--gossip-impl", dest="gossip_impl", default="ppermute",
+                   choices=["ppermute", "allgather"],
+                   help="the distributed transport (with --simulate-nodes or under torchrun)")
+    p.add_argument("--failure-drill", dest="failure_drill", action="store_true",
+                   help="with --simulate-nodes: halfway, gather the state, elastic-shrink "
+                   "to n/2, re-form the group with the lower half of the ranks, resume")
+    p.add_argument("--timeout", type=float, default=0.0,
+                   help="with --simulate-nodes: fail the run when a rank outlives this many "
+                   "seconds (0 = no deadline)")
+    p.add_argument("--tp", type=int, default=1, help="model-parallel size (only 1 is ported)")
     p.add_argument("--preset", default="tiny", choices=["tiny"])
     p.add_argument("--arch", default=None, help="use an assigned arch instead")
     p.add_argument("--smoke", action="store_true",
@@ -185,6 +229,17 @@ def _serve_demo(args, cfg, layout, channel, device, runtime, on_serve):
     return pub, engine, serve
 
 
+def _channel_layout(host: dict, manifest: dict, layout: str) -> dict:
+    """A restored state whose delay ring was written by the other trainer
+    (``"channel_layout"`` in the manifest: ``stacked`` ring slots are
+    ``(ring, n, ...)``, ``per-node`` ones ``(n, ring, ...)``) loses the ring,
+    which ``ensure_channel_state`` then re-initializes."""
+    stored = manifest.get("channel_layout")
+    if stored is None or stored == layout or "delay" not in host.get("channel", {}):
+        return host
+    return {**host, "channel": {k: v for k, v in host["channel"].items() if k != "delay"}}
+
+
 def resume_state(ckpt_dir: str, cfg, channel, layout, flat_planes: bool, n_nodes: int,
                  device) -> dict:
     """The latest checkpoint under ``ckpt_dir`` as a run's state on
@@ -193,14 +248,14 @@ def resume_state(ckpt_dir: str, cfg, channel, layout, flat_planes: bool, n_nodes
     in the form the run keeps (``flat_planes``), its channel state kept
     where it matches ``channel``."""
     host, manifest = restore_checkpoint(ckpt_dir)
+    host = _channel_layout(host, manifest, "stacked")
     stored_n = tree_leaves(host["params"])[0].shape[0]
     if stored_n != n_nodes:
         print(f"elastic reshape {stored_n} -> {n_nodes}", flush=True)
         host = elastic_reshape(host, n_nodes)
     cur_layout = layout or model_plane_layout(cfg)
     check_plane_manifest(manifest, cur_layout)
-    state = {k: v if k == "step" else tree_map(lambda t: t.to(device), v)
-             for k, v in host.items()}
+    state = _to_device(host, device)
     del host
     state = reconcile_plane_state(state, cur_layout, flat_planes)
     state = ensure_channel_state(state, channel, cur_layout if flat_planes else None)
@@ -208,31 +263,18 @@ def resume_state(ckpt_dir: str, cfg, channel, layout, flat_planes: bool, n_nodes
     return state
 
 
-def main(argv=None, *, on_step=None, serve_runtime=None, on_serve=None) -> dict:
-    """Run the trainer; returns ``{losses, lrs, step_s, tokens_per_s,
-    peak_mem_bytes, ...}`` (losses/lrs per step, and ``gossip_gaps`` and,
-    with ``--track-consensus``, ``consensus_sq`` per step).  ``on_step(step,
-    state, metrics)``, if given, is called after each step has finished on
-    the device (a profiler's ``step``, for example).  With
-    ``--serve-while-training`` the engine takes ``serve_runtime`` (default:
-    the engine's own, float32 with the plain attention), ``on_serve(engine,
-    publisher)`` sees both once they exist, and the result holds the demo's
-    ``"serve"`` stats.  With ``--resume`` the run continues from the latest
-    checkpoint's step to ``--steps``, and the result's lists cover the steps
-    it ran."""
-    args = _parse(argv)
-    device = resolve_device(args.device)
-    if args.arch:
-        cfg = get_config(args.arch, smoke=args.smoke)
-    else:
-        cfg = tiny_lm()
+def _model_config(args):
+    cfg = get_config(args.arch, smoke=args.smoke) if args.arch else tiny_lm()
     if args.depth:
         cfg = dataclasses.replace(cfg, n_layers=args.depth)
-    n_nodes = args.nodes
+    return cfg
 
-    tcfg = TrainConfig(
+
+def _train_config(args) -> TrainConfig:
+    return TrainConfig(
         algorithm=args.algorithm,
         topology=args.topology,
+        gossip_impl=args.gossip_impl,
         gossip_delay=args.gossip_delay,
         compression=args.compression,
         momentum=args.momentum,
@@ -251,6 +293,50 @@ def main(argv=None, *, on_step=None, serve_runtime=None, on_serve=None) -> dict:
         track_consensus=args.track_consensus,
         finite_guard=args.finite_guard,
     )
+
+
+def main(argv=None, *, on_step=None, serve_runtime=None, on_serve=None,
+         on_shrink=None) -> dict:
+    """Run the trainer; returns ``{losses, lrs, step_s, tokens_per_s,
+    peak_mem_bytes, ...}`` (losses/lrs per step, and ``gossip_gaps`` and,
+    with ``--track-consensus``, ``consensus_sq`` per step).  ``on_step(step,
+    state, metrics)``, if given, is called after each step has finished on
+    the device (a profiler's ``step``, for example).  With
+    ``--serve-while-training`` the engine takes ``serve_runtime`` (default:
+    the engine's own, float32 with the plain attention), ``on_serve(engine,
+    publisher)`` sees both once they exist, and the result holds the demo's
+    ``"serve"`` stats.  With ``--resume`` the run continues from the latest
+    checkpoint's step to ``--steps``, and the result's lists cover the steps
+    it ran.
+
+    With ``--simulate-nodes`` (or under torchrun) the run is
+    :func:`rank_main` on every rank and the result is rank 0's; ``on_step``
+    and ``on_shrink`` then run in every rank's process and must be
+    picklable (module-level functions)."""
+    args = _parse(argv)
+    if args.tp != 1:
+        raise NotImplementedError(
+            f"--tp {args.tp}: tensor parallelism is not ported yet (ROADMAP queue 1, item 2)")
+    launched = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    if args.simulate_nodes or launched:
+        if args.serve_while_training:
+            raise NotImplementedError(
+                "--serve-while-training with one process per node is not ported yet "
+                "(ROADMAP.md, queue 1); use the stacked trainer (--nodes)")
+        resolve_device(args.device)  # no CUDA on a CUDA request raises here
+        if launched:
+            group = init_node_group(int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]),
+                                    "env://", device=args.device)
+            try:
+                return rank_main(group, argv, on_step, on_shrink)
+            finally:
+                torch.distributed.destroy_process_group()
+        return run_ranks(rank_main, args.simulate_nodes, argv, on_step, on_shrink,
+                         device=args.device, timeout_s=args.timeout or None)[0]
+    device = resolve_device(args.device)
+    cfg = _model_config(args)
+    n_nodes = args.nodes
+    tcfg = _train_config(args)
     step_fn, channel = build_train_step(cfg, tcfg, n_nodes)
     opt = make_optimizer(tcfg.opt_config())
     layout = model_plane_layout(cfg) if args.flat_planes or args.serve_while_training else None
@@ -281,7 +367,8 @@ def main(argv=None, *, on_step=None, serve_runtime=None, on_serve=None) -> dict:
 
     def checkpoint(state):
         return save_checkpoint(args.ckpt_dir, state,
-                               metadata={"n_nodes": n_nodes, "algorithm": args.algorithm},
+                               metadata={"n_nodes": n_nodes, "algorithm": args.algorithm,
+                                         "channel_layout": "stacked"},
                                plane_layout=layout if args.flat_planes else None)
 
     losses, lrs, gaps, consensus, step_times = [], [], [], [], []
@@ -369,6 +456,239 @@ def main(argv=None, *, on_step=None, serve_runtime=None, on_serve=None) -> dict:
         print(f"wrote {args.measure_json}")
     if args.ckpt_dir and not saved:  # the final state, unless the last step saved it
         print(f"checkpointed -> {checkpoint(state)}", flush=True)
+    return result
+
+
+def _resume_ranks(group, ckpt_dir: str, cfg, channel, layout, flat_planes: bool) -> dict:
+    """:func:`resume_state` for one rank of the node group: rank 0 restores
+    the latest checkpoint (elastically reshaped to the group's node count,
+    checked against the plane layout) and scatters it; each rank moves its
+    node to its device and brings it into the form the run keeps, its
+    channel state kept where it matches ``channel``."""
+    host = None
+    cur_layout = layout or model_plane_layout(cfg)
+    if group.rank == 0:
+        host, manifest = restore_checkpoint(ckpt_dir)
+        host = _channel_layout(host, manifest, "per-node")
+        stored_n = tree_leaves(host["params"])[0].shape[0]
+        if stored_n != group.world:
+            print(f"elastic reshape {stored_n} -> {group.world}", flush=True)
+            host = elastic_reshape(host, group.world)
+        check_plane_manifest(manifest, cur_layout)
+        host = {**host, "channel": _per_node_channel(host.get("channel", {}), group.world)}
+    state = _to_device(scatter_state(host, group), group.device)
+    del host
+    state = reconcile_plane_state(state, cur_layout, flat_planes)
+    state = ensure_channel_state(state, channel, cur_layout if flat_planes else None)
+    return state
+
+
+def _per_node_channel(old: dict, world: int) -> dict:
+    """The restored channel leaves that can be scattered, one row per node
+    (leading axis ``world``); ``ensure_channel_state`` then keeps those
+    whose per-rank shape matches the channel and re-initializes the rest
+    (a delay slot whole or not at all)."""
+    out = {}
+    for k, v in old.items():
+        if isinstance(v, dict):
+            v = _per_node_channel(v, world)
+            if v:
+                out[k] = v
+        elif v.ndim and v.shape[0] == world:
+            out[k] = v
+    return out
+
+
+def _to_device(state: dict, device) -> dict:
+    return {k: v if k == "step" else tree_map(lambda t: t.to(device), v)
+            for k, v in state.items()}
+
+
+def rank_main(group, argv, on_step=None, on_shrink=None) -> dict:
+    """The trainer on one rank of the node ``group`` (``repro``'s shard_map
+    trainer at tp = 1): this rank's node of the state, the global batch of
+    every step (the rank trains on its rows), checkpoints gathered to and
+    written by rank 0, and the failure drill.  Returns the run's result
+    (the losses are the mean over nodes, the same on every rank).
+
+    ``on_shrink(group, gathered, state)``, if given, runs on every survivor
+    of the drill once its state is rebuilt: ``gathered`` is the global state
+    before the shrink on rank 0 (None elsewhere), ``group`` the new group;
+    rank 0's return value is the result's ``"on_shrink"``."""
+    args = _parse(argv)
+    device = group.device
+    cfg = _model_config(args)
+    tcfg = _train_config(args)
+    opt = make_optimizer(tcfg.opt_config())
+    layout = model_plane_layout(cfg) if args.flat_planes else None
+    cuda = device.type == "cuda"
+    print(group.describe(), flush=True)
+    lead = group.rank == 0
+
+    def build(group):
+        step_fn, channel = build_dist_train_step(cfg, tcfg, group)
+        if args.measure_json:
+            channel.timings = []
+        return step_fn, channel
+
+    step_fn, channel = build(group)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    save_s, restore_s = [], None
+    if args.resume and args.ckpt_dir:
+        t = time.perf_counter()
+        state = _resume_ranks(group, args.ckpt_dir, cfg, channel, layout, args.flat_planes)
+        restore_s = time.perf_counter() - t
+        if lead:
+            print(f"resumed from step {state['step']} in {restore_s:.1f}s", flush=True)
+    else:
+        state = init_train_state(cfg, opt, 1, device=device, channel=channel,
+                                 plane_layout=layout)
+    start = state["step"]
+    n_params = count_params(state["params"])
+    if lead:
+        print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params:,} "
+              f"params/node x {group.world} nodes, one process each", flush=True)
+
+    def data_of(n):
+        return SyntheticLM(SyntheticLMConfig(
+            vocab_size=cfg.vocab_size, seq_len=args.seq_len,
+            per_node_batch=args.per_node_batch, n_nodes=n, heterogeneity=args.heterogeneity))
+
+    def checkpoint(state, group):
+        t = time.perf_counter()
+        host = gather_state(state, group)
+        if host is not None:
+            path = save_checkpoint(args.ckpt_dir, host,
+                                   metadata={"n_nodes": group.world,
+                                             "algorithm": args.algorithm,
+                                             "channel_layout": "per-node"},
+                                   plane_layout=layout)
+            save_s.append(time.perf_counter() - t)
+            print(f"checkpointed -> {path}", flush=True)
+
+    data = data_of(group.world)
+    losses, lrs, gaps, consensus, step_times, card_used = [], [], [], [], [], []
+    skipped_steps, saved, drill, shrunk = 0, False, None, None
+    t0 = time.perf_counter()
+    for step in range(start, args.steps):
+        batch = {k: torch.from_numpy(v).to(device) for k, v in data.batch(step).items()}
+        ts = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        loss = float(metrics["loss"])
+        if cuda:
+            torch.cuda.synchronize(device)
+        step_times.append(time.perf_counter() - ts)
+        if cuda and lead:
+            free, total = torch.cuda.mem_get_info(device)
+            card_used.append(total - free)
+        if on_step is not None:
+            on_step(step, state, metrics)
+        if args.max_skipped_steps and metrics["skipped_nonfinite"] > 0:
+            skipped_steps += 1
+            if skipped_steps > args.max_skipped_steps:
+                raise RuntimeError(
+                    f"aborting at step {step}: the finite guard skipped the optimizer update "
+                    f"on {skipped_steps} steps, exceeding --max-skipped-steps="
+                    f"{args.max_skipped_steps} — the gradients are persistently non-finite"
+                )
+        losses.append(loss)
+        lrs.append(float(metrics["lr"]))
+        gaps.append(metrics["gossip_gap"])
+        msg = f"step {step:5d} loss {loss:.4f} lr {lrs[-1]:.2e}"
+        if args.track_consensus:
+            consensus.append(float(metrics["consensus_sq"]))
+            msg += f" consensus {consensus[-1]:.3e}"
+        if lead and (step % args.log_every == 0 or step == args.steps - 1):
+            print(f"{msg} ({step_times[-1]:.3f}s, {group.world} nodes)", flush=True)
+        saved = bool(args.ckpt_dir) and (step + 1) % args.ckpt_every == 0
+        if saved:
+            checkpoint(state, group)
+        if args.failure_drill and drill is None and step == (start + args.steps) // 2:
+            new_n = max(1, group.world // 2)
+            if lead:
+                print(f"FAILURE DRILL: gather, shrink {group.world} -> {new_n}, re-form the "
+                      "group, resume", flush=True)
+            gathered = gather_state(state, group)
+            del state
+            host = elastic_reshape(gathered, new_n) if lead else None
+            drill = {"step": step, "from": group.world, "to": new_n}
+            sub = subgroup(group, list(range(new_n)))
+            if sub is None:  # this rank leaves the fleet
+                return {"left_at_step": step, "rank": group.rank}
+            group = sub
+            step_fn, channel = build(group)
+            state = _to_device(scatter_state(host, group), device)
+            del host
+            state = reconcile_plane_state(state, layout or model_plane_layout(cfg),
+                                          args.flat_planes)
+            state = ensure_channel_state(state, channel, layout)
+            if on_shrink is not None:
+                shrunk = on_shrink(group, gathered, state)
+            del gathered
+            data = data_of(group.world)
+    total = time.perf_counter() - t0
+
+    warm = step_times[1:] or step_times
+    step_s = sum(warm) / len(warm) if warm else float("nan")
+    tokens = group.world * args.per_node_batch * args.seq_len
+    mine = {"device": str(device),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(device) if cuda else None,
+            "gossip_s": channel.timings,
+            "staged_bytes": channel.staged_bytes}
+    every = [None] * group.world
+    torch.distributed.all_gather_object(every, mine, group=group.pg)
+    rounds = [len(m["gossip_s"] or ()) for m in every]
+    result = {
+        "arch": args.arch or args.preset,
+        "n_layers": cfg.n_layers,
+        "params_per_node": n_params,
+        "n_nodes": group.world,
+        "processes": True,
+        "backend": group.backend,
+        "devices": [m["device"] for m in every],
+        "gossip_impl": args.gossip_impl,
+        "algorithm": args.algorithm,
+        "fused_update": args.fused_update,
+        "fused_impl": args.fused_impl if args.fused_update else None,
+        "flat_planes": args.flat_planes,
+        "device": torch.cuda.get_device_name(device) if cuda else "cpu",
+        "start_step": start,
+        "losses": losses,
+        "lrs": lrs,
+        "gossip_gaps": gaps,
+        "step_times_s": step_times,
+        "step_s": step_s,
+        "steps_timed": len(warm),
+        "tokens_per_s": tokens / step_s,
+        "peak_mem_bytes": mine["peak_mem_bytes"],
+        "peak_mem_bytes_by_rank": [m["peak_mem_bytes"] for m in every],
+        "card_used_bytes": max(card_used) if card_used else None,
+        "drill": drill,
+    }
+    if args.measure_json:
+        # host seconds of one channel.apply between device syncs, the
+        # rank's mean over the run, and the bytes it staged per round
+        result["gossip_s_per_round"] = [sum(m["gossip_s"]) / max(len(m["gossip_s"]), 1)
+                                        for m in every]
+        result["staged_bytes_per_round"] = [m["staged_bytes"] / max(r, 1)
+                                            for m, r in zip(every, rounds)]
+    if args.track_consensus:
+        result["consensus_sq"] = consensus
+    if shrunk is not None:
+        result["on_shrink"] = shrunk
+    if lead:
+        print(f"done: {len(losses)} steps in {total:.1f}s; steady step {step_s:.4f}s, "
+              f"{result['tokens_per_s']:.0f} tokens/s", flush=True)
+        if args.measure_json:
+            with open(args.measure_json, "w") as f:
+                json.dump({"measured_step_s": step_s, **result}, f, indent=2)
+            print(f"wrote {args.measure_json}", flush=True)
+    if args.ckpt_dir and not saved:  # the final state, unless the last step saved it
+        checkpoint(state, group)
+    # host seconds on rank 0: gather + write per checkpoint; restore on rank
+    # 0 + scatter + placing this rank's node on its device
+    result["save_s"], result["restore_s"] = save_s, restore_s
     return result
 
 

@@ -34,8 +34,18 @@ channel reports each node's incident version gap, ``(n,)``, which
 ``decentlam-sa`` turns into its per-node damping ``sg``; the fused engine
 reads it as one float per node.
 
-This is the single-device counterpart of ``repro.train.step``'s shard_map
-step; the distributed transports come with a later slice.
+:func:`build_dist_train_step` is the counterpart of ``repro.train.step``'s
+shard_map step: one process per node (:mod:`repro_torch.launch.mesh`),
+each rank holding its replica with a node axis of size 1 and taking the
+gradient on its own rows ``[i*b, (i+1)*b)`` of the same global batch the
+stacked step sees.  It gossips through a distributed channel (``ppermute``
+or ``allgather``, delayed when asked), means through ``make_psum_mean``
+(pmsgd, slowmo), and reduces its metrics over the ranks: the loss is the
+mean over nodes, ``gossip_gap`` the fleet maximum, the consensus distance
+``(1/n) sum_i ||x_i - x_bar||^2`` from two ``all_reduce`` sums.  The stage
+kernel launches on the rank's own node (a node axis of 1).  Tensor
+parallelism (tp > 1) and row-sparse gossip raise: they wait for ROADMAP
+queue 1, items 2 and 3.
 """
 
 from __future__ import annotations
@@ -45,9 +55,18 @@ import warnings
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from ..configs.base import ModelConfig
-from ..core.gossip import DelayedStackedChannel, GossipChannel, StackedChannel, make_stacked_mean
+from ..core.gossip import (
+    DelayedStackedChannel,
+    GossipChannel,
+    StackedChannel,
+    _Wire,
+    build_channel,
+    make_psum_mean,
+    make_stacked_mean,
+)
 from ..core.optimizers import OptimizerConfig, make_optimizer
 from ..core.planes import plane_scalars
 from ..core.schedules import ScheduleConfig, build_schedule
@@ -60,7 +79,7 @@ from .train_state import model_plane_layout
 
 Tree = Any
 
-__all__ = ["TrainConfig", "build_train_step", "build_gossip_channel"]
+__all__ = ["TrainConfig", "build_train_step", "build_dist_train_step", "build_gossip_channel"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +90,10 @@ class TrainConfig:
 
     algorithm: str = "decentlam"
     topology: str = "exp"
-    gossip_delay: int = 0  # hold payloads back k rounds (delayed stacked channel)
+    # the distributed step's transport: ppermute | allgather (the stacked
+    # step always mixes with W @)
+    gossip_impl: str = "ppermute"
+    gossip_delay: int = 0  # hold payloads back k rounds (a delay ring)
     compression: str | None = None
     momentum: float = 0.9
     weight_decay: float = 0.0
@@ -92,6 +114,8 @@ class TrainConfig:
     # skip a node's optimizer update when its grad norm goes non-finite (the
     # skip count surfaces as the "skipped_nonfinite" metric)
     finite_guard: bool = True
+    # row-sparse gossip (repro.sparse): not ported, raises
+    sparse_gossip: bool = False
 
     def opt_config(self) -> OptimizerConfig:
         return OptimizerConfig(
@@ -180,33 +204,70 @@ def _node_grad_norms(grads: Tree, n_nodes: int) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(per_leaf, dim=1), dim=1)
 
 
-def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_nodes: int):
-    """Returns ``(train_step, channel)``.
+class _Stacked:
+    """The fleet of the stacked step: every node in this process."""
 
-    ``train_step(state, batch) -> (state, metrics)``: ``state`` is an
-    :func:`~repro_torch.train.train_state.init_train_state` dict (it is
-    updated in place on the fused path and must not be reused); ``batch``
-    holds ``(n_nodes * per_node_batch, seq)`` tokens and targets, node ``i``
-    owning rows ``[i * b, (i + 1) * b)``.  The returned channel is the
-    transport the step gossips through: pass it to ``init_train_state``.
-    """
-    topology = build_topology(tcfg.topology, n_nodes)
-    if tcfg.algorithm == "decentlam" and topology.period > 1 and tcfg.momentum > 0.5:
-        warnings.warn(
-            "DecentLaM's convergence analysis assumes a static mixing matrix"
-            " (paper Assumption A.3); with time-varying topologies the"
-            f" momentum on the gossip penalty can resonate at beta="
-            f"{tcfg.momentum} > 0.5. Consider beta <= 0.5 or a static topology.",
-            stacklevel=2,
-        )
+    def __init__(self, n_nodes: int):
+        self.n = n_nodes
+
+    def rows(self, batch: dict) -> dict:
+        return batch
+
+    def reduce(self, losses, skipped: int, gaps):
+        return torch.mean(losses), float(skipped), float(torch.as_tensor(gaps).max())
+
+    def consensus(self, x: Tree) -> torch.Tensor:
+        return _consensus_sq(x, self.n)
+
+
+class _Ranks:
+    """The fleet of the distributed step: this process is node ``group.rank``
+    of ``group.world``; metrics reduce over the ranks."""
+
+    def __init__(self, group):
+        self.group, self.n = group, group.world
+        self._wire = _Wire(group)
+
+    def rows(self, batch: dict) -> dict:
+        b = batch["tokens"].shape[0] // self.n
+        lo = self.group.rank * b
+        return {k: v[lo:lo + b] for k, v in batch.items()}
+
+    def reduce(self, losses, skipped: int, gaps):
+        dev, pg = self.group.comm_device, self.group.pg
+        sums = torch.stack([losses.sum().to(device=dev, dtype=torch.float32),
+                            torch.tensor(float(skipped), device=dev)])
+        gap = torch.as_tensor(gaps, dtype=torch.float32).max().reshape(1).to(dev)
+        dist.all_reduce(sums, group=pg)
+        dist.all_reduce(gap, op=dist.ReduceOp.MAX, group=pg)
+        return sums[0] / self.n, float(sums[1]), float(gap[0])
+
+    def consensus(self, x: Tree) -> torch.Tensor:
+        """``repro``'s ``_consensus_metric``: per leaf the mean over the
+        ranks, then the sum over the ranks of the squared distance, over n."""
+        total = torch.zeros((), dtype=torch.float32)
+        for leaf in tree_leaves(x):
+            xf = leaf.to(torch.float32)
+            xb = self._wire.all_reduce_(xf.clone().view(-1)).view(xf.shape) / self.n
+            sq = torch.sum((xf - xb) ** 2).reshape(1).to(self.group.comm_device)
+            dist.all_reduce(sq, group=self.group.pg)
+            total = total + sq[0].cpu() / self.n
+        return total
+
+
+def _step_fn(cfg: ModelConfig, tcfg: TrainConfig, fleet, channel: GossipChannel, mean):
+    """The step body shared by the stacked and the distributed step; the
+    ``fleet`` says which rows this process trains on and how its metrics
+    reduce.  Every leaf here has a node axis of the nodes in this process."""
     ocfg = tcfg.opt_config()
     opt = make_optimizer(ocfg)
     spec = update_spec(ocfg)
     lr_fn = build_schedule(tcfg.schedule)
     if tcfg.grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {tcfg.grad_accum}")
-    channel = build_gossip_channel(tcfg, topology, opt.gossips_per_step)
-    mean = make_stacked_mean(n_nodes)
+    if tcfg.sparse_gossip:
+        raise NotImplementedError("row-sparse gossip is not ported yet (ROADMAP queue 1, item 3)")
+    n_local = 1 if isinstance(fleet, _Ranks) else fleet.n
     rt = tcfg.runtime
     if tcfg.flat_planes:
         layout = model_plane_layout(cfg)
@@ -220,6 +281,7 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_nodes: int):
         step_idx = state["step"]
         dev = tree_leaves(params)[0].device
         lr = torch.full((), lr_fn(step_idx), dtype=torch.float32, device=dev)
+        batch = fleet.rows(batch)
 
         planes = g_planes = None
         if tcfg.flat_planes:
@@ -229,15 +291,15 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_nodes: int):
             g_planes = {k: torch.empty(p.shape, dtype=torch.float32, device=dev)
                         for k, p in planes.items()}
             layout.zero_pads(g_planes, leading=1)
-            grads, losses = _node_grads(params, batch, cfg, n_nodes,
+            grads, losses = _node_grads(params, batch, cfg, n_local,
                                         layout.view_unpack(g_planes, leading=1), rt,
                                         tcfg.grad_accum)
         else:
-            grads, losses = _node_grads(params, batch, cfg, n_nodes, None, rt, tcfg.grad_accum)
+            grads, losses = _node_grads(params, batch, cfg, n_local, None, rt, tcfg.grad_accum)
 
         bad, saved = None, None
         if tcfg.finite_guard:
-            norms = _node_grad_norms(g_planes if planes is not None else grads, n_nodes)
+            norms = _node_grad_norms(g_planes if planes is not None else grads, n_local)
             bad = torch.nonzero(~torch.isfinite(norms)).reshape(-1)  # one host sync per step
         if bad is not None and bad.numel():
             for gl in tree_leaves(g_planes if planes is not None else grads):
@@ -281,22 +343,81 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_nodes: int):
                 for k, v in new_opt.items()
             }
 
-        gaps = channel.node_gaps(comp)
+        loss, skipped, gap = fleet.reduce(losses, 0 if bad is None else bad.numel(),
+                                          channel.node_gaps(comp))
         metrics = {
-            "loss": torch.mean(losses),
+            "loss": loss,
             "lr": lr,
-            "skipped_nonfinite": 0.0 if bad is None else float(bad.numel()),
+            "skipped_nonfinite": skipped,
             # fleet-worst incident gossip gap of this round (0 on undelayed
             # channels): the signal the serving publisher gates on
-            "gossip_gap": float(torch.as_tensor(gaps).max()),
+            "gossip_gap": gap,
         }
         if tcfg.track_consensus:
-            metrics["consensus_sq"] = _consensus_sq(planes if planes is not None else new_params,
-                                                    n_nodes)
+            metrics["consensus_sq"] = fleet.consensus(planes if planes is not None
+                                                      else new_params)
         new_state = {"step": step_idx + 1, "params": new_params, "opt": new_opt,
                      "channel": comp}
         if planes is not None:
             new_state["planes"] = planes
         return new_state, metrics
 
-    return train_step, channel
+    return train_step
+
+
+def _topology(tcfg: TrainConfig, n_nodes: int):
+    topology = build_topology(tcfg.topology, n_nodes)
+    if tcfg.algorithm == "decentlam" and topology.period > 1 and tcfg.momentum > 0.5:
+        warnings.warn(
+            "DecentLaM's convergence analysis assumes a static mixing matrix"
+            " (paper Assumption A.3); with time-varying topologies the"
+            f" momentum on the gossip penalty can resonate at beta="
+            f"{tcfg.momentum} > 0.5. Consider beta <= 0.5 or a static topology.",
+            stacklevel=3,
+        )
+    return topology
+
+
+def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_nodes: int):
+    """Returns ``(train_step, channel)``.
+
+    ``train_step(state, batch) -> (state, metrics)``: ``state`` is an
+    :func:`~repro_torch.train.train_state.init_train_state` dict (it is
+    updated in place on the fused path and must not be reused); ``batch``
+    holds ``(n_nodes * per_node_batch, seq)`` tokens and targets, node ``i``
+    owning rows ``[i * b, (i + 1) * b)``.  The returned channel is the
+    transport the step gossips through: pass it to ``init_train_state``.
+    """
+    topology = _topology(tcfg, n_nodes)
+    channel = build_gossip_channel(tcfg, topology,
+                                   make_optimizer(tcfg.opt_config()).gossips_per_step)
+    step = _step_fn(cfg, tcfg, _Stacked(n_nodes), channel, make_stacked_mean(n_nodes))
+    return step, channel
+
+
+def build_dist_train_step(cfg: ModelConfig, tcfg: TrainConfig, group, *, tp: int = 1):
+    """Returns ``(train_step, channel)`` for this rank of the node ``group``
+    (``repro.train.step.build_train_step`` at tp = 1).
+
+    ``train_step(state, batch) -> (state, metrics)``: ``state`` is this
+    rank's state (:func:`~repro_torch.train.train_state.init_train_state`
+    with one node, or a scattered one), updated in place on the fused path;
+    ``batch`` is the global batch of ``group.world * b`` rows, of which the
+    rank takes ``[rank * b, (rank + 1) * b)``.  Every rank calls it at every
+    step.  The channel is ``tcfg.gossip_impl`` (``ppermute`` or
+    ``allgather``; delayed with ``gossip_delay``), telemetry on."""
+    if tp != 1:
+        raise NotImplementedError(
+            f"tensor parallelism (tp={tp}) is not ported yet (ROADMAP queue 1, item 2)")
+    if tcfg.gossip_impl not in ("ppermute", "allgather"):
+        raise ValueError(
+            f"gossip_impl={tcfg.gossip_impl!r}; the distributed step needs a distributed "
+            "transport: ppermute | allgather")
+    n = group.world
+    topology = _topology(tcfg, n)
+    channel = build_channel(tcfg.gossip_impl, topology, group, compression=tcfg.compression,
+                            delay=tcfg.gossip_delay,
+                            calls_per_step=make_optimizer(tcfg.opt_config()).gossips_per_step,
+                            telemetry=True)
+    step = _step_fn(cfg, tcfg, _Ranks(group), channel, make_psum_mean(group, n))
+    return step, channel

@@ -18,8 +18,17 @@ converts the optimizer buckets between tree and plane form, so checkpoints
 are interchangeable across ``--flat-planes``, and (re)builds the parameter
 planes; :func:`ensure_channel_state` keeps the restored channel state where
 its structure and shapes match the current channel's and re-initializes the
-rest.  The channel state has the stacked channels' layout (ring slots
+rest.  The stacked channels' state has their layout (ring slots
 ``(ring, n, ...)``, scalar telemetry; see :mod:`repro_torch.core.gossip`).
+
+The distributed trainer (one process per node) holds on each rank the
+state of one node, every leaf with a node axis of 1: rank ``i``'s initial
+state is :func:`init_train_state` with ``n_nodes=1``, equal to node ``i``
+of the stacked one.  :func:`gather_state` concatenates the ranks' states
+along that axis on rank 0 — the global state a checkpoint holds, with the
+distributed channels' state in ``repro``'s trainer layout (ring slots
+``(n, ring, ...)``, a ``count`` and telemetry per node) — and
+:func:`scatter_state` is its inverse.
 """
 
 from __future__ import annotations
@@ -27,18 +36,19 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from ..configs.base import ModelConfig
 from ..core.gossip import GossipChannel
 from ..core.optimizers import Optimizer
 from ..core.planes import PlaneLayout
 from ..models import transformer as T
-from ..utils import tree_leaves, tree_map
+from ..utils import tree_leaves, tree_map, tree_paths
 
 Tree = Any
 
 __all__ = ["init_train_state", "model_plane_layout", "ensure_channel_state",
-           "reconcile_plane_state"]
+           "reconcile_plane_state", "gather_state", "scatter_state"]
 
 
 def model_plane_layout(cfg: ModelConfig) -> PlaneLayout:
@@ -201,3 +211,72 @@ def reconcile_plane_state(state: Tree, plane_layout: PlaneLayout, flat_planes: b
     elif "planes" in state:
         new["params"] = tree_map(lambda x: x.clone(), state["params"])
     return new
+
+
+def _set_path(tree: dict, path: str, leaf) -> None:
+    *parents, last = path.split("/")
+    for p in parents:
+        tree = tree.setdefault(p, {})
+    tree[last] = leaf
+
+
+def _checkpoint_tree(state: Tree) -> dict:
+    """What a checkpoint holds of a state: everything but the planes (their
+    parameters are the ``"params"`` views) and the step."""
+    return {k: v for k, v in state.items() if k not in ("planes", "step")}
+
+
+def gather_state(state: Tree, group) -> Tree | None:
+    """The global state on rank 0 of ``group``: each leaf's ``(1, ...)``
+    replicas concatenated over the ranks into ``(n, ...)`` host tensors, the
+    step, and empty subtrees dropped as a checkpoint drops them; None on the
+    other ranks.  Every rank calls it."""
+    comm, pg, world = group.comm_device, group.pg, group.world
+    tree = _checkpoint_tree(state)
+    out: dict = {} if group.rank == 0 else None
+    for path, leaf in zip(tree_paths(tree), tree_leaves(tree)):
+        mine = leaf.detach().to(comm).contiguous()
+        flat = mine.reshape(-1).view(torch.uint8)
+        slots = None
+        if group.rank == 0:
+            slots = [torch.empty_like(flat) for _ in range(world)]
+        dist.gather(flat, gather_list=slots, dst=0, group=pg)
+        if out is not None:
+            parts = [s.view(leaf.dtype).reshape(leaf.shape) for s in slots]
+            _set_path(out, path, torch.cat(parts).cpu())
+    if out is not None:
+        out["step"] = int(state["step"])
+    return out
+
+
+def scatter_state(host: Tree | None, group) -> Tree:
+    """This rank's node of a global state held on rank 0 (``host``, None on
+    the other ranks; its node axis must be ``group.world``): every leaf's
+    ``[rank:rank + 1]`` slice, on the host.  Every rank calls it."""
+    comm, pg = group.comm_device, group.pg
+    meta = [None]
+    if group.rank == 0:
+        tree = _checkpoint_tree(host)
+        leaves = tree_leaves(tree)
+        bad = [p for p, t in zip(tree_paths(tree), leaves) if t.ndim < 1
+               or t.shape[0] != group.world]
+        meta = [(int(host["step"]), [(p, tuple(t.shape[1:]), t.dtype)
+                                     for p, t in zip(tree_paths(tree), leaves)], bad)]
+    dist.broadcast_object_list(meta, src=0, group=pg)
+    step, specs, bad = meta[0]
+    if bad:  # on every rank, so that none waits for a scatter that never comes
+        raise ValueError(f"{bad} do not have {group.world} nodes")
+    out: dict = {"step": step}
+    leaves = tree_leaves(_checkpoint_tree(host)) if group.rank == 0 else None
+    for k, (path, shape, dtype) in enumerate(specs):
+        mine = torch.empty((1,) + shape, dtype=dtype, device=comm)
+        flat = mine.reshape(-1).view(torch.uint8)
+        parts = None
+        if group.rank == 0:
+            parts = [t.reshape(-1).view(torch.uint8).to(comm)
+                     for t in leaves[k].contiguous().split(1)]
+        dist.scatter(flat, scatter_list=parts, src=0, group=pg)
+        _set_path(out, path, mine.cpu())
+    out.setdefault("opt", {})
+    out.setdefault("channel", {})
+    return out
