@@ -30,8 +30,10 @@ result line):
    tensor-core instructions (HMMA, from ``cuobjdump -sass``); then against
    its plain version on the card: causal x window {0, 100} x GQA group
    {1, 2, 4} x hd {64, 80, 128} x ragged Sq, Sk in {1, 77, 300} x {f32,
-   bf16}, and the two main-path shapes (qwen3-0.6b prefill, h2o-danube-1.8b
-   with its 4096 window);
+   bf16}, the same for hymba's 25/5 heads at hd 64 (a GQA group of 5) and
+   olmo-1b's 16/16 at hd 128, and the three main-path shapes (qwen3-0.6b
+   prefill, h2o-danube-1.8b with its 4096 window, hymba-1.5b prefill with
+   its 1024 window);
 7. the serve main path: ``repro_torch.serve.ServeEngine`` on qwen3-0.6b at
    full width (28 layers, f32, random weights from seed 0), 8 slots,
    ``max_prompt`` 2048, ``max_new`` 32, 16 requests of 256..2048 prompt
@@ -43,7 +45,7 @@ result line):
    launches per wave) and ``"torch"``: token-identical, or, where they part,
    the plain run's top-two logit gap there (read by the engine's
    ``on_logits`` hook) is below the logit tolerance (a near tie);
-9. the flash kernel at the main-path shape timed beside its bound (the
+9. the flash kernel at the main-path shapes timed beside its bound (the
    larger of bytes / 3.35 TB/s and 3 x flops / 494.7 TFLOP/s: its products
    are 3xTF32 on the tensor cores), the f32 FFMA bound of the SIMT kernel it
    replaced (flops / 67 TFLOP/s), its plain version and
@@ -126,22 +128,48 @@ result line):
     backend, step time, gossip seconds per round, staged GB/s, each rank's
     peak memory and the card's; the plane stages at one rank's (1, 648000,
     1024) beside phase 15's tail;
-22. at 4 layers, 3 steps, in one spawned group of 4 ranks: the distributed
+22. at 4 layers, 2 steps, in one spawned group of 4 ranks: the distributed
     step against the stacked step for ppermute, allgather, decentlam-sa at
     delay 1, pmsgd (the psum mean), da-dmsgd and bf16 messages (the
     reference's distributed-vs-oracle tolerances), int8-row-ef and top-k
     (finite, egress telemetry), then bit for bit on every rank: planes ==
     per leaf, ``--fused-impl triton`` == ``torch``, delay 0 == undelayed
     for every algorithm;
-23. checkpoint, resume and the drill at full width, 2 layers, 4 ranks,
-    decentlam-sa at delay 1 on planes: a resumed run == an unbroken one bit
+23. checkpoint, resume and the drill at full width, 2 layers, decentlam-sa
+    at delay 1 on planes: on 2 ranks a resumed run == an unbroken one bit
     for bit on every rank, the ring included; GB, save and restore seconds;
-    ``--failure-drill`` 4 -> 2 with finite losses, the survivors' state ==
+    on 4 ranks ``--failure-drill`` 4 -> 2 with finite losses, the survivors' state ==
     ``elastic_reshape`` of the gathered state bit for bit (files under
     ``build/dist_smoke``, removed after).  Every spawned group has a
-    deadline: a hung rank fails the phase.
+    deadline: a hung rank fails the phase;
+24. the MoE training main path: one MoE layer's forward and backward with
+    CUDA's sync debug mode at "error" (no host sync); granite-moe-1b-a400m
+    at full width (32 experts, top-8) cut to 12 of its 24 layers, 4 stacked
+    nodes, decentlam
+    on flat planes through the stage kernel, profiled as phase 3: finite
+    losses and router terms, exactly 2 stage launches per step; step time,
+    device busy, peak memory beside its reckoning, the forward's device time
+    in the router, dispatch, expert and combine spans, the plane stages at
+    its plane beside their bound; at 4 layers, 3 steps: the kernel and its
+    plain version, and two kernel runs, equal bit for bit (losses, router
+    terms, final parameter and momentum planes: the combine is
+    deterministic);
+25. the hybrid serving main path: hymba-1.5b at full width and depth (32
+    layers, window 1024 on 29, full attention on layers 0, 16, 31; parallel
+    attention and SSM heads) behind the engine with the flash kernel, the 16
+    requests of phase 7: all complete, exactly 32 launches per prefill wave;
+    prefill, decode, tokens/s, peak memory, the SSM branch's share of the
+    device time; at 4 layers the kernel path against the plain path as in
+    phase 8;
+26. the rest of the zoo at full width cut to 4 layers: 3 training steps on
+    planes through the stage kernel (4 stacked nodes, 2 launches per step,
+    finite losses) for olmo-1b, internvl2-2b, granite-moe-3b-a800m and
+    xlstm-350m; qwen3-8b serving with the flash kernel at hd 128 against
+    the plain path as in phase 8.
 
-The line before the last is the per-kernel JSON record; the last line is
+The line before the last is the per-kernel JSON record (the stage kernel on
+the per-leaf, plane, staleness and MoE paths; flash on the qwen3-0.6b and
+hymba-1.5b serve paths; mLSTM on xlstm-350m's); the last line is
 ``{"ok": true, "device": {...}}``.  Triton kernels compile at first use into
 ``build/triton`` inside the checkout; the two CUDA kernels are built by nvcc
 into ``build/cuda``, one nvcc each, both started at once while phases 2-5
@@ -180,10 +208,15 @@ BF16_TOL = 1e-2
 LOSS_RTOL = 1e-5
 MAIN = dict(nodes=4, arch="qwen3-0.6b", steps=5, seq_len=256, per_node_batch=4)
 # flash attention at the main path's shapes, (B, S, H, Hkv, hd, window), causal:
-# the qwen3-0.6b prefill wave of the serve main path, and h2o-danube-1.8b
-# (hd 80) at a length where its 4096 window cuts in
+# the qwen3-0.6b prefill wave of the serve main path, h2o-danube-1.8b (hd 80)
+# at a length where its 4096 window cuts in, and the hymba-1.5b prefill wave of
+# phase 25 (a GQA group of 5) on its 29 sliding-window layers
 FA_MAIN_SHAPES = {"qwen3-0.6b prefill": (8, 2048, 16, 8, 64, 0),
-                  "h2o-danube-1.8b": (1, 4608, 32, 8, 80, 4096)}
+                  "h2o-danube-1.8b": (1, 4608, 32, 8, 80, 4096),
+                  "hymba-1.5b prefill": (8, 2048, 25, 5, 64, 1024)}
+# the head layouts of this slice's models beyond phase 6's product, (H, Hkv,
+# hd): hymba's GQA group of 5 and olmo-1b's MHA at hd 128
+FA_ZOO_HEADS = ((25, 5, 64), (16, 16, 128))
 # flash attention, kernel vs plain version: the JAX package's tolerances for
 # its own kernel (tests/test_kernels.py)
 FA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -288,21 +321,22 @@ def phase_kernel_vs_plain(torch):
         f"{bitwise} of {cases} cases")
 
 
-def _train_argv(steps, impl, depth=0):
-    argv = ["--nodes", str(MAIN["nodes"]), "--arch", MAIN["arch"], "--steps", str(steps),
+def _train_argv(steps, impl, depth=0, arch=MAIN["arch"]):
+    argv = ["--nodes", str(MAIN["nodes"]), "--arch", arch, "--steps", str(steps),
             "--seq-len", str(MAIN["seq_len"]), "--per-node-batch", str(MAIN["per_node_batch"]),
             "--algorithm", "decentlam", "--topology", "exp", "--fused-update",
             "--fused-impl", impl, "--log-every", "1"]
     return argv + (["--depth", str(depth)] if depth else [])
 
 
-def _profiled_train(torch, extra=(), watch=None):
-    """``train.main`` on the main path (with the ``extra`` flags), profiled:
-    MAIN["steps"] + 3 steps; steps 1..MAIN["steps"]-1 run unprofiled (the
-    step time), the profiler warms up on the next one and records the last
-    two (where the device time goes).  ``watch(step, state, metrics)``, if
-    given, sees every step.  Returns ``(result, launches by op, total
-    launches, profiler events, unprofiled step ms)``."""
+def _profiled_train(torch, extra=(), watch=None, arch=MAIN["arch"], depth=0):
+    """``train.main`` on the main path (with the ``extra`` flags; ``arch`` cut
+    to ``depth`` layers where given), profiled: MAIN["steps"] + 3 steps;
+    steps 1..MAIN["steps"]-1 run unprofiled (the step time), the profiler
+    warms up on the next one and records the last two (where the device
+    time goes).  ``watch(step, state, metrics)``, if given, sees every step.
+    Returns ``(result, launches by op, total launches, profiler events,
+    unprofiled step ms)``."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from repro_torch.kernels.fused_update.kernel import fused_stage_launch, reset_launches
@@ -319,7 +353,8 @@ def _profiled_train(torch, extra=(), watch=None):
                 watch(*args)
             prof.step()
 
-        res = train.main(_train_argv(steps, "triton") + list(extra), on_step=on_step)
+        res = train.main(_train_argv(steps, "triton", depth, arch) + list(extra),
+                         on_step=on_step)
         launches = dict(fused_stage_launch.launches_by_op)
         total = fused_stage_launch.launches
     if len(traced) != 1:
@@ -401,7 +436,7 @@ def _matmul_flops_per_step(cfg, n_nodes) -> float:
 
 # profiler ranges that also appear on the device timeline as annotations
 # (the scheduled profiler's steps, the port's named spans); not device work
-ANNOTATIONS = ("ProfilerStep", "slstm_recurrence")
+ANNOTATIONS = ("ProfilerStep", "slstm_recurrence", "moe_", "ssm_forward")
 
 
 def _device_kernels(torch, events):
@@ -419,9 +454,10 @@ def _device_kernels(torch, events):
     return kernels, busy
 
 
-def _profile_report(torch, events, step_ms, profiled_ms):
+def _profile_report(torch, events, step_ms, profiled_ms, flops=None):
     """Where a main-path step's device time goes, from the profiler's events
-    over 2 steps, against the unprofiled step time ``step_ms``."""
+    over 2 steps, against the unprofiled step time ``step_ms``; ``flops`` is
+    the step's matmul work (default: the qwen3-0.6b main path's)."""
     from repro_torch.configs import get_config
 
     kernels, busy = _device_kernels(torch, events)
@@ -438,7 +474,8 @@ def _profile_report(torch, events, step_ms, profiled_ms):
         f"{busy_ms / step_ms:.1%} of the unprofiled step (idle {1 - busy_ms / step_ms:.1%})")
     for c, ms in sorted(classes.items(), key=lambda kv: -kv[1]):
         log(f"  {c}: {ms / steps:.1f} ms/step ({ms / busy:.1%} of device time)")
-    flops = _matmul_flops_per_step(get_config(MAIN["arch"]), MAIN["nodes"])
+    if flops is None:
+        flops = _matmul_flops_per_step(get_config(MAIN["arch"]), MAIN["nodes"])
     gemm_ms = classes.get("matmul (cuBLAS)", 0.0) / steps
     log(f"  matmul work {flops / 1e12:.2f} TFLOP/step (fwd + bwd, from the shapes) in "
         f"{gemm_ms:.1f} ms: {flops / gemm_ms / 1e9:.1f} TFLOP/s of the 67 f32 peak")
@@ -656,6 +693,16 @@ def phase_flash_vs_plain(torch, built):
         key = str(dt).split(".")[-1]
         worst[key] = max(worst[key], err)
         n += 1
+    for (h, hkv, hd), causal, window, sq, sk, dt in itertools.product(
+            FA_ZOO_HEADS, (True, False), (0, 100), lengths, lengths,
+            (torch.float32, torch.bfloat16)):
+        q, k, v = _fa_inputs(torch, 2, sq, sk, h, hkv, hd, dt, gen)
+        err = _fa_compare(torch, q, k, v, causal, window,
+                          f"causal={causal} window={window} H={h} Hkv={hkv} hd={hd} "
+                          f"Sq={sq} Sk={sk} {dt}")
+        key = str(dt).split(".")[-1]
+        worst[key] = max(worst[key], err)
+        n += 1
     main_err = {}
     for name, (b, s_, h, hkv, hd, window) in FA_MAIN_SHAPES.items():
         q, k, v = _fa_inputs(torch, b, s_, s_, h, hkv, hd, torch.float32, gen)
@@ -664,7 +711,7 @@ def phase_flash_vs_plain(torch, built):
         torch.cuda.empty_cache()
     log(f"phase 6: flash_attention kernel == plain version on {n} cases (causal x window "
         f"{{0, 100}} x group {{1, 2, 4}} x hd {{64, 80, 128}} x Sq, Sk in {lengths} x "
-        f"{{f32, bf16}}; worst max |diff| f32 {worst['float32']:.3g} (tol "
+        f"{{f32, bf16}}, and the same for (H, Hkv, hd) in {FA_ZOO_HEADS}; worst max |diff| f32 {worst['float32']:.3g} (tol "
         f"{FA_TOL['float32']}), bf16 {worst['bfloat16']:.3g} (tol {FA_TOL['bfloat16']})) and "
         f"at the main-path shapes {', '.join(f'{k} {v:.3g}' for k, v in main_err.items())} "
         f"in {time.perf_counter() - t0:.1f}s")
@@ -777,15 +824,16 @@ def _serve_profile(torch, events, what, wall_ms, steps):
 
 
 def _serve_main_path(torch, cfg, phase, launch, reset, per_wave, profile_extra=None,
-                     **runtime):
+                     decode_extra=None, **runtime):
     """A serve main path: ``cfg`` at full width (f32, random weights from
     seed 0) behind the engine with ``runtime``, the 16 requests of SERVE.
     Checks that all complete and that the kernel wrapper ``launch`` (its
     count set to 0 by ``reset``) launched exactly ``per_wave`` times per
     prefill wave; prints prefill ms per wave, decode ms per step, generated
     tokens/s and peak memory; then profiles one prefill wave
-    (``profile_extra(events)`` adds to its report) and two decode steps.
-    Returns the kernel's launches in the engine run."""
+    (``profile_extra(events)`` adds to its report) and two decode steps
+    (``decode_extra(events)`` likewise).  Returns the kernel's launches in
+    the engine run."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import transformer as T
@@ -861,6 +909,8 @@ def _serve_main_path(torch, cfg, phase, launch, reset, per_wave, profile_extra=N
         torch.cuda.synchronize()
         steps_ms = 1e3 * (time.perf_counter() - t)
     _serve_profile(torch, prof.events(), f"two {cfg.name} decode steps", steps_ms, 2)
+    if decode_extra is not None:
+        decode_extra(prof.events())
     del eng, params, cache
     torch.cuda.empty_cache()
     return launches
@@ -884,8 +934,9 @@ def phase_serve_kernel_vs_plain(torch):
 
 
 def phase_flash_timing(torch):
-    """The kernel at the serve main path's prefill shape (and at
-    h2o-danube's windowed shape): its time, bound, plain version and SDPA."""
+    """The kernel at the serve main paths' prefill shapes (and at
+    h2o-danube's windowed shape): its time, bound, plain version and SDPA.
+    Returns a record per shape."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import flash_attention_launch
@@ -895,7 +946,7 @@ def phase_flash_timing(torch):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60,
                          check=True).stdout.strip().splitlines()[0]
-    rec = None
+    recs = {}
     for name, (b, s_, h, hkv, hd, window) in FA_MAIN_SHAPES.items():
         q, k, v = _fa_inputs(torch, b, s_, s_, h, hkv, hd, torch.float32, gen)
         want = reference_attention(q, k, v, causal=True, window=window)
@@ -933,12 +984,11 @@ def phase_flash_timing(torch):
             f"bound of the SIMT design {ffma_ms:.3f} ms (/ 67 TFLOP/s), the kernel at "
             f"{ms / ffma_ms:.2f}x it; plain version "
             f"{plain_ms:.3f} ms, SDPA {lib_ms:.3f} ms; max |kernel - plain| {err:.3g}")
-        if rec is None:  # the first shape is the main path's
-            rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
-                   "bound_by": by, "err": err}
+        recs[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": bound_ms, "bound_by": by, "err": err}
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
-    return rec
+    return recs
 
 
 # ---------------------------------------------------------------------------
@@ -1142,7 +1192,7 @@ def phase_mlstm_vs_plain(torch, built):
 def _span_report(torch, events, span, what, steps):
     """Device time and launches of the kernels launched inside the profiler
     span ``span`` (its ops' kernels, the span's own device annotation
-    left out)."""
+    left out); returns the device ms per call (None where not measured)."""
     # the span's CPU range (its copy on the device timeline is an annotation)
     spans = [e for e in events if e.name == span
              and e.device_type == torch.autograd.DeviceType.CPU]
@@ -1162,9 +1212,10 @@ def _span_report(torch, events, span, what, steps):
     if not spans or ms <= 0.0:
         log(f"  {span}: not measured (the profiler attributed no device time to "
             f"{len(spans)} spans)")
-        return
+        return None
     log(f"  of which inside the {len(spans) // steps} {span} spans per call ({what}): "
         f"{ms / steps:.2f} ms device time, {n // steps} launches")
+    return ms / steps
 
 
 def phase_xlstm_serve_main_path(torch):
@@ -1548,12 +1599,13 @@ def phase_plane_kernel_vs_plain(torch):
 
 
 
-def phase_plane_timing(torch, nodes=MAIN["nodes"]):
+def phase_plane_timing(torch, nodes=MAIN["nodes"], cfg=None):
     """The flat-plane path's two stages at qwen3-0.6b's full stacked plane
     (4, 648000, 1024) f32 — or ``(nodes, 648000, 1024)``: one rank's plane
-    is (1, ...) — one launch each per step: kernel time, bound, the plain
-    version (node by node: its temporaries over the whole plane would not
-    fit) and, for grad_step, ``torch.addcmul``."""
+    is (1, ...); or at the plane of ``cfg`` — one launch each per step:
+    kernel time, bound, the plain version (node by node: its temporaries
+    over the whole plane would not fit) and, for grad_step,
+    ``torch.addcmul``."""
     from repro_torch.configs import get_config
     from repro_torch.core.update_spec import MathCtx
     from repro_torch.kernels.fused_update.kernel import (
@@ -1564,7 +1616,7 @@ def phase_plane_timing(torch, nodes=MAIN["nodes"]):
     )
     from repro_torch.train.train_state import model_plane_layout
 
-    full = model_plane_layout(get_config(MAIN["arch"]))
+    full = model_plane_layout(cfg if cfg is not None else get_config(MAIN["arch"]))
     (key,) = full.buckets
     shape = (nodes, full.rows[key], 1024)
     ctx = MathCtx(beta=0.9)
@@ -2207,8 +2259,8 @@ def _host_copy(state) -> dict:
 
 def phase_checkpoint_resume(torch):
     """Phase 17's algorithm with delay 1 and int8-row-ef on planes, qwen3-0.6b
-    at full width, 2 layers, 2 nodes: 4 steps unbroken (saving at steps 2
-    and 4) against 2 steps, a state restored with --resume from the step-2
+    at full width, 2 layers, 2 nodes: 4 steps unbroken (saving at step 2;
+    its final checkpoint, which nothing reads, is not written) against 2 steps, a state restored with --resume from the step-2
     checkpoint in a fresh directory, and 2 more: losses, parameters,
     optimizer and the whole channel state bit for bit.  Then the resumed
     run's checkpoint restored without --flat-planes: parameters and
@@ -2241,7 +2293,14 @@ def phase_checkpoint_resume(torch):
             return out
         return wrapped
 
-    train.save_checkpoint = timed("save", save)
+    timed_save = timed("save", save)
+
+    def save_but_unbroken_final(directory, state, **kw):
+        if directory == a and int(state["step"]) == 4:
+            return os.path.join(directory, "step_00000004 (not written)")
+        return timed_save(directory, state, **kw)
+
+    train.save_checkpoint = save_but_unbroken_final
     train.restore_checkpoint = timed("restore", restore)
     try:
         ha, hb = {}, {}
@@ -2429,7 +2488,8 @@ def phase_dist_main_path(torch, flat):
     return {"res": res, "one": one}
 
 
-# phase 22: each configuration at 4 layers, 3 steps, in one spawned group
+# phase 22: each configuration at 4 layers, 2 steps (3 until PR 18: the
+# script's time limit), in one spawned group
 # (name, TrainConfig fields, what it is held to: the reference's
 # distributed-vs-oracle tolerance on the final parameters against the
 # stacked run, that tolerance over lr on the optimizer state; "finite"; or
@@ -2626,7 +2686,7 @@ def _dist_vs_stacked_rank(group, depth, steps):
 
 
 def phase_dist_vs_stacked(torch):
-    """At 4 layers, 3 steps, in one spawned group of 4 ranks through the
+    """At 4 layers, 2 steps, in one spawned group of 4 ranks through the
     library: each configuration of DIST_VS_STACKED on the distributed step,
     its final parameters and optimizer state gathered to rank 0 and held
     against the stacked step's (rank 0 runs it) at the reference's
@@ -2636,7 +2696,7 @@ def phase_dist_vs_stacked(torch):
     == its plain version, and delay 0 == undelayed for every algorithm."""
     from repro_torch.launch.mesh import run_ranks
 
-    depth, steps = 4, 3
+    depth, steps = 4, 2
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     lines = run_ranks(_dist_vs_stacked_rank, MAIN["nodes"], depth, steps,
@@ -2649,7 +2709,10 @@ def phase_dist_vs_stacked(torch):
         log(f"  {line}")
 
 
-# phase 23: checkpoint, resume and the drill at full width, 2 layers, 4 ranks
+# phase 23: checkpoint and resume at full width, 2 layers, on 2 ranks (4
+# until PR 18: the script's time limit; the checkpoint's I/O and the loopback
+# gossip scale with the ranks), and the drill on 4 ranks (4 -> 2)
+DIST_CKPT_RANKS = 2
 DIST_CKPT = ["--simulate-nodes", str(MAIN["nodes"]), "--arch", MAIN["arch"], "--depth", "2",
              "--seq-len", str(MAIN["seq_len"]), "--per-node-batch", str(MAIN["per_node_batch"]),
              "--algorithm", "decentlam-sa", "--gossip-delay", "1", "--flat-planes",
@@ -2766,12 +2829,12 @@ def _dist_resume_rank(group, root, argv):
 
 def phase_dist_checkpoint_resume(torch):
     """Phase 17's algorithm at delay 1 on planes, qwen3-0.6b at full width, 2
-    layers, 4 processes: 4 steps unbroken against 2 steps, a checkpoint
+    layers, 2 processes: 4 steps unbroken against 2 steps, a checkpoint
     (gathered to rank 0 and written), the trainer's resume (read on rank 0
     and scattered) and 2 more: losses, and every rank's parameters,
     optimizer and channel state (the ring and its count included) bit for
-    bit; GB, save and restore seconds.  Then --failure-drill 4 -> 2 over 3
-    steps: finite losses, and the survivors' state after the shrink ==
+    bit; GB, save and restore seconds.  Then, on 4 processes,
+    --failure-drill 4 -> 2 over 3 steps: finite losses, and the survivors' state after the shrink ==
     elastic_reshape of the gathered state bit for bit."""
     import shutil
 
@@ -2784,7 +2847,7 @@ def phase_dist_checkpoint_resume(torch):
     torch.cuda.empty_cache()
     t = time.perf_counter()
     try:
-        rep = run_ranks(_dist_resume_rank, MAIN["nodes"], root, DIST_CKPT + ["--steps", "4"],
+        rep = run_ranks(_dist_resume_rank, DIST_CKPT_RANKS, root, DIST_CKPT + ["--steps", "4"],
                         timeout_s=DIST_TIMEOUT_S)[0]
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -2792,7 +2855,7 @@ def phase_dist_checkpoint_resume(torch):
         raise RuntimeError(f"resumed losses {rep['losses_b']}, unbroken {rep['losses_a']}; "
                            f"tensors that differ per rank {rep['differ']}")
     chan = [k for k in rep["tensors"] if k.startswith("channel/")]
-    log(f"phase 23: 2 layers, {MAIN['nodes']} processes, decentlam-sa at delay 1 on planes: "
+    log(f"phase 23: 2 layers, {DIST_CKPT_RANKS} processes, decentlam-sa at delay 1 on planes: "
         f"unbroken {rep['losses_a']} == 2 steps, save, resume, 2 steps {rep['losses_b']}; "
         f"every rank's final state bit for bit in all {len(rep['tensors'])} tensors "
         f"({len(chan)} of the channel: {chan}); {time.perf_counter() - t:.1f} s")
@@ -2811,6 +2874,230 @@ def phase_dist_checkpoint_resume(torch):
         f"state == elastic_reshape of the gathered state bit for bit in {n_tensors} tensors, "
         f"the channel state re-initialized; {time.perf_counter() - t:.1f} s")
     shutil.rmtree(DIST_DIR, ignore_errors=True)
+
+# ---------------------------------------------------------------------------
+# The rest of the decoder zoo: MoE training, hybrid serving, the others (24-26)
+# ---------------------------------------------------------------------------
+
+# phase 24: granite-moe-1b-a400m at full width, cut to 12 of its 24 layers so
+# that 4 stacked nodes fit on the card
+MOE = dict(arch="granite-moe-1b-a400m", depth=12)
+# its reckoned peak: phase 3 held 4 x 663,548,416 parameter-nodes in 49.50 GiB
+# (~20 B each); 4 x 742,816,768 of them take ~55 GiB, plus the MoE activations
+MOE_PEAK_GIB = 55.4
+MOE_SPANS = ("moe_router", "moe_dispatch", "moe_experts", "moe_combine")
+# phase 25: hymba-1.5b serving at full width and depth
+HYBRID_ARCH = "hymba-1.5b"
+# phase 26: the rest of the zoo at full width, cut to 4 layers
+ZOO_TRAIN = ("olmo-1b", "internvl2-2b", "granite-moe-3b-a800m", "xlstm-350m")
+ZOO_SERVE = "qwen3-8b"
+ZOO_DEPTH = 4
+
+
+def _moe_matmul_flops_per_step(cfg, n_nodes) -> float:
+    """Forward + backward matmul FLOPs of one MoE step: the attention
+    projections, the router, the expert products over every capacity slot
+    (E x C rows, empty ones included, as they run), the lm_head, and
+    attention's two S x S products; the backward is twice the forward."""
+    from repro_torch.models.moe import moe_capacity
+
+    d, hd, h, kv, f, E = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff, cfg.n_experts
+    b, s = MAIN["per_node_batch"], MAIN["seq_len"]
+    T = b * s
+    C = moe_capacity(cfg, T)
+    mult = 3 if cfg.gated_mlp else 2
+    per_layer = (2 * T * (d * h * hd * 2 + d * kv * hd * 2 + d * E) + 2 * E * C * mult * d * f
+                 + 2 * 2 * b * h * s * s * hd)
+    fwd = cfg.n_layers * per_layer + 2 * T * d * cfg.vocab_size
+    return 3.0 * fwd * n_nodes
+
+
+def _finite_run(res, what, moe=False):
+    import math
+
+    keys = ("losses", "xent", "moe_load_balance", "moe_router_z") if moe else ("losses",)
+    for k in keys:
+        if not all(math.isfinite(v) for v in res[k]):
+            raise RuntimeError(f"{what}: non-finite {k} {res[k]}")
+
+
+def _moe_layer_no_sync(torch, cfg):
+    """One MoE layer's forward and backward at the main path's shape (one
+    node's 4 x 256 tokens) with CUDA's sync debug mode at "error": the
+    routing, dispatch and combine never wait on the host, so the step's
+    launches queue ahead of the device."""
+    from repro_torch.models.layers import Initializer
+    from repro_torch.models.moe import moe_forward, moe_init
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    params = {k: v.requires_grad_() for k, v in moe_init(Initializer(gen), cfg).items()}
+    x = torch.randn(MAIN["per_node_batch"], MAIN["seq_len"], cfg.d_model, device="cuda",
+                    generator=gen, requires_grad=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, aux = moe_forward(x, params, cfg)
+        loss = out.square().mean() + aux["moe_load_balance"] + aux["moe_router_z"]
+        torch.autograd.grad(loss, [x, *params.values()])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(f"phase 24: one {cfg.name} MoE layer forward + backward at {tuple(x.shape)} ran "
+        "with no host sync (CUDA sync debug mode \"error\")")
+
+
+def phase_moe_main_path(torch):
+    """The MoE training main path: first one MoE layer with no host sync
+    (:func:`_moe_layer_no_sync`); then granite-moe-1b-a400m at full width, 12
+    of its 24 layers, 4 stacked nodes, decentlam on flat planes through the
+    stage kernel, profiled as phase 3: finite losses and router terms,
+    exactly 2 stage launches per step; step time, device busy, peak memory
+    against the reckoning, the forward's time in the MoE layer's spans, and
+    the two plane stages at its plane beside their bound.  Then at 4 layers,
+    3 steps: the kernel (``--fused-impl triton``) and its plain version
+    (``torch``) give the same losses and final state bit for bit, and so do
+    two identical kernel runs (the combine is deterministic)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    cfg = dataclasses.replace(get_config(MOE["arch"]), n_layers=MOE["depth"])
+    _moe_layer_no_sync(torch, cfg)
+    res, launches, total, events, step_ms = _profiled_train(
+        torch, ["--flat-planes"], arch=MOE["arch"], depth=MOE["depth"])
+    steps = len(res["losses"])
+    _finite_run(res, "the MoE main path", moe=True)
+    if total != 2 * steps or launches != {op: steps for op in STAGE_FLOPS}:
+        raise RuntimeError(f"MoE main path: fused_update launched {total} times ({launches}), "
+                           f"want 2 x {steps}: one per bucket and stage")
+    peak = res["peak_mem_bytes"] / 2**30
+    tokens = MAIN["nodes"] * MAIN["per_node_batch"] * MAIN["seq_len"]
+    log(f"phase 24: {MOE['arch']} full width, {cfg.n_layers} of 24 layers "
+        f"({res['params_per_node']:,} params/node; {cfg.n_experts} experts, top-{cfg.top_k}) "
+        f"x {res['n_nodes']} nodes, flat planes, {steps} steps: losses "
+        f"{[round(v, 4) for v in res['losses']]}, xent {[round(v, 4) for v in res['xent']]}, "
+        f"load balance {[round(v, 4) for v in res['moe_load_balance']]}, router z "
+        f"{[round(v, 3) for v in res['moe_router_z']]}; fused_update launches {total} "
+        f"(= 2 x {steps}: {launches})")
+    log(f"  step {step_ms:.1f} ms (mean of the unprofiled steps 1..{MAIN['steps'] - 1}), "
+        f"{tokens / step_ms * 1e3:.0f} tokens/s, peak memory {peak:.2f} GiB (reckoned "
+        f"~{MOE_PEAK_GIB} GiB), step times {[round(t, 4) for t in res['step_times_s']]}")
+    prof = _profile_report(torch, events, step_ms, 1e3 * sum(res["step_times_s"][-2:]) / 2,
+                           flops=_moe_matmul_flops_per_step(cfg, MAIN["nodes"]))
+    for span in MOE_SPANS:
+        ms = _span_report(torch, events, span, "the forward, per step", 2)
+        if ms is not None:
+            log(f"    {span}: {ms / prof['busy_ms']:.1%} of the step's device time")
+    del events
+    torch.cuda.empty_cache()
+    plane = phase_plane_timing(torch, cfg=cfg)
+    fmt = lambda v: "null" if v is None else f"{v:.3f} ms"
+    for op, p in plane.items():
+        log(f"  plane {op} on {p['shape']} f32: kernel {p['ms']:.3f} ms, bound "
+            f"{p['bound_ms']:.3f} ms by {p['bound_by']} ({p['bytes'] / 1e9:.2f} GB; "
+            f"{p['bound_ms'] / p['ms']:.1%} of it), plain version {p['plain_ms']:.3f} ms, "
+            f"library {fmt(p['library_ms'])}, max |kernel - plain| {p['err']:.3g}")
+
+    depth, n3 = 4, 3
+    runs = {}
+    for tag, impl in (("triton", "triton"), ("triton, again", "triton"), ("torch", "torch")):
+        holder: dict = {}
+        r = train.main(_train_argv(n3, impl, depth, MOE["arch"]) + ["--flat-planes"],
+                       on_step=_last_state(holder))
+        _finite_run(r, f"{MOE['arch']} at {depth} layers, {tag}", moe=True)
+        st = holder.pop("state")
+        runs[tag] = ({k: r[k] for k in ("losses", "xent", "moe_load_balance", "moe_router_z")},
+                     {**{f"x/{k}": p for k, p in st["planes"].items()},
+                      **{f"m/{k}": p for k, p in st["opt"]["m"].items()}})
+        del st, holder
+        torch.cuda.empty_cache()
+    (base_metrics, base_state) = runs["triton"]
+    for tag in ("triton, again", "torch"):
+        metrics, state = runs[tag]
+        same = metrics == base_metrics and sorted(state) == sorted(base_state) and all(
+            _same_bits(torch, state[k], base_state[k]) for k in state)
+        if not same:
+            raise RuntimeError(f"{MOE['arch']} at {depth} layers: the {tag} run differs from "
+                               f"the kernel run: {metrics} vs {base_metrics}")
+    log(f"  {depth} layers, {n3} steps on planes: losses {base_metrics['losses']}; the plain "
+        f"stage (--fused-impl torch) and a second kernel run equal the kernel run bit for bit "
+        f"(losses, xent, router terms, final parameter and momentum planes)")
+    del runs, base_state
+    torch.cuda.empty_cache()
+    return {"launches": launches, "plane": plane, "step_ms": step_ms, "peak": peak,
+            "busy_ms": prof["busy_ms"]}
+
+
+def phase_hybrid_serve_main_path(torch):
+    """The hybrid serving main path: hymba-1.5b at full width and depth (32
+    layers: sliding window 1024 on 29, full attention on layers 0, 16 and
+    31) behind the engine with the flash kernel, the 16 requests of SERVE:
+    every request completes, exactly 32 launches per prefill wave; prefill,
+    decode, tokens/s, peak memory and the SSM branch's share of the device
+    time.  Then at 4 layers (global layers cut to those below 4: layer 0),
+    the kernel path against the plain path as in phase 8."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_launch, reset_launches
+
+    cfg = get_config(HYBRID_ARCH)
+    windows = [cfg.window_for_layer(i) for i in range(cfg.n_layers)]
+    log(f"phase 25: {HYBRID_ARCH}: {cfg.n_heads}/{cfg.n_kv_heads} heads at hd {cfg.hd}, "
+        f"window {cfg.sliding_window} on {sum(w > 0 for w in windows)} layers, full attention "
+        f"on layers {[i for i, w in enumerate(windows) if w == 0]}; SSM d_inner {cfg.d_ssm}, "
+        f"state {cfg.ssm_state}")
+
+    def share(events, steps, what):
+        _, busy = _device_kernels(torch, events)
+        ms = _span_report(torch, events, "ssm_forward", what, steps)
+        if ms is not None:
+            log(f"    the SSM branch: {ms * steps / busy:.1%} of the device time")
+
+    launches = _serve_main_path(
+        torch, cfg, 25, flash_attention_launch, reset_launches, cfg.n_layers,
+        lambda ev: share(ev, 1, "the SSM branch of every layer, one prefill wave"),
+        lambda ev: share(ev, 2, "the SSM branch of every layer, per decode step"),
+        attn_impl="cuda")
+    _serve_kernel_vs_plain(torch, 25, HYBRID_ARCH, 4, "attn_impl", flash_attention_launch,
+                           reset_launches, 4, "full width, 4 layers (global layers cut to "
+                           "layer 0)")
+    return launches
+
+
+def phase_zoo(torch):
+    """The rest of the zoo at full width, cut to 4 layers: 3 training steps of
+    4 stacked nodes on planes through the stage kernel for olmo-1b,
+    internvl2-2b, granite-moe-3b-a800m and xlstm-350m (finite losses, 2
+    launches per step); qwen3-8b serving with the flash kernel at hd 128
+    against the plain path, as in phase 8."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_launch
+    from repro_torch.kernels.flash_attention.kernel import reset_launches as reset_flash
+    from repro_torch.kernels.fused_update.kernel import fused_stage_launch, reset_launches
+    from repro_torch.launch import train
+
+    n3 = 3
+    for arch in ZOO_TRAIN:
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = train.main(_train_argv(n3, "triton", ZOO_DEPTH, arch) + ["--flat-planes"])
+        wall = time.perf_counter() - t0
+        moe = "moe" in arch
+        _finite_run(res, f"{arch} at {ZOO_DEPTH} layers", moe=moe)
+        total = fused_stage_launch.launches
+        if total != 2 * n3:
+            raise RuntimeError(f"{arch}: fused_update launched {total} times, want 2 x {n3}")
+        log(f"phase 26: {arch} full width, {ZOO_DEPTH} layers ({res['params_per_node']:,} "
+            f"params/node) x {res['n_nodes']} nodes, flat planes, {n3} steps: losses "
+            f"{[round(v, 4) for v in res['losses']]}"
+            + (f", load balance {[round(v, 4) for v in res['moe_load_balance']]}" if moe
+               else "")
+            + f"; fused_update launches {total}; step {res['step_s'] * 1e3:.1f} ms, peak "
+            f"{res['peak_mem_bytes'] / 2**30:.2f} GiB; {wall:.1f}s")
+        del res
+        torch.cuda.empty_cache()
+    _serve_kernel_vs_plain(torch, 26, ZOO_SERVE, ZOO_DEPTH, "attn_impl", flash_attention_launch,
+                           reset_flash, ZOO_DEPTH, f"full width, {ZOO_DEPTH} layers (hd 128)")
 
 
 def main() -> int:
@@ -2873,6 +3160,9 @@ def main() -> int:
     timed("21 distributed train main path", phase_dist_main_path, flat)
     timed("22 distributed vs stacked", phase_dist_vs_stacked)
     timed("23 distributed checkpoint, resume, drill", phase_dist_checkpoint_resume)
+    moe = timed("24 MoE train main path", phase_moe_main_path)
+    hy_launches = timed("25 hybrid serve main path", phase_hybrid_serve_main_path)
+    timed("26 the rest of the zoo", phase_zoo)
     log(f"phase times (s): {phases}; total {time.perf_counter() - t0:.1f}s")
     # one record per specialization of the Triton kernel on the training main
     # path (times per step, summed over the 14 leaves), and the flash and
@@ -2920,6 +3210,22 @@ def main() -> int:
         "bound_by": sa["bound_by"],
         "library_ms": sa["library_ms"],
     })
+    # the MoE main path's plane stages (phase 24): granite-moe-1b-a400m, 12
+    # layers, 4 nodes
+    records += [{
+        "name": f"fused_update[{MOE['arch']} plane {op}]",
+        "route": "triton",
+        "source": "src/repro_torch/kernels/fused_update/_triton.py",
+        "replaces": "src/repro/kernels/fused_update/kernel.py:66",
+        "launches": moe["launches"][op],
+        "max_abs_err": rec["err"],
+        "ms": rec["ms"],
+        "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"],
+        "library_ms": rec["library_ms"],
+    } for op, rec in moe["plane"].items()]
+    fa, hy = fa["qwen3-0.6b prefill"], fa["hymba-1.5b prefill"]
     records.append({
         "name": "flash_attention[causal, f32, hd 64]",
         "route": "cuda",
@@ -2945,6 +3251,21 @@ def main() -> int:
         "bound_ms": ml["bound_ms"],
         "bound_by": ml["bound_by"],
         "library_ms": ml["library_ms"],
+    })
+    # the hybrid serve main path (phase 25): every layer's launch counts; the
+    # time is at its sliding-window layers' prefill shape (phase 9)
+    records.append({
+        "name": "flash_attention[hymba-1.5b prefill: causal, window 1024, f32, hd 64, 25/5 heads]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:99",
+        "launches": hy_launches,
+        "max_abs_err": hy["err"],
+        "ms": hy["ms"],
+        "plain_ms": hy["plain_ms"],
+        "bound_ms": hy["bound_ms"],
+        "bound_by": hy["bound_by"],
+        "library_ms": hy["library_ms"],
     })
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,35 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-The port carries the architectures its slices run; the JAX package's
-registry (``repro.configs``) holds the rest of the zoo.
+The port carries the decoder-only architectures of the JAX package's
+registry (``repro.configs``); its encoder-decoder (whisper-tiny) comes with
+a later slice.
 """
 
 from __future__ import annotations
 
-from . import h2o_danube_1p8b, qwen3_0p6b, xlstm_350m
+from . import (
+    granite_moe_1b_a400m,
+    granite_moe_3b_a800m,
+    h2o_danube_1p8b,
+    hymba_1p5b,
+    internvl2_2b,
+    olmo_1b,
+    qwen3_0p6b,
+    qwen3_8b,
+    xlstm_350m,
+)
 from .base import ModelConfig, pad_to
 
 _MODULES = {
-    "h2o-danube-1.8b": h2o_danube_1p8b,
-    "qwen3-0.6b": qwen3_0p6b,
     "xlstm-350m": xlstm_350m,
+    "hymba-1.5b": hymba_1p5b,
+    "h2o-danube-1.8b": h2o_danube_1p8b,
+    "qwen3-8b": qwen3_8b,
+    "olmo-1b": olmo_1b,
+    "qwen3-0.6b": qwen3_0p6b,
+    "granite-moe-3b-a800m": granite_moe_3b_a800m,
+    "granite-moe-1b-a400m": granite_moe_1b_a400m,
+    "internvl2-2b": internvl2_2b,
 }
 
 ARCHS: dict[str, ModelConfig] = {k: m.CONFIG for k, m in _MODULES.items()}

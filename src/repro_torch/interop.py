@@ -4,7 +4,8 @@ Parameter, optimizer-state, channel-state and serve-cache trees have the
 same nested dict paths and the same leaf shapes in both packages (``repro``
 stacks the node axis and the layer axis where the port does), so conversion
 is leaf for leaf; integer leaves (a cache's int32 ``pos``) keep their dtype
-both ways.  Trees come in as numpy arrays (``jax.device_get`` of a JAX tree
+both ways, and an empty subtree (olmo's parameter-free norms, ``{}``) stays
+an empty subtree.  Trees come in as numpy arrays (``jax.device_get`` of a JAX tree
 gives them); nothing here imports jax.  bfloat16 leaves travel as their
 bits.  The two packages' RNGs never agree, so tests move a JAX-built
 initial state into the port with :func:`from_numpy` and compare results

@@ -57,6 +57,12 @@ Examples::
         --arch qwen3-0.6b --steps 5 --seq-len 256 --per-node-batch 4 --fused-update \\
         --flat-planes
 
+    # granite-moe-1b-a400m (32 experts, top-8) cut to 12 of its 24 layers, on
+    # planes; the log line adds the cross entropy and the router terms
+    PYTHONPATH=src python -m repro_torch.launch.train --nodes 4 \\
+        --arch granite-moe-1b-a400m --depth 12 --steps 5 --seq-len 256 \\
+        --per-node-batch 4 --fused-update --fused-impl triton --flat-planes
+
     # tiny LM on the host CPU (the kernel's plain version), int8 gossip with
     # error feedback, checkpointed every 2 steps; then resumed to step 6
     PYTHONPATH=src python -m repro_torch.launch.train --nodes 4 --preset tiny \\
@@ -263,6 +269,22 @@ def resume_state(ckpt_dir: str, cfg, channel, layout, flat_planes: bool, n_nodes
     return state
 
 
+# the model's metrics per step, beside the loss (the mean over nodes of each
+# node's total): the cross entropy and the MoE router terms
+MODEL_METRICS = ("xent", "moe_load_balance", "moe_router_z")
+
+
+def _model_metrics(cfg, metrics: dict, lists: dict) -> str:
+    """Append this step's model metrics to ``lists``; the log line's part
+    for them (the router terms of a MoE model)."""
+    for k, v in lists.items():
+        v.append(float(metrics[k]))
+    if not cfg.moe:
+        return ""
+    return (f" xent {lists['xent'][-1]:.4f} lb {lists['moe_load_balance'][-1]:.4f} "
+            f"z {lists['moe_router_z'][-1]:.4f}")
+
+
 def _model_config(args):
     cfg = get_config(args.arch, smoke=args.smoke) if args.arch else tiny_lm()
     if args.depth:
@@ -372,6 +394,7 @@ def main(argv=None, *, on_step=None, serve_runtime=None, on_serve=None,
                                plane_layout=layout if args.flat_planes else None)
 
     losses, lrs, gaps, consensus, step_times = [], [], [], [], []
+    model_metrics = {k: [] for k in MODEL_METRICS}
     skipped_steps, saved = 0, False
     t0 = time.perf_counter()
     batches = prefetch_to_device(lambda k: data.batch(start + k), device,
@@ -399,7 +422,8 @@ def main(argv=None, *, on_step=None, serve_runtime=None, on_serve=None,
         losses.append(loss)
         lrs.append(float(metrics["lr"]))
         gaps.append(metrics["gossip_gap"])
-        msg = f"step {step:5d} loss {loss:.4f} lr {lrs[-1]:.2e}"
+        msg = f"step {step:5d} loss {loss:.4f} lr {lrs[-1]:.2e}" + _model_metrics(
+            cfg, metrics, model_metrics)
         if args.track_consensus:
             consensus.append(float(metrics["consensus_sq"]))
             msg += f" consensus {consensus[-1]:.3e}"
@@ -428,6 +452,7 @@ def main(argv=None, *, on_step=None, serve_runtime=None, on_serve=None,
         "device": torch.cuda.get_device_name(device) if cuda else "cpu",
         "start_step": start,
         "losses": losses,
+        **model_metrics,
         "lrs": lrs,
         "gossip_gaps": gaps,
         "step_times_s": step_times,
@@ -569,6 +594,7 @@ def rank_main(group, argv, on_step=None, on_shrink=None) -> dict:
 
     data = data_of(group.world)
     losses, lrs, gaps, consensus, step_times, card_used = [], [], [], [], [], []
+    model_metrics = {k: [] for k in MODEL_METRICS}
     skipped_steps, saved, drill, shrunk = 0, False, None, None
     t0 = time.perf_counter()
     for step in range(start, args.steps):
@@ -595,7 +621,8 @@ def rank_main(group, argv, on_step=None, on_shrink=None) -> dict:
         losses.append(loss)
         lrs.append(float(metrics["lr"]))
         gaps.append(metrics["gossip_gap"])
-        msg = f"step {step:5d} loss {loss:.4f} lr {lrs[-1]:.2e}"
+        msg = f"step {step:5d} loss {loss:.4f} lr {lrs[-1]:.2e}" + _model_metrics(
+            cfg, metrics, model_metrics)
         if args.track_consensus:
             consensus.append(float(metrics["consensus_sq"]))
             msg += f" consensus {consensus[-1]:.3e}"
@@ -655,6 +682,7 @@ def rank_main(group, argv, on_step=None, on_shrink=None) -> dict:
         "device": torch.cuda.get_device_name(device) if cuda else "cpu",
         "start_step": start,
         "losses": losses,
+        **model_metrics,
         "lrs": lrs,
         "gossip_gaps": gaps,
         "step_times_s": step_times,

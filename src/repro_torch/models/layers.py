@@ -1,5 +1,5 @@
-"""Shared layers of the dense decoder LM (the port of ``repro.models.layers``
-at tensor-parallel degree 1).
+"""Shared layers of the decoder LMs (the port of ``repro.models.layers`` at
+tensor-parallel degree 1).
 
 Parameters are plain nested dicts of tensors with the JAX package's paths
 and layouts: a linear weight is ``(d_in, d_out)`` and is applied as
@@ -20,6 +20,7 @@ Tree = Any
 __all__ = [
     "Initializer",
     "rms_norm",
+    "layer_norm",
     "norm_init",
     "norm_apply",
     "rope_freqs",
@@ -69,16 +70,38 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor | None, eps: float = 1e-6) -> 
     return x.to(dt)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor | None, bias: torch.Tensor | None,
+               eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    if scale is not None:
+        x = x * (1.0 + scale.to(torch.float32))
+    if bias is not None:
+        x = x + bias.to(torch.float32)
+    return x.to(dt)
+
+
 def norm_init(init: Initializer, norm_type: str, d: int) -> Tree:
     if norm_type == "rmsnorm":
         return {"scale": init.zeros((d,))}
-    raise NotImplementedError(f"norm {norm_type!r} is not ported yet (rmsnorm only)")
+    if norm_type == "layernorm":
+        return {"scale": init.zeros((d,)), "bias": init.zeros((d,))}
+    if norm_type == "nonparametric_ln":  # OLMo: no affine params, an empty subtree
+        return {}
+    raise ValueError(norm_type)
 
 
 def norm_apply(x: torch.Tensor, params: Tree, norm_type: str) -> torch.Tensor:
     if norm_type == "rmsnorm":
         return rms_norm(x, params["scale"])
-    raise NotImplementedError(f"norm {norm_type!r} is not ported yet (rmsnorm only)")
+    if norm_type == "layernorm":
+        return layer_norm(x, params["scale"], params["bias"])
+    if norm_type == "nonparametric_ln":
+        return layer_norm(x, None, None)
+    raise ValueError(norm_type)
 
 
 # ---------------------------------------------------------------------------
@@ -112,7 +135,13 @@ def linear_init(init: Initializer, d_in: int, d_out: int, *, scale: float | None
     return init.normal((d_in, d_out), s)
 
 
-_ACTS = {"silu": F.silu}  # the ported configs' activation
+_ACTS = {
+    "silu": F.silu,
+    # jax.nn.gelu's default is the tanh approximation
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+    "relu2": lambda x: torch.square(F.relu(x)),
+}
 
 
 def mlp_init(init: Initializer, d: int, f: int, gated: bool) -> Tree:
@@ -126,8 +155,6 @@ def mlp_init(init: Initializer, d: int, f: int, gated: bool) -> Tree:
 
 
 def mlp_apply(x: torch.Tensor, params: Tree, act: str) -> torch.Tensor:
-    if act not in _ACTS:
-        raise NotImplementedError(f"activation {act!r} is not ported yet (silu only)")
     dt = x.dtype
     h = x @ params["w_in"].to(dt)
     if "w_gate" in params:

@@ -2,9 +2,10 @@
 
 Per step:
 
-1. each node's gradient of ``forward_loss`` over its batch shard, computed
-   node by node so that only one node's activations are alive at a time,
-   written into slot ``i`` of the stacked gradient tree;
+1. each node's gradient of ``forward_loss``'s total (the cross entropy
+   plus the MoE router terms) over its batch shard, computed node by node
+   so that only one node's activations are alive at a time, written into
+   slot ``i`` of the stacked gradient tree;
 2. the finite guard: a node whose gradient norm is non-finite has its
    gradient zeroed before the update (its payload stays finite, so its
    neighbours keep mixing clean iterates) and its optimizer state restored
@@ -145,8 +146,10 @@ def _node_grads(params: Tree, batch: dict, cfg: ModelConfig, n_nodes: int, out=N
     gradient tree (``out``'s leaves where given: the views of a gradient
     plane).  With ``accum`` > 1 each node's rows split into ``accum``
     microbatches, and the gradient and the loss accumulate ``g += g_j /
-    accum`` in f32 from zeros, as the reference's scan does.  Returns
-    ``(grads, losses (n,))``."""
+    accum`` in f32 from zeros, as the reference's scan does, and each model
+    metric (``xent`` and the MoE router terms) is the mean over the
+    microbatches.  Returns ``(grads, per-node values)``: ``{"loss": (n,)}``,
+    each node's total, and ``{metric: (n,)}``."""
     leaves = tree_leaves(params)
     g_leaves = (tree_leaves(out) if out is not None else
                 [torch.empty(p.shape, dtype=torch.float32, device=p.device) for p in leaves])
@@ -154,15 +157,17 @@ def _node_grads(params: Tree, batch: dict, cfg: ModelConfig, n_nodes: int, out=N
     if b % accum:
         raise ValueError(f"{b} rows per node do not split into {accum} microbatches")
     mb = b // accum
-    losses = []
+    losses, node_metrics = [], []
     for i in range(n_nodes):
         leaves_i = [p[i].detach().requires_grad_() for p in leaves]
         params_i = tree_unflatten(params, leaves_i)
         loss_i = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        micro = []
         for j in range(accum):
             lo = i * b + j * mb
             batch_j = {k: v[lo:lo + mb] for k, v in batch.items()}
-            loss, _ = T.forward_loss(params_i, batch_j, cfg, rt)
+            loss, metrics = T.forward_loss(params_i, batch_j, cfg, rt)
+            micro.append({k: v.detach() for k, v in metrics.items()})
             grads = torch.autograd.grad(loss, leaves_i)
             if accum == 1:
                 for gl, gi in zip(g_leaves, grads):
@@ -177,7 +182,11 @@ def _node_grads(params: Tree, batch: dict, cfg: ModelConfig, n_nodes: int, out=N
             loss_i = loss_i + loss.detach().to(torch.float32) / accum
             del grads
         losses.append(loss_i)
-    return tree_unflatten(params, g_leaves), torch.stack(losses)
+        node_metrics.append(micro[0] if accum == 1 else
+                            {k: torch.mean(torch.stack([m[k] for m in micro]))
+                             for k in micro[0]})
+    per_node = {k: torch.stack([m[k] for m in node_metrics]) for k in node_metrics[0]}
+    return tree_unflatten(params, g_leaves), {"loss": torch.stack(losses), **per_node}
 
 
 def _consensus_sq(x: Tree, n_nodes: int) -> torch.Tensor:
@@ -213,8 +222,11 @@ class _Stacked:
     def rows(self, batch: dict) -> dict:
         return batch
 
-    def reduce(self, losses, skipped: int, gaps):
-        return torch.mean(losses), float(skipped), float(torch.as_tensor(gaps).max())
+    def reduce(self, per_node: dict, skipped: int, gaps):
+        """The mean over nodes of each per-node value, the skip count and
+        the fleet's largest gap."""
+        return ({k: torch.mean(v) for k, v in per_node.items()}, float(skipped),
+                float(torch.as_tensor(gaps).max()))
 
     def consensus(self, x: Tree) -> torch.Tensor:
         return _consensus_sq(x, self.n)
@@ -233,14 +245,16 @@ class _Ranks:
         lo = self.group.rank * b
         return {k: v[lo:lo + b] for k, v in batch.items()}
 
-    def reduce(self, losses, skipped: int, gaps):
+    def reduce(self, per_node: dict, skipped: int, gaps):
         dev, pg = self.group.comm_device, self.group.pg
-        sums = torch.stack([losses.sum().to(device=dev, dtype=torch.float32),
-                            torch.tensor(float(skipped), device=dev)])
+        names = sorted(per_node)
+        sums = torch.stack([per_node[k].sum().to(device=dev, dtype=torch.float32)
+                            for k in names] + [torch.tensor(float(skipped), device=dev)])
         gap = torch.as_tensor(gaps, dtype=torch.float32).max().reshape(1).to(dev)
         dist.all_reduce(sums, group=pg)
         dist.all_reduce(gap, op=dist.ReduceOp.MAX, group=pg)
-        return sums[0] / self.n, float(sums[1]), float(gap[0])
+        return ({k: sums[j] / self.n for j, k in enumerate(names)}, float(sums[-1]),
+                float(gap[0]))
 
     def consensus(self, x: Tree) -> torch.Tensor:
         """``repro``'s ``_consensus_metric``: per leaf the mean over the
@@ -291,11 +305,12 @@ def _step_fn(cfg: ModelConfig, tcfg: TrainConfig, fleet, channel: GossipChannel,
             g_planes = {k: torch.empty(p.shape, dtype=torch.float32, device=dev)
                         for k, p in planes.items()}
             layout.zero_pads(g_planes, leading=1)
-            grads, losses = _node_grads(params, batch, cfg, n_local,
-                                        layout.view_unpack(g_planes, leading=1), rt,
-                                        tcfg.grad_accum)
+            grads, per_node = _node_grads(params, batch, cfg, n_local,
+                                          layout.view_unpack(g_planes, leading=1), rt,
+                                          tcfg.grad_accum)
         else:
-            grads, losses = _node_grads(params, batch, cfg, n_local, None, rt, tcfg.grad_accum)
+            grads, per_node = _node_grads(params, batch, cfg, n_local, None, rt,
+                                          tcfg.grad_accum)
 
         bad, saved = None, None
         if tcfg.finite_guard:
@@ -343,10 +358,12 @@ def _step_fn(cfg: ModelConfig, tcfg: TrainConfig, fleet, channel: GossipChannel,
                 for k, v in new_opt.items()
             }
 
-        loss, skipped, gap = fleet.reduce(losses, 0 if bad is None else bad.numel(),
-                                          channel.node_gaps(comp))
+        means, skipped, gap = fleet.reduce(per_node, 0 if bad is None else bad.numel(),
+                                           channel.node_gaps(comp))
         metrics = {
-            "loss": loss,
+            # the mean over nodes of each node's total (cross entropy plus
+            # the MoE router terms) as "loss", and of xent and the router terms
+            **means,
             "lr": lr,
             "skipped_nonfinite": skipped,
             # fleet-worst incident gossip gap of this round (0 on undelayed

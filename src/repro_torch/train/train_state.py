@@ -43,7 +43,7 @@ from ..core.gossip import GossipChannel
 from ..core.optimizers import Optimizer
 from ..core.planes import PlaneLayout
 from ..models import transformer as T
-from ..utils import tree_leaves, tree_map, tree_paths
+from ..utils import tree_leaves, tree_map, tree_paths, tree_unflatten
 
 Tree = Any
 
@@ -115,9 +115,25 @@ def _merge_channel(abstract: Tree, old: Tree, device) -> Tree:
                        device=device if abstract.device.type == "meta" else abstract.device)
 
 
+def _restructured(template: Tree, tree: Tree) -> Tree | None:
+    """``tree``'s leaves in ``template``'s structure when both have the same
+    leaf paths — which restores the empty subtrees (olmo's parameter-free
+    norms, ``{}``) that a checkpoint does not store; else None."""
+    if not isinstance(tree, dict) or tree_paths(tree) != tree_paths(template):
+        return None
+    if tree_map(lambda _: 0, tree) == tree_map(lambda _: 0, template):
+        return tree  # the same structure already: the tree itself
+    return tree_unflatten(template, tree_leaves(tree))
+
+
+def _as_template(template: Tree, tree: Tree) -> Tree:
+    """:func:`_restructured`, or ``tree`` itself where the paths differ."""
+    out = _restructured(template, tree)
+    return tree if out is None else out
+
+
 def _subtree_matches(abstract: Tree, old: Tree) -> bool:
-    if not isinstance(old, dict) or tree_map(lambda _: 0, abstract) != tree_map(lambda _: 0,
-                                                                                 old):
+    if _restructured(abstract, old) is None:
         return False
     return all(isinstance(o, torch.Tensor) and o.shape == a.shape and o.dtype == a.dtype
                for a, o in zip(tree_leaves(abstract), tree_leaves(old)))
@@ -166,7 +182,8 @@ def ensure_channel_state(state: Tree, channel: GossipChannel | None,
             merged[key] = {}
             for slot_key, abs_slot in abs_v.items():
                 old_slot = old_v.get(slot_key) if isinstance(old_v, dict) else None
-                merged[key][slot_key] = (old_slot if _subtree_matches(abs_slot, old_slot)
+                merged[key][slot_key] = (_restructured(abs_slot, old_slot)
+                                         if _subtree_matches(abs_slot, old_slot)
                                          else _merge_channel(abs_slot, None, device))
         elif key == "t" and isinstance(old_v, dict):
             per_node = {k: v[0] if isinstance(v, torch.Tensor) and v.ndim == 1
@@ -191,8 +208,11 @@ def reconcile_plane_state(state: Tree, plane_layout: PlaneLayout, flat_planes: b
     of them, as :func:`init_train_state` lays them out; without, a state
     that holds planes keeps its parameters as plain tensors.  The channel
     state is not converted (its structure is transport-internal):
-    :func:`ensure_channel_state` re-initializes it across formats."""
+    :func:`ensure_channel_state` re-initializes it across formats.  Tree-form
+    parameters and optimizer buckets take the layout template's structure
+    back, empty subtrees included (a checkpoint stores none)."""
     buckets = set(plane_layout.segments)
+    template = plane_layout.template
     new_opt: Tree = {}
     for k, v in state.get("opt", {}).items():
         is_plane = isinstance(v, dict) and set(v) == buckets
@@ -201,15 +221,17 @@ def reconcile_plane_state(state: Tree, plane_layout: PlaneLayout, flat_planes: b
         elif not flat_planes and is_plane:
             new_opt[k] = plane_layout.unpack(v, dtype=torch.float32, leading=1)
         else:
-            new_opt[k] = v
+            new_opt[k] = v if is_plane else _as_template(template, v)
     new = {k: v for k, v in state.items() if k != "planes"}
     new["opt"] = new_opt
     if flat_planes:
         planes = plane_layout.pack(state["params"], leading=1)
         new["planes"] = planes
         new["params"] = plane_layout.view_unpack(planes, leading=1)
-    elif "planes" in state:
-        new["params"] = tree_map(lambda x: x.clone(), state["params"])
+    else:
+        params = _as_template(template, state["params"])
+        new["params"] = (tree_map(lambda x: x.clone(), params) if "planes" in state
+                         else params)
     return new
 
 
