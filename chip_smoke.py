@@ -165,11 +165,32 @@ result line):
     planes through the stage kernel (4 stacked nodes, 2 launches per step,
     finite losses) for olmo-1b, internvl2-2b, granite-moe-3b-a800m and
     xlstm-350m; qwen3-8b serving with the flash kernel at hd 128 against
-    the plain path as in phase 8.
+    the plain path as in phase 8;
+27. whisper-tiny (the encoder-decoder) at full width and depth (4 + 4
+    layers, d 384, 1500 encoder frames; its CLI and engine refuse it, as the
+    reference's do, so it runs through the train-step API and prefill +
+    decode_step): 3 training steps of 4 stacked nodes on flat planes with
+    seeded ``enc_frames``, exactly 2 stage launches per step, the plain
+    stage == the kernel bit for bit; 8 requests of 224 prompt tokens and 32
+    new with the flash kernel, exactly 12 launches per prefill wave (the
+    encoder's 4 non-causal, the decoder's 4 causal and 4 cross-attention at
+    Sk 1500), token for token against the plain path; the stage kernel at
+    its plane beside its bound;
+28. ResNet-20 through ``run_stacked``: 4 nodes of DecentLaM, 128 seeded
+    images each, 20 steps: the loss falls, the run equals its repeat bit
+    for bit (deterministic cuDNN, TF32 off);
+29. the paper's bias experiments on the card (App. G.2 linear regression,
+    the reference tests' bounds for Fig. 2, Props. 1-3 and the gamma^2
+    scaling) and the simulator's bitwise claims (event engine ==
+    run_stacked for every algorithm; vectorized == per-node on
+    straggler_1slow).
 
-The line before the last is the per-kernel JSON record (the stage kernel on
-the per-leaf, plane, staleness and MoE paths; flash on the qwen3-0.6b and
-hymba-1.5b serve paths; mLSTM on xlstm-350m's); the last line is
+Phases 6 and 9 also run flash at whisper-tiny's two non-causal shapes
+(the encoder's 1500 x 1500, the cross-attention's 224 x 1500).  The line
+before the last is the per-kernel JSON record (the stage kernel on the
+per-leaf, plane, staleness, MoE and whisper paths; flash on the qwen3-0.6b,
+hymba-1.5b and whisper-tiny serve paths; mLSTM on xlstm-350m's); the last
+line is
 ``{"ok": true, "device": {...}}``.  Triton kernels compile at first use into
 ``build/triton`` inside the checkout; the two CUDA kernels are built by nvcc
 into ``build/cuda``, one nvcc each, both started at once while phases 2-5
@@ -207,13 +228,20 @@ BF16_TOL = 1e-2
 # loss trajectories, kernel vs plain tail, 3 steps at 4 layers
 LOSS_RTOL = 1e-5
 MAIN = dict(nodes=4, arch="qwen3-0.6b", steps=5, seq_len=256, per_node_batch=4)
-# flash attention at the main path's shapes, (B, S, H, Hkv, hd, window), causal:
-# the qwen3-0.6b prefill wave of the serve main path, h2o-danube-1.8b (hd 80)
-# at a length where its 4096 window cuts in, and the hymba-1.5b prefill wave of
-# phase 25 (a GQA group of 5) on its 29 sliding-window layers
-FA_MAIN_SHAPES = {"qwen3-0.6b prefill": (8, 2048, 16, 8, 64, 0),
-                  "h2o-danube-1.8b": (1, 4608, 32, 8, 80, 4096),
-                  "hymba-1.5b prefill": (8, 2048, 25, 5, 64, 1024)}
+# flash attention at the main path's shapes, (B, Sq, Sk, H, Hkv, hd, window,
+# causal): the qwen3-0.6b prefill wave of the serve main path, h2o-danube-1.8b
+# (hd 80) at a length where its 4096 window cuts in, the hymba-1.5b prefill
+# wave of phase 25 (a GQA group of 5) on its 29 sliding-window layers, and
+# whisper-tiny's prefill wave of phase 27: its encoder, non-causal over 1500
+# frames (no multiple of any tile), and its decoder's cross-attention,
+# non-causal, the prompt's 224 queries against the 1500 encoder keys
+WHISPER = dict(arch="whisper-tiny", nodes=4, per_node_batch=4, seq_len=256, steps=3,
+               slots=8, prompt=224, new=32)
+FA_MAIN_SHAPES = {"qwen3-0.6b prefill": (8, 2048, 2048, 16, 8, 64, 0, True),
+                  "h2o-danube-1.8b": (1, 4608, 4608, 32, 8, 80, 4096, True),
+                  "hymba-1.5b prefill": (8, 2048, 2048, 25, 5, 64, 1024, True),
+                  "whisper-tiny encoder": (8, 1500, 1500, 6, 6, 64, 0, False),
+                  "whisper-tiny cross": (8, WHISPER["prompt"], 1500, 6, 6, 64, 0, False)}
 # the head layouts of this slice's models beyond phase 6's product, (H, Hkv,
 # hd): hymba's GQA group of 5 and olmo-1b's MHA at hd 128
 FA_ZOO_HEADS = ((25, 5, 64), (16, 16, 128))
@@ -704,9 +732,9 @@ def phase_flash_vs_plain(torch, built):
         worst[key] = max(worst[key], err)
         n += 1
     main_err = {}
-    for name, (b, s_, h, hkv, hd, window) in FA_MAIN_SHAPES.items():
-        q, k, v = _fa_inputs(torch, b, s_, s_, h, hkv, hd, torch.float32, gen)
-        main_err[name] = _fa_compare(torch, q, k, v, True, window, name)
+    for name, (b, sq, sk, h, hkv, hd, window, causal) in FA_MAIN_SHAPES.items():
+        q, k, v = _fa_inputs(torch, b, sq, sk, h, hkv, hd, torch.float32, gen)
+        main_err[name] = _fa_compare(torch, q, k, v, causal, window, name)
         del q, k, v
         torch.cuda.empty_cache()
     log(f"phase 6: flash_attention kernel == plain version on {n} cases (causal x window "
@@ -935,8 +963,8 @@ def phase_serve_kernel_vs_plain(torch):
 
 def phase_flash_timing(torch):
     """The kernel at the serve main paths' prefill shapes (and at
-    h2o-danube's windowed shape): its time, bound, plain version and SDPA.
-    Returns a record per shape."""
+    h2o-danube's windowed shape; whisper-tiny's two non-causal ones): its
+    time, bound, plain version and SDPA.  Returns a record per shape."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import flash_attention_launch
@@ -947,18 +975,18 @@ def phase_flash_timing(torch):
                          capture_output=True, text=True, timeout=60,
                          check=True).stdout.strip().splitlines()[0]
     recs = {}
-    for name, (b, s_, h, hkv, hd, window) in FA_MAIN_SHAPES.items():
-        q, k, v = _fa_inputs(torch, b, s_, s_, h, hkv, hd, torch.float32, gen)
-        want = reference_attention(q, k, v, causal=True, window=window)
-        got = flash_attention_launch(q, k, v, causal=True, window=window)
+    for name, (b, sq, sk, h, hkv, hd, window, causal) in FA_MAIN_SHAPES.items():
+        q, k, v = _fa_inputs(torch, b, sq, sk, h, hkv, hd, torch.float32, gen)
+        want = reference_attention(q, k, v, causal=causal, window=window)
+        got = flash_attention_launch(q, k, v, causal=causal, window=window)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        if window:  # SDPA takes the window as a boolean mask
-            i = torch.arange(s_, device="cuda")
+        if window:  # SDPA takes the window as a boolean mask (Sq == Sk here)
+            i = torch.arange(sq, device="cuda")
             mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
             lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                          enable_gqa=True)
         else:
-            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                          enable_gqa=True)
         lib_out = lib().transpose(1, 2)
         torch.cuda.synchronize()
@@ -968,16 +996,17 @@ def phase_flash_timing(torch):
             raise RuntimeError(f"{name}: kernel {err:.3g} / SDPA {lib_err:.3g} from the plain "
                                f"version (tol {FA_TOL['float32']})")
         del got, want, lib_out
-        ms = _time_ms(torch, lambda: flash_attention_launch(q, k, v, causal=True,
+        ms = _time_ms(torch, lambda: flash_attention_launch(q, k, v, causal=causal,
                                                             window=window), 10)
-        plain_ms = _time_ms(torch, lambda: reference_attention(q, k, v, causal=True,
+        plain_ms = _time_ms(torch, lambda: reference_attention(q, k, v, causal=causal,
                                                                window=window), 3)
         lib_ms = _time_ms(torch, lib, 10)
-        bd = _fa_bound(q, k, True, window)
+        bd = _fa_bound(q, k, causal, window)
         (bound_ms, by), (ffma_ms, _) = bd["tc"], bd["ffma"]
         flops, nbytes = bd["flops"], bd["bytes"]
         log(f"phase 9: flash_attention at {name} {tuple(q.shape)} q, {tuple(k.shape)} k/v, "
-            f"causal, window {window}, f32 ({smi}): kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} "
+            f"{'causal' if causal else 'non-causal'}, window {window}, f32 ({smi}): kernel "
+            f"{ms:.3f} ms ({flops / ms / 1e9:.1f} "
             f"TFLOP/s); tensor-core bound {bound_ms:.3f} ms by {by} (3 x {flops / 1e9:.1f} GFLOP "
             f"/ 494.7 TFLOP/s TF32; {nbytes / 1e6:.0f} MB / 3.35 TB/s = "
             f"{nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms): {bound_ms / ms:.1%} of it; the f32 FFMA "
@@ -3100,6 +3129,421 @@ def phase_zoo(torch):
                            reset_flash, ZOO_DEPTH, f"full width, {ZOO_DEPTH} layers (hd 128)")
 
 
+# ---------------------------------------------------------------------------
+# whisper-tiny, ResNet-20, the bias experiments and the simulator (27-29)
+# ---------------------------------------------------------------------------
+
+# ResNet-20 through the stacked oracle: 4 nodes of DecentLaM on exp, each on
+# its own fixed batch of 128 seeded images (10 classes)
+RESNET = dict(nodes=4, per_node_batch=128, steps=20, lr=0.05, momentum=0.9)
+# the App. G.2 linear regression on the paper's 8-node torus
+# (tests/test_bias_propositions.py) at the port's CPU tests' reduced steps
+BIAS = dict(lr=1e-3, beta=0.8, steps=2000, prop1_steps=1500, sigma=50.0)
+# the simulator's two bitwise claims: the event engine at equal constant
+# speeds == run_stacked, every algorithm; vectorized == per-node on a straggler
+SIM = dict(n=8, m=10, d=6, lr=1e-2, oracle_steps=6, steps=15, seed=3)
+
+
+def _whisper_batches(torch, cfg, steps):
+    """``steps`` global batches of the train step: SyntheticLM's tokens and
+    targets (nodes * b, seq) beside f32 ``enc_frames`` (nodes * b, 1500, 384)
+    from a seeded generator on the card (the frontend stub's output)."""
+    from repro_torch.data.synthetic import SyntheticLM, SyntheticLMConfig
+
+    n, b = WHISPER["nodes"], WHISPER["per_node_batch"]
+    data = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=WHISPER["seq_len"],
+                                         per_node_batch=b, n_nodes=n))
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    out = []
+    for k in range(steps):
+        batch = {name: torch.as_tensor(v, device="cuda") for name, v in data.batch(k).items()}
+        batch["enc_frames"] = torch.randn(n * b, cfg.enc_seq, cfg.d_model, generator=gen,
+                                          device="cuda")
+        out.append(batch)
+    return out
+
+
+def _whisper_train(torch, cfg, batches, impl):
+    """whisper-tiny's train step through the API (its CLI refuses the
+    encoder-decoder: its data carry no frames): 4 stacked nodes on flat
+    planes, decentlam on exp, the stage kernel (``impl`` "triton") or its
+    plain version ("torch"), the launch counts set to 0 just before the
+    first step and read after the last."""
+    from repro_torch.core.optimizers import make_optimizer
+    from repro_torch.core.schedules import ScheduleConfig
+    from repro_torch.kernels.fused_update.kernel import fused_stage_launch, reset_launches
+    from repro_torch.train.step import TrainConfig, build_train_step
+    from repro_torch.train.train_state import init_train_state, model_plane_layout
+
+    n = WHISPER["nodes"]
+    tc = TrainConfig(algorithm="decentlam", topology="exp", momentum=0.9,
+                     schedule=ScheduleConfig(kind="warmup_cosine", peak_lr=3e-3, warmup_steps=1,
+                                             total_steps=len(batches)),
+                     fused_update=True, fused_impl=impl, flat_planes=True)
+    step_fn, channel = build_train_step(cfg, tc, n)
+    state = init_train_state(cfg, make_optimizer(tc.opt_config()), n,
+                             device=torch.device("cuda"), channel=channel,
+                             plane_layout=model_plane_layout(cfg))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, times = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return {"losses": losses, "step_s": times, "state": state,
+            "launches": dict(fused_stage_launch.launches_by_op),
+            "total": fused_stage_launch.launches,
+            "peak": torch.cuda.max_memory_allocated() / 2**30,
+            "params_per_node": sum(s.size for segs in model_plane_layout(cfg).segments.values()
+                                   for s in segs)}
+
+
+def _whisper_serve(torch, cfg, params, frames, prompts, impl):
+    """Greedy serving through ``prefill`` + ``decode_step`` (the engine
+    refuses the encoder-decoder: its requests carry no frames): one wave of
+    the prompts against their frames, then ``new - 1`` decode steps, with
+    ``attn_impl`` = ``impl``.  Returns the tokens (B, new), each step's
+    top-two logit gap (a share of max |logit|), the flash launches of the
+    run (set to 0 just before it), prefill ms and decode ms per step."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_launch, reset_launches
+    from repro_torch.models import transformer as T
+
+    rt = T.RuntimeConfig(dtype="float32", attn_impl=impl)
+    P, new = prompts.shape[1], WHISPER["new"]
+    target = P + new
+    toks, gaps, dec_s = [], [], []
+
+    def pick(logits):
+        lg = logits[:, :cfg.vocab_size].float()
+        top2 = torch.topk(lg, 2, dim=-1).values
+        gaps.append((top2[:, 0] - top2[:, 1]) / lg.abs().amax(dim=-1))
+        tok = lg.argmax(dim=-1, keepdim=True).to(torch.int32)
+        toks.append(tok)
+        return tok
+
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        logits, cache = T.prefill(params, {"tokens": prompts, "enc_frames": frames}, cfg, rt,
+                                  target_len=target)
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        tok = pick(logits)
+        for t in range(P, P + new - 1):
+            t1 = time.perf_counter()
+            logits, cache = T.decode_step(params, tok, cache, t, cfg, rt, target_len=target)
+            tok = pick(logits)
+            torch.cuda.synchronize()
+            dec_s.append(time.perf_counter() - t1)
+        launches = flash_attention_launch.launches
+    return {"tokens": torch.cat(toks, dim=1).cpu(), "gaps": torch.stack(gaps, dim=1).cpu(),
+            "launches": launches, "prefill_ms": prefill_ms,
+            "decode_ms": 1e3 * sum(dec_s[1:]) / max(len(dec_s) - 1, 1)}
+
+
+def phase_whisper(torch):
+    """whisper-tiny at full width and depth (4 + 4 layers, d 384, 6/6 heads,
+    vocab 51,865, 1500 encoder frames): 3 training steps of 4 stacked nodes
+    on flat planes through the stage kernel (2 launches per step; the plain
+    stage == the kernel bit for bit over the 3 steps); then serving 8
+    requests of 224 prompt tokens and 32 new through prefill and decode with
+    the flash kernel (12 launches per prefill wave: the encoder's 4
+    non-causal, the decoder's 4 causal and 4 cross) against the plain path,
+    token for token (or parting only at a near tie); and the stage kernel at
+    whisper's plane beside its bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.utils import resolve_device
+
+    resolve_device("cuda")
+    cfg = get_config(WHISPER["arch"])
+    batches = _whisper_batches(torch, cfg, WHISPER["steps"])
+    runs = {impl: _whisper_train(torch, cfg, batches, impl) for impl in ("triton", "torch")}
+    kern, plain = runs["triton"], runs["torch"]
+    steps = WHISPER["steps"]
+    if not all(math.isfinite(v) for v in kern["losses"]):
+        raise RuntimeError(f"whisper-tiny train: non-finite losses {kern['losses']}")
+    if kern["total"] != 2 * steps or kern["launches"] != {op: steps for op in STAGE_FLOPS}:
+        raise RuntimeError(f"whisper-tiny train: fused_update launched {kern['total']} times "
+                           f"({kern['launches']}), want 2 x {steps}")
+    if plain["total"] != 0:
+        raise RuntimeError(f"whisper-tiny train, plain stage: {plain['total']} kernel launches")
+    (ks, ps) = kern["state"], plain["state"]
+    same = kern["losses"] == plain["losses"] and all(
+        _same_bits(torch, ks["planes"][k], ps["planes"][k]) for k in ks["planes"]
+    ) and all(_same_bits(torch, ks["opt"]["m"][k], ps["opt"]["m"][k]) for k in ks["opt"]["m"])
+    if not same:
+        raise RuntimeError(f"whisper-tiny train: the plain stage differs from the kernel: "
+                           f"losses {plain['losses']} vs {kern['losses']}")
+    n, b, seq = WHISPER["nodes"], WHISPER["per_node_batch"], WHISPER["seq_len"]
+    step_ms = 1e3 * sum(kern["step_s"][1:]) / (steps - 1)
+    log(f"phase 27: {cfg.name} full width ({cfg.n_enc_layers} + {cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {kern['params_per_node']:,} params/node) x {n} nodes, flat planes, "
+        f"decoder seq {seq} x {b} per node, enc_frames ({n * b}, {cfg.enc_seq}, {cfg.d_model}), "
+        f"{steps} steps: losses {[round(v, 4) for v in kern['losses']]}; fused_update launches "
+        f"{kern['total']} ({kern['launches']}); the plain stage == the kernel bit for bit "
+        f"(losses, final parameter and momentum planes); step {step_ms:.1f} ms (mean of steps "
+        f"1..{steps - 1}), step times {[round(t, 4) for t in kern['step_s']]}, peak memory "
+        f"{kern['peak']:.2f} GiB")
+    train_launches = kern["launches"]
+    del runs, kern, plain, ks, ps, batches
+    torch.cuda.empty_cache()
+
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    B, P = WHISPER["slots"], WHISPER["prompt"]
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    frames = torch.randn(B, cfg.enc_seq, cfg.d_model, generator=gen, device="cuda")
+    plain = _whisper_serve(torch, cfg, params, frames, prompts, "torch")
+    kern = _whisper_serve(torch, cfg, params, frames, prompts, "cuda")
+    per_wave = cfg.n_enc_layers + 2 * cfg.n_layers
+    if kern["launches"] != per_wave or plain["launches"] != 0:
+        raise RuntimeError(f"whisper-tiny serve: {kern['launches']} flash launches on the "
+                           f"kernel path ({plain['launches']} plain), want {per_wave} per wave")
+    parted = []
+    for r in range(B):
+        a, p_ = kern["tokens"][r], plain["tokens"][r]
+        if torch.equal(a, p_):
+            continue
+        pos = int((a != p_).int().argmax())
+        gap = float(plain["gaps"][r, pos])
+        log(f"  request {r}: tokens part at generated position {pos} ({int(a[pos])} kernel vs "
+            f"{int(p_[pos])} plain); plain top-two logit gap {gap:.3g} of max |logit|")
+        if not gap < LOGIT_RTOL:
+            raise RuntimeError(f"whisper-tiny serve, request {r}: kernel and plain paths part "
+                               f"at position {pos} where the plain gap {gap:.3g} is not a near "
+                               f"tie (< {LOGIT_RTOL})")
+        parted.append(r)
+    timed = _whisper_serve(torch, cfg, params, frames, prompts, "cuda")
+    log(f"phase 27: {cfg.name} serve, {B} requests of {P} prompt tokens and "
+        f"{WHISPER['new']} new, one prefill wave: flash launches {kern['launches']} per wave "
+        f"(= {cfg.n_enc_layers} encoder non-causal + {cfg.n_layers} decoder causal + "
+        f"{cfg.n_layers} cross non-causal at Sk {cfg.enc_seq}); kernel path == plain path token "
+        f"for token on {B - len(parted)} of {B} requests"
+        + (f", the other {len(parted)} part at near ties" if parted else "")
+        + f" (smallest plain top-two gap {float(plain['gaps'].min()):.3g}); prefill "
+        f"{kern['prefill_ms']:.1f} / {timed['prefill_ms']:.1f} ms per wave (first / second "
+        f"run), plain {plain['prefill_ms']:.1f} ms; decode {timed['decode_ms']:.2f} ms per "
+        f"step (plain {plain['decode_ms']:.2f})")
+    del params, frames, prompts
+    torch.cuda.empty_cache()
+    plane = phase_plane_timing(torch, cfg=cfg)
+    fmt = lambda v: "null" if v is None else f"{v:.3f} ms"  # noqa: E731
+    for op, p in plane.items():
+        log(f"  plane {op} on {p['shape']} f32: kernel {p['ms']:.3f} ms, bound "
+            f"{p['bound_ms']:.3f} ms by {p['bound_by']} ({p['bytes'] / 1e9:.3f} GB; "
+            f"{p['bound_ms'] / p['ms']:.1%} of it), plain version {p['plain_ms']:.3f} ms, "
+            f"library {fmt(p['library_ms'])}, max |kernel - plain| {p['err']:.3g}")
+    return {"launches": train_launches, "flash_launches": kern["launches"], "plane": plane}
+
+
+def _resnet_run(torch, images, labels):
+    """ResNet-20 through ``run_stacked``: RESNET["nodes"] copies of one seeded
+    init, DecentLaM on exp, node i on rows [i * b, (i + 1) * b) of the images
+    every step.  Returns the final parameters and state, the mean loss over
+    nodes at each step (before its update) and the seconds of the run."""
+    from repro_torch.core import (
+        OptimizerConfig,
+        build_topology,
+        make_optimizer,
+        run_stacked,
+    )
+    from repro_torch.models.resnet_cifar import resnet20_init, resnet20_loss
+    from repro_torch.utils import tree_leaves, tree_map, tree_unflatten
+
+    n, b = RESNET["nodes"], RESNET["per_node_batch"]
+    one = resnet20_init(torch.Generator(device="cuda").manual_seed(0))
+    params0 = tree_map(lambda a: a[None].repeat((n,) + (1,) * a.ndim), one)
+    losses = []
+
+    def grad_fn(params, _step):
+        grads, total = [], 0.0
+        for i in range(n):
+            leaves = [t[i].detach().requires_grad_() for t in tree_leaves(params)]
+            loss, _ = resnet20_loss(tree_unflatten(params, leaves), images[i * b:(i + 1) * b],
+                                    labels[i * b:(i + 1) * b])
+            grads.append(torch.autograd.grad(loss, leaves))
+            total = total + loss.detach()
+        losses.append(total / n)
+        return tree_unflatten(params, [torch.stack(g) for g in zip(*grads)])
+
+    opt = make_optimizer(OptimizerConfig(algorithm="decentlam", momentum=RESNET["momentum"]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, _ = run_stacked(opt, build_topology("exp", n), params0, grad_fn,
+                                   lr=RESNET["lr"], n_steps=RESNET["steps"])
+    torch.cuda.synchronize()
+    return params, state, [float(v) for v in losses], time.perf_counter() - t0
+
+
+def phase_resnet(torch):
+    """ResNet-20 (the paper's own domain) on the card: 4 nodes of DecentLaM
+    through the stacked oracle, exp, each node on its own fixed batch of 128
+    seeded 32x32x3 images of 10 classes, 20 steps: the loss falls; step time;
+    the consensus distance of the final parameters; the run equals its
+    repeat bit for bit (deterministic cuDNN, TF32 off: ``resolve_device``)."""
+    from repro_torch.core import consensus_distance
+    from repro_torch.utils import resolve_device, tree_leaves
+
+    resolve_device("cuda")
+    n, b = RESNET["nodes"], RESNET["per_node_batch"]
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    images = torch.randn(n * b, 32, 32, 3, generator=gen, device="cuda")
+    labels = torch.randint(0, 10, (n * b,), generator=gen, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    p1, s1, losses, wall = _resnet_run(torch, images, labels)
+    p2, s2, again, _ = _resnet_run(torch, images, labels)
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"ResNet-20: the loss did not fall: {losses}")
+    same = losses == again and all(
+        _same_bits(torch, a, c) for a, c in zip(tree_leaves(p1), tree_leaves(p2))) and all(
+        _same_bits(torch, a, c) for a, c in zip(tree_leaves(s1), tree_leaves(s2)))
+    if not same:
+        raise RuntimeError("ResNet-20: the run differs from its repeat")
+    flat = torch.cat([t.reshape(n, -1) for t in tree_leaves(p1)], dim=1)
+    log(f"phase 28: ResNet-20 ({flat.shape[1]:,} params/node, HWIO weights, NHWC images) x "
+        f"{n} nodes, decentlam through run_stacked, exp, {b} images per node, "
+        f"{RESNET['steps']} steps at lr {RESNET['lr']}: losses "
+        f"{[round(v, 4) for v in losses[:3]]} .. {[round(v, 4) for v in losses[-3:]]} (falls); "
+        f"step {1e3 * wall / RESNET['steps']:.1f} ms (4 per-node forward + backward and the "
+        f"plain stacked update); consensus distance {float(consensus_distance(flat)):.4g}; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; the repeat == the run bit for "
+        f"bit (losses, parameters, momentum)")
+
+
+def phase_bias_and_sim(torch):
+    """The paper's bias experiments (App. G.2 linear regression on the 8-node
+    torus, full batch) on the card, held to the reference tests' bounds: Fig.
+    2 and Props. 2-3 (DmSGD's bias > 3x DSGD's, within 10x of 1/(1-beta)^2;
+    DecentLaM's < 1.5x DSGD's and < 0.2x DmSGD's), the gamma^2 scaling
+    (DecentLaM's bias ratio in (2, 8) at 2x lr) and Prop. 1 (DmSGD's error
+    over DecentLaM's > 2 at sigma 0, smaller at sigma 50); then the
+    simulator: the event engine (both strategies) at equal constant speeds
+    == run_stacked bit for bit for every algorithm, and the vectorized
+    engine == the per-node engine bit for bit on straggler_1slow."""
+    import functools
+
+    import numpy as np
+
+    from repro_torch.core import (
+        ALGORITHMS,
+        OptimizerConfig,
+        bias_to_optimum,
+        build_topology,
+        make_linear_regression,
+        make_optimizer,
+        run_bias_experiment,
+        run_stacked,
+    )
+    from repro_torch.sim import SimSpec, simulate
+    from repro_torch.utils import tree_leaves
+
+    t0 = time.perf_counter()
+    lr, beta, steps = BIAS["lr"], BIAS["beta"], BIAS["steps"]
+    prob = make_linear_regression(n=8, m=50, d=30, noise=0.01, seed=0)  # on the card
+    topo = build_topology("torus", 8)
+    bias = {a: float(run_bias_experiment(a, prob, topo, lr=lr, momentum=beta, n_steps=steps,
+                                         record_every=steps)[-1])
+            for a in ("dsgd", "dmsgd", "decentlam")}
+    bias2 = float(run_bias_experiment("decentlam", prob, topo, lr=2 * lr, momentum=beta,
+                                      n_steps=steps, record_every=steps)[-1])
+    ratio, predicted = bias["dmsgd"] / bias["dsgd"], 1.0 / (1.0 - beta) ** 2
+    gamma = bias2 / bias["decentlam"]
+    rng = np.random.default_rng(0)
+
+    def final_err(algo, sigma):
+        opt = make_optimizer(OptimizerConfig(algorithm=algo, momentum=beta))
+
+        def grad(x, _step):
+            noise = torch.as_tensor(rng.standard_normal((8, prob.dim)), dtype=torch.float32,
+                                    device="cuda")
+            return prob.grad(x) + sigma * noise
+
+        x, _, _ = run_stacked(opt, topo, torch.zeros((8, prob.dim), device="cuda"), grad,
+                              lr=lr, n_steps=BIAS["prop1_steps"])
+        return float(torch.mean(torch.sum((x - prob.x_star[None]) ** 2, dim=-1)))
+
+    gap_full = final_err("dmsgd", 0.0) / final_err("decentlam", 0.0)
+    gap_noisy = final_err("dmsgd", BIAS["sigma"]) / final_err("decentlam", BIAS["sigma"])
+    checks = {
+        "Fig. 2: dmsgd > 3 x dsgd": bias["dmsgd"] > 3.0 * bias["dsgd"],
+        "Prop. 2: ratio within 10x of 1/(1-beta)^2": predicted / 10 < ratio < predicted * 10,
+        "Prop. 3: decentlam < 1.5 x dsgd and < 0.2 x dmsgd":
+            bias["decentlam"] < 1.5 * bias["dsgd"] and bias["decentlam"] < 0.2 * bias["dmsgd"],
+        "gamma^2: ratio in (2, 8) at 2x lr": 2.0 < gamma < 8.0,
+        "Prop. 1: gap > 2 at sigma 0, smaller at sigma 50":
+            gap_full > 2.0 and gap_noisy < gap_full,
+    }
+    log(f"phase 29: App. G.2 linear regression (n 8, m 50, d 30) on the torus, full batch, "
+        f"lr {lr}, beta {beta}, {steps} steps: final bias dsgd {bias['dsgd']:.4g}, dmsgd "
+        f"{bias['dmsgd']:.4g} ({ratio:.2f}x dsgd; 1/(1-beta)^2 = {predicted:.0f}), decentlam "
+        f"{bias['decentlam']:.4g}; decentlam at 2x lr {bias2:.4g} ({gamma:.2f}x); Prop. 1 at "
+        f"{BIAS['prop1_steps']} steps: dmsgd / decentlam error {gap_full:.2f} at sigma 0, "
+        f"{gap_noisy:.2f} at sigma {BIAS['sigma']:g}; "
+        + "; ".join(f"{k}: {'holds' if v else 'FAILS'}" for k, v in checks.items()))
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise RuntimeError(f"the bias bounds fail on the card: {failed}")
+    t_bias = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    small = make_linear_regression(n=SIM["n"], m=SIM["m"], d=SIM["d"], noise=0.01, seed=1)
+    grad = lambda x, _s: small.grad(x)  # noqa: E731
+    x0 = torch.zeros((SIM["n"], SIM["d"]), device="cuda")
+
+    def same_tree(a, b):
+        la, lb = tree_leaves(a), tree_leaves(b)
+        return len(la) == len(lb) and all(_same_bits(torch, u, v) for u, v in zip(la, lb))
+
+    for algo in ALGORITHMS:
+        opt = make_optimizer(OptimizerConfig(algorithm=algo, momentum=beta))
+        p_ref, s_ref, _ = run_stacked(opt, build_topology("ring", SIM["n"]), x0, grad,
+                                      lr=SIM["lr"], n_steps=SIM["oracle_steps"])
+        for engine in ("pernode", "vectorized"):
+            r = simulate(opt, SimSpec(topology="ring", n=SIM["n"], lr=SIM["lr"],
+                                      n_steps=SIM["oracle_steps"], scenario="homogeneous",
+                                      engine=engine), x0, grad)
+            if not (same_tree(r.params, p_ref) and same_tree(r.opt_state, s_ref)):
+                raise RuntimeError(f"simulator: the {engine} engine at equal constant speeds "
+                                   f"differs from run_stacked for {algo}")
+    metric = functools.partial(bias_to_optimum, x_star=small.x_star)
+    stats = {}
+    for algo in ("decentlam", "decentlam-sa"):
+        opt = make_optimizer(OptimizerConfig(algorithm=algo, momentum=beta))
+        res = {}
+        for engine in ("pernode", "vectorized"):
+            spec = SimSpec(topology="ring", n=SIM["n"], lr=SIM["lr"], n_steps=SIM["steps"],
+                           scenario="straggler_1slow", seed=SIM["seed"], record_dt=3.0,
+                           metric_fn=metric, engine=engine)
+            te = time.perf_counter()
+            res[engine] = simulate(opt, spec, x0, grad)
+            torch.cuda.synchronize()
+            stats[(algo, engine)] = time.perf_counter() - te
+        a, b = res["pernode"], res["vectorized"]
+        equal = (same_tree(a.params, b.params) and same_tree(a.opt_state, b.opt_state)
+                 and (a.steps == b.steps).all() and (a.stall_time == b.stall_time).all()
+                 and a.sim_time == b.sim_time and a.trace == b.trace
+                 and a.final_metric == b.final_metric)
+        if not equal:
+            raise RuntimeError(f"simulator: vectorized != per-node on straggler_1slow ({algo})")
+        stats[algo] = (a.sim_time, float(a.stall_time.sum()), a.final_metric)
+    log(f"phase 29: the simulator on the card (linear regression n {SIM['n']}, ring): the event "
+        f"engine at equal constant speeds == run_stacked bit for bit for all "
+        f"{len(ALGORITHMS)} algorithms ({SIM['oracle_steps']} steps, per-node and vectorized); "
+        f"vectorized == per-node bit for bit on straggler_1slow ({SIM['steps']} steps, seed "
+        f"{SIM['seed']}; the whole result) for "
+        + ", ".join(f"{a} (sim time {stats[a][0]:.4g}, stall {stats[a][1]:.4g}, bias "
+                    f"{stats[a][2]:.4g}; per-node {stats[(a, 'pernode')]:.2f}s, vectorized "
+                    f"{stats[(a, 'vectorized')]:.2f}s)" for a in ("decentlam", "decentlam-sa"))
+        + f"; bias experiments {t_bias:.1f}s, simulator {time.perf_counter() - t1:.1f}s")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -3163,6 +3607,9 @@ def main() -> int:
     moe = timed("24 MoE train main path", phase_moe_main_path)
     hy_launches = timed("25 hybrid serve main path", phase_hybrid_serve_main_path)
     timed("26 the rest of the zoo", phase_zoo)
+    whisper = timed("27 whisper-tiny train and serve", phase_whisper)
+    timed("28 ResNet-20 through run_stacked", phase_resnet)
+    timed("29 bias experiments and the simulator", phase_bias_and_sim)
     log(f"phase times (s): {phases}; total {time.perf_counter() - t0:.1f}s")
     # one record per specialization of the Triton kernel on the training main
     # path (times per step, summed over the 14 leaves), and the flash and
@@ -3225,6 +3672,7 @@ def main() -> int:
         "bound_by": rec["bound_by"],
         "library_ms": rec["library_ms"],
     } for op, rec in moe["plane"].items()]
+    fa_whisper = {k: fa[k] for k in ("whisper-tiny encoder", "whisper-tiny cross")}
     fa, hy = fa["qwen3-0.6b prefill"], fa["hymba-1.5b prefill"]
     records.append({
         "name": "flash_attention[causal, f32, hd 64]",
@@ -3267,6 +3715,36 @@ def main() -> int:
         "bound_by": hy["bound_by"],
         "library_ms": hy["library_ms"],
     })
+    # whisper-tiny's main path (phase 27): the plane stages at its
+    # (4, rows, 1024) plane, and flash at its encoder's and cross-attention's
+    # prefill shapes (phase 9); every launch of the serve run counts
+    records += [{
+        "name": f"fused_update[whisper-tiny plane {op}]",
+        "route": "triton",
+        "source": "src/repro_torch/kernels/fused_update/_triton.py",
+        "replaces": "src/repro/kernels/fused_update/kernel.py:66",
+        "launches": whisper["launches"][op],
+        "max_abs_err": rec["err"],
+        "ms": rec["ms"],
+        "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"],
+        "library_ms": rec["library_ms"],
+    } for op, rec in whisper["plane"].items()]
+    records += [{
+        "name": f"flash_attention[{k}: non-causal, Sq {FA_MAIN_SHAPES[k][1]}, Sk 1500, f32, "
+                "hd 64, 6/6 heads]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:99",
+        "launches": whisper["flash_launches"],
+        "max_abs_err": rec["err"],
+        "ms": rec["ms"],
+        "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"],
+        "library_ms": rec["library_ms"],
+    } for k, rec in fa_whisper.items()]
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

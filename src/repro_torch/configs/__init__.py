@@ -1,8 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-The port carries the decoder-only architectures of the JAX package's
-registry (``repro.configs``); its encoder-decoder (whisper-tiny) comes with
-a later slice.
+The port carries every architecture of the JAX package's registry
+(``repro.configs``), the encoder-decoder whisper-tiny included.
 """
 
 from __future__ import annotations
@@ -16,6 +15,7 @@ from . import (
     olmo_1b,
     qwen3_0p6b,
     qwen3_8b,
+    whisper_tiny,
     xlstm_350m,
 )
 from .base import ModelConfig, pad_to
@@ -30,6 +30,7 @@ _MODULES = {
     "granite-moe-3b-a800m": granite_moe_3b_a800m,
     "granite-moe-1b-a400m": granite_moe_1b_a400m,
     "internvl2-2b": internvl2_2b,
+    "whisper-tiny": whisper_tiny,
 }
 
 ARCHS: dict[str, ModelConfig] = {k: m.CONFIG for k, m in _MODULES.items()}

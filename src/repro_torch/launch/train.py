@@ -287,6 +287,12 @@ def _model_metrics(cfg, metrics: dict, lists: dict) -> str:
 
 def _model_config(args):
     cfg = get_config(args.arch, smoke=args.smoke) if args.arch else tiny_lm()
+    if cfg.arch_kind == "encdec":
+        # as repro's CLI: its SyntheticLM yields tokens and targets only
+        raise NotImplementedError(
+            f"--arch {args.arch}: an encoder-decoder trains on batches that carry "
+            "'enc_frames' (the frontend stub's output), and this CLI's data yields tokens "
+            "and targets only; drive train.step.build_train_step with such batches instead")
     if args.depth:
         cfg = dataclasses.replace(cfg, n_layers=args.depth)
     return cfg
@@ -339,6 +345,7 @@ def main(argv=None, *, on_step=None, serve_runtime=None, on_serve=None,
     if args.tp != 1:
         raise NotImplementedError(
             f"--tp {args.tp}: tensor parallelism is not ported yet (ROADMAP queue 1, item 2)")
+    cfg = _model_config(args)
     launched = "RANK" in os.environ and "WORLD_SIZE" in os.environ
     if args.simulate_nodes or launched:
         if args.serve_while_training:
@@ -356,7 +363,6 @@ def main(argv=None, *, on_step=None, serve_runtime=None, on_serve=None,
         return run_ranks(rank_main, args.simulate_nodes, argv, on_step, on_shrink,
                          device=args.device, timeout_s=args.timeout or None)[0]
     device = resolve_device(args.device)
-    cfg = _model_config(args)
     n_nodes = args.nodes
     tcfg = _train_config(args)
     step_fn, channel = build_train_step(cfg, tcfg, n_nodes)

@@ -12,10 +12,17 @@ so the port computes all rows at once.  ``impl="cuda"`` is the reference's
 ``pallas`` branch: the flash-attention kernel, which does GQA itself (its
 plain version on a CPU tensor).
 
+Cross-attention (the encoder-decoder's, ``kv_source``) projects k and v
+from the encoder's output and attends non-causally over all of it; RoPE
+never touches cross k.  With ``impl="cuda"`` it goes through the same
+flash kernel at Sq != Sk.
+
 Decode is the reference's split-K softmax at tp = 1 in plain torch: the new
 token's k/v go into slot ``t % capacity`` of the cache (a rolling buffer
 when the capacity is a sliding window), and the scores run over the whole
-cache, masked by each slot's stored position.
+cache, masked by each slot's stored position.  A decoder token's
+cross-attention over the cached encoder k/v (:func:`attn_cross_decode`) is
+a plain f32 softmax, as in the reference.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ __all__ = [
     "attn_init",
     "attn_forward",
     "attention_core",
+    "attn_cross_decode",
     "attn_decode_step",
     "group_index",
     "init_kv_cache",
@@ -102,20 +110,25 @@ def attention_core(q, k, v, *, causal: bool, window: int = 0, softcap: float = 0
     return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
 
 
-def _project(x, params, cfg: ModelConfig, positions):
-    """q (B, S, H, hd) and k, v (B, S, KV, hd), normed and rotated."""
+def _project(x, params, cfg: ModelConfig, positions, kv_source=None):
+    """q (B, S, H, hd) and k, v (B, Sk, KV, hd), normed and rotated; k and v
+    from ``kv_source`` (B, Sk, d) where given (cross-attention: k is not
+    rotated), else from ``x``."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     dt = x.dtype
+    src = x if kv_source is None else kv_source.to(dt)
+    Sk = src.shape[1]
     q = (x @ params["wq"].to(dt)).reshape(B, S, H, hd)
-    k = (x @ params["wk"].to(dt)).reshape(B, S, KV, hd)
-    v = (x @ params["wv"].to(dt)).reshape(B, S, KV, hd)
+    k = (src @ params["wk"].to(dt)).reshape(B, Sk, KV, hd)
+    v = (src @ params["wv"].to(dt)).reshape(B, Sk, KV, hd)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
     if cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        if kv_source is None:
+            k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -129,13 +142,15 @@ def attn_forward(
     window: int = 0,
     attn_impl: str = "torch",
     return_kv: bool = False,
+    kv_source: torch.Tensor | None = None,
 ):
     """x: (B, S, d) -> (B, S, d); with ``return_kv`` also this layer's
-    ``(k, v)``, each (B, S, KV, hd), for the serve cache."""
+    ``(k, v)``, each (B, Sk, KV, hd), for the serve cache.  ``kv_source``
+    (B, Sk, d) makes it cross-attention: k and v are projected from it."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    q, k, v = _project(x, params, cfg, positions)
+    q, k, v = _project(x, params, cfg, positions, kv_source)
     out = attention_core(q, k, v, causal=causal, window=window,
                          softcap=cfg.logit_softcap, impl=attn_impl)
     y = out.reshape(B, S, cfg.n_heads * cfg.hd) @ params["wo"].to(x.dtype)
@@ -226,3 +241,21 @@ def attn_decode_step(
     out = o / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
     y = out.reshape(B, 1, H * hd).to(dt) @ params["wo"].to(dt)
     return y, cache_layer
+
+
+def attn_cross_decode(x: torch.Tensor, params: Tree, cross_kv: Tree, cfg: ModelConfig):
+    """Decode-time cross-attention of x (B, 1, d) over the cached encoder
+    ``cross_kv`` ``{"k", "v"}`` (B, T_enc, KV, hd): no rope, no mask, a plain
+    f32 softmax (the reference's, not the kernel).  Returns (B, 1, d)."""
+    B = x.shape[0]
+    H, hd = cfg.n_heads, cfg.hd
+    dt = x.dtype
+    q = (x @ params["wq"].to(dt)).reshape(B, 1, H, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"])
+    kf = _group_full(cross_kv["k"].to(dt), H)
+    vf = _group_full(cross_kv["v"].to(dt), H)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kf).to(torch.float32) * (1.0 / math.sqrt(hd))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(vf.dtype), vf)
+    return out.reshape(B, 1, H * hd) @ params["wo"].to(dt)

@@ -1,9 +1,8 @@
-"""Model assembly for the decoder-only families (the port of
-``repro.models.transformer`` at tensor-parallel degree 1): dense, MoE
-(granite-moe), hybrid attention + SSM heads (hymba), the VLM backbone with
-its patch-embedding stub (internvl2) and the xLSTM stack; the training
-forward and the serve path (cache, prefill, decode).  The encoder-decoder
-(whisper) is not ported yet.
+"""Model assembly (the port of ``repro.models.transformer`` at
+tensor-parallel degree 1): dense, MoE (granite-moe), hybrid attention + SSM
+heads (hymba), the VLM backbone with its patch-embedding stub (internvl2),
+the xLSTM stack and the encoder-decoder (whisper); the training forward and
+the serve path (cache, prefill, decode).
 
 Layers are organized into **block groups**: maximal runs of consecutive
 layers with the same (block kind, attention window).  Each group's params
@@ -16,7 +15,13 @@ hybrid group, the recurrent state ``{"mlstm": C, n, m}`` or ``{"slstm": c,
 n, m, h}`` for an xLSTM group.  Where the reference scans a group with
 ``lax.scan``, the port loops over the layers of the unbound stack.  A
 config with ``rope_theta == 0`` (xlstm-350m) adds absolute sinusoidal
-positions to the embedding instead of rotating q and k.  A hybrid layer
+positions to the embedding instead of rotating q and k.  The
+encoder-decoder's encoder (``params["enc"]``, kind ``"enc"``) runs
+non-causally over the stub frame embeddings ``enc_frames`` (B, T_enc, d)
+plus their sinusoids, then ``enc_norm``; each decoder layer (kind ``"dec"``)
+adds a cross-attention over the encoder's output after its self-attention,
+and its serve cache holds the cross k/v (``cross_kv``, (count, B, T_enc, KV,
+hd)) beside the self-attention kv.  A hybrid layer
 runs attention and the SSM on the same normed input and adds their mean;
 a MoE layer's router losses sum over the layers into the training loss
 (``xent + router_aux_weight * load_balance + 1e-3 * z``), as in the
@@ -87,7 +92,7 @@ class RuntimeConfig:
 
 @dataclasses.dataclass(frozen=True)
 class GroupSpec:
-    kind: str  # dense | moe | hybrid | mlstm | slstm
+    kind: str  # dense | moe | hybrid | mlstm | slstm | enc | dec
     window: int  # 0 = full attention (for attn-bearing kinds)
     layers: tuple[int, ...]
 
@@ -97,20 +102,11 @@ class GroupSpec:
 
     @property
     def has_attn(self) -> bool:
-        return self.kind in ("dense", "moe", "hybrid")
+        return self.kind in ("dense", "moe", "hybrid", "enc", "dec")
 
     @property
     def has_ssm(self) -> bool:
         return self.kind == "hybrid"
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    """The decoder-only families are ported; the encoder-decoder is not."""
-    if cfg.arch_kind != "decoder":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder (arch_kind={cfg.arch_kind!r}) is not ported "
-            "yet (ROADMAP queue 1, the next slice)"
-        )
 
 
 def _layer_kind(cfg: ModelConfig, i: int) -> str:
@@ -123,14 +119,19 @@ def _layer_kind(cfg: ModelConfig, i: int) -> str:
     return "dense"
 
 
-def block_groups(cfg: ModelConfig) -> list[GroupSpec]:
-    """Split layers into maximal same-(kind, window) runs."""
-    _check_ported(cfg)
+def block_groups(cfg: ModelConfig, *, stack: str = "dec") -> list[GroupSpec]:
+    """Split layers into maximal same-(kind, window) runs; ``stack="enc"``
+    gives the encoder's (every layer kind ``"enc"``, window 0)."""
+    n = cfg.n_enc_layers if stack == "enc" else cfg.n_layers
     groups: list[GroupSpec] = []
     run: list[int] = []
     cur = None
-    for i in range(cfg.n_layers):
-        sig = (_layer_kind(cfg, i), cfg.window_for_layer(i))
+    for i in range(n):
+        if stack == "enc":
+            sig = ("enc", 0)
+        else:
+            kind = "dec" if cfg.arch_kind == "encdec" else _layer_kind(cfg, i)
+            sig = (kind, cfg.window_for_layer(i))
         if sig != cur and run:
             groups.append(GroupSpec(cur[0], cur[1], tuple(run)))
             run = []
@@ -150,6 +151,9 @@ def _layer_init(init: Initializer, cfg: ModelConfig, kind: str) -> Tree:
     p = {"attn_norm": norm_init(init, nt, d), "attn": attn.attn_init(init, cfg)}
     if kind == "hybrid":
         p["ssm"] = ssm_mod.ssm_init(init, cfg)
+    if kind == "dec" and cfg.arch_kind == "encdec":
+        p["cross_norm"] = norm_init(init, nt, d)
+        p["cross"] = attn.attn_init(init, cfg)
     if cfg.d_ff > 0:
         p["mlp_norm"] = norm_init(init, nt, d)
         if kind == "moe":
@@ -163,20 +167,27 @@ def _stack(trees: list[Tree]) -> Tree:
     return tree_map(lambda *xs: torch.stack(xs, dim=0), *trees)
 
 
+def _groups_init(init: Initializer, cfg: ModelConfig, stack: str = "dec") -> Tree:
+    """``{"g<i>": layer-stacked params}`` of one stack's block groups."""
+    return {f"g{gi}": _stack([_layer_init(init, cfg, g.kind) for _ in g.layers])
+            for gi, g in enumerate(block_groups(cfg, stack=stack))}
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: torch.device | str | None = None) -> Tree:
     """One node's parameters, on the generator's device (or ``device``:
     ``"meta"`` gives shapes and dtypes only), in the reference's draw order
-    (embed, layers in order, final norm, lm_head)."""
+    (embed, the encoder's layers and norm, layers in order, final norm,
+    lm_head)."""
     init = Initializer(generator)
     if device is not None:
         init.device = torch.device(device)
     vp = cfg.vocab_padded(1)
     params: Tree = {"embed": embedding_init(init, vp, cfg.d_model)}
-    params["groups"] = {
-        f"g{gi}": _stack([_layer_init(init, cfg, g.kind) for _ in g.layers])
-        for gi, g in enumerate(block_groups(cfg))
-    }
+    if cfg.arch_kind == "encdec":
+        params["enc"] = _groups_init(init, cfg, stack="enc")
+        params["enc_norm"] = norm_init(init, cfg.norm_type, cfg.d_model)
+    params["groups"] = _groups_init(init, cfg)
     params["final_norm"] = norm_init(init, cfg.norm_type, cfg.d_model)
     if not cfg.tie_embeddings:
         params["lm_head"] = {
@@ -199,12 +210,15 @@ def _sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def _block_fwd(x, lp, cfg: ModelConfig, g: GroupSpec, positions, *,
-               rt: RuntimeConfig = RuntimeConfig(), serve: bool = False):
+               rt: RuntimeConfig = RuntimeConfig(), serve: bool = False, enc_out=None):
     """One layer forward.  Returns ``(x, aux, entry)``: ``aux`` the MoE
     router's terms (empty for other kinds); with ``serve``, ``entry`` the
     layer's serve state — ``{"kv": (k, v)}`` over the whole sequence for an
-    attention layer, plus ``{"ssm": state}`` for a hybrid one, the final
-    recurrent state for an xLSTM layer (None without ``serve``)."""
+    attention layer, plus ``{"ssm": state}`` for a hybrid one and
+    ``{"cross_kv": (k, v)}`` over the encoder's output for a decoder layer
+    of the encoder-decoder, the final recurrent state for an xLSTM layer
+    (None without ``serve``).  Self-attention is causal but in the
+    encoder."""
     nt = cfg.norm_type
     if g.kind in ("mlstm", "slstm"):
         h = norm_apply(x, lp["norm"], nt)
@@ -216,7 +230,7 @@ def _block_fwd(x, lp, cfg: ModelConfig, g: GroupSpec, positions, *,
         y, st = out if serve else (out, None)
         return x + y, {}, ({g.kind: st} if serve else None)
     h = norm_apply(x, lp["attn_norm"], nt)
-    a = attn.attn_forward(h, lp["attn"], cfg, positions=positions, causal=True,
+    a = attn.attn_forward(h, lp["attn"], cfg, positions=positions, causal=g.kind != "enc",
                           window=g.window, attn_impl=rt.attn_impl, return_kv=serve)
     entry = None
     if serve:
@@ -229,6 +243,14 @@ def _block_fwd(x, lp, cfg: ModelConfig, g: GroupSpec, positions, *,
         x = x + 0.5 * (a + s)  # hymba: parallel heads, mean combine
     else:
         x = x + a
+    if g.kind == "dec" and cfg.arch_kind == "encdec" and enc_out is not None:
+        c = norm_apply(x, lp["cross_norm"], nt)
+        cr = attn.attn_forward(c, lp["cross"], cfg, positions=positions, causal=False,
+                               window=0, attn_impl=rt.attn_impl, return_kv=serve,
+                               kv_source=enc_out)
+        if serve:
+            cr, entry["cross_kv"] = cr
+        x = x + cr
     aux = {}
     if cfg.d_ff > 0:
         h2 = norm_apply(x, lp["mlp_norm"], nt)
@@ -263,19 +285,22 @@ def _embed(tokens, params, cfg: ModelConfig, dtype, positions, patch_embeds=None
 _AUX = ("moe_load_balance", "moe_router_z")
 
 
-def _run_groups(x, params, cfg: ModelConfig, positions, rt: RuntimeConfig, serve: bool):
-    """Every block group in order.  Returns ``(x, aux totals, entries)``:
-    the router terms summed over each MoE group's layers, then over the
-    groups (the reference's order); ``entries[gi]`` the layers' serve
-    entries (with ``serve``)."""
+def _run_groups(x, groups_params, cfg: ModelConfig, positions, rt: RuntimeConfig,
+                serve: bool, *, stack: str = "dec", enc_out=None):
+    """Every block group of ``stack`` in order, over ``groups_params``
+    (``params["groups"]``, or the encoder's ``params["enc"]``).  Returns
+    ``(x, aux totals, entries)``: the router terms summed over each MoE
+    group's layers, then over the groups (the reference's order);
+    ``entries[gi]`` the layers' serve entries (with ``serve``)."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux_tot = {k: zero for k in _AUX}
     entries = {}
-    for gi, g in enumerate(block_groups(cfg)):
+    for gi, g in enumerate(block_groups(cfg, stack=stack)):
         group_aux = {k: [] for k in _AUX}
         layer_entries = []
-        for lp in _layers(params["groups"][f"g{gi}"], g.count):
-            x, aux, entry = _block_fwd(x, lp, cfg, g, positions, rt=rt, serve=serve)
+        for lp in _layers(groups_params[f"g{gi}"], g.count):
+            x, aux, entry = _block_fwd(x, lp, cfg, g, positions, rt=rt, serve=serve,
+                                       enc_out=enc_out)
             for k in aux.keys() & group_aux.keys():
                 group_aux[k].append(aux[k])
             layer_entries.append(entry)
@@ -286,11 +311,29 @@ def _run_groups(x, params, cfg: ModelConfig, positions, rt: RuntimeConfig, serve
     return x, aux_tot, entries
 
 
+def _encode(params: Tree, batch: dict, cfg: ModelConfig, rt: RuntimeConfig):
+    """The whisper encoder over the stub frame embeddings ``enc_frames``
+    (B, T_enc, d): plus the sinusoids of 0..T_enc-1, the encoder's groups
+    non-causally, then ``enc_norm``."""
+    if "enc_frames" not in batch:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: the batch needs 'enc_frames' "
+                         f"(B, {cfg.enc_seq}, {cfg.d_model}), the frontend stub's output")
+    dt = rt.cdtype
+    frames = batch["enc_frames"].to(dt)
+    B, T = frames.shape[:2]
+    pos = torch.arange(T, device=frames.device)
+    x = frames + _sinusoid(pos, cfg.d_model)[None].to(dt)
+    x, _, _ = _run_groups(x, params["enc"], cfg, pos[None].expand(B, T), rt, serve=False,
+                          stack="enc")
+    return norm_apply(x, params["enc_norm"], cfg.norm_type)
+
+
 def forward_loss(params: Tree, batch: dict, cfg: ModelConfig,
                  rt: RuntimeConfig = RuntimeConfig(dtype="float32")):
     """batch: tokens (B, S), targets (B, S) [, patch_embeds (B, P, d) for a
-    VLM].  Returns ``(total, metrics)``: the total is the cross entropy plus
-    the MoE router terms, ``xent + router_aux_weight * moe_load_balance +
+    VLM, enc_frames (B, T_enc, d) for the encoder-decoder].  Returns
+    ``(total, metrics)``: the total is the cross entropy plus the MoE router
+    terms, ``xent + router_aux_weight * moe_load_balance +
     1e-3 * moe_router_z`` (both zero without MoE layers), and the metrics
     are ``xent`` and the two router terms.  Activations compute in
     ``rt.cdtype``: the embedding table and the lm_head (or tied) weights are
@@ -303,9 +346,10 @@ def forward_loss(params: Tree, batch: dict, cfg: ModelConfig,
     dt = rt.cdtype
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     x = _embed(tokens, params, cfg, dt, positions, batch.get("patch_embeds"))
-    x, aux, _ = _run_groups(x, params, cfg, positions,
-                            dataclasses.replace(rt, attn_impl="torch", mlstm_impl="torch"),
-                            serve=False)
+    rt = dataclasses.replace(rt, attn_impl="torch", mlstm_impl="torch")
+    enc_out = _encode(params, batch, cfg, rt) if cfg.arch_kind == "encdec" else None
+    x, aux, _ = _run_groups(x, params["groups"], cfg, positions, rt, serve=False,
+                            enc_out=enc_out)
     x = norm_apply(x, params["final_norm"], cfg.norm_type)
     w = params["embed"]["table"].T if cfg.tie_embeddings else params["lm_head"]["w"]
     logits = lm_head_logits(x, w.to(dt))
@@ -332,8 +376,10 @@ def _group_capacity(g: GroupSpec, target_len: int) -> int:
 def init_cache(cfg: ModelConfig, batch: int, target_len: int, rt: RuntimeConfig,
                device=None) -> Tree:
     """Serve cache: per block group (layer-stacked) ``{"kv": ...}`` for an
-    attention group, and ``{"ssm": ...}`` beside it for a hybrid group;
-    ``{"mlstm": ...}`` or ``{"slstm": ...}`` for an xLSTM group."""
+    attention group, and ``{"ssm": ...}`` beside it for a hybrid group and
+    ``{"cross_kv": ...}`` (count, batch, enc_seq, KV, hd) for a decoder group
+    of the encoder-decoder; ``{"mlstm": ...}`` or ``{"slstm": ...}`` for an
+    xLSTM group."""
     cache: Tree = {}
     for gi, g in enumerate(block_groups(cfg)):
         c: Tree = {}
@@ -346,6 +392,10 @@ def init_cache(cfg: ModelConfig, batch: int, target_len: int, rt: RuntimeConfig,
             c["mlstm"] = xlstm_mod.init_mlstm_state(cfg, g.count, batch, device)
         if g.kind == "slstm":
             c["slstm"] = xlstm_mod.init_slstm_state(cfg, g.count, batch, device)
+        if g.kind == "dec" and cfg.arch_kind == "encdec":
+            shape = (g.count, batch, cfg.enc_seq, cfg.n_kv_heads, cfg.hd)
+            c["cross_kv"] = {n: torch.zeros(shape, dtype=rt.cdtype, device=device)
+                             for n in ("k", "v")}
         cache[f"g{gi}"] = c
     return cache
 
@@ -376,14 +426,18 @@ def _logits(x, params, cfg: ModelConfig, rt: RuntimeConfig):
 def prefill(params: Tree, batch: dict, cfg: ModelConfig, rt: RuntimeConfig, *,
             target_len: int | None = None):
     """Full-sequence prefill of ``batch["tokens"]`` (B, S) [and a VLM's
-    ``patch_embeds``]: returns the last-token logits (B, Vp) and the serve
-    cache for ``target_len`` positions (default S)."""
+    ``patch_embeds``, an encoder-decoder's ``enc_frames``, encoded once]:
+    returns the last-token logits (B, Vp) and the serve cache for
+    ``target_len`` positions (default S)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     target_len = target_len or S
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     x = _embed(tokens, params, cfg, rt.cdtype, positions, batch.get("patch_embeds"))
-    x, _, entries = _run_groups(x, params, cfg, positions, rt, serve=True)
+    enc_out = _encode(params, batch, cfg, rt) if cfg.arch_kind == "encdec" else None
+    x, _, entries = _run_groups(x, params["groups"], cfg, positions, rt, serve=True,
+                                enc_out=enc_out)
+    del enc_out
     cache: Tree = {}
     for gi, g in enumerate(block_groups(cfg)):
         layer_entries = entries.pop(gi)
@@ -395,6 +449,9 @@ def prefill(params: Tree, batch: dict, cfg: ModelConfig, rt: RuntimeConfig, *,
         for name in ("ssm", "mlstm", "slstm"):
             if name in layer_entries[0]:
                 c[name] = _stack([e[name] for e in layer_entries])
+        if "cross_kv" in layer_entries[0]:
+            ks, vs = zip(*(e["cross_kv"] for e in layer_entries))
+            c["cross_kv"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
         cache[f"g{gi}"] = c
         del layer_entries
     return _logits(x, params, cfg, rt), cache
@@ -406,7 +463,8 @@ def decode_step(params: Tree, tokens: torch.Tensor, cache: Tree, t, cfg: ModelCo
     position, an int or a per-slot (B,) tensor (continuous batching serves
     requests whose timelines are independent).  The cache is updated **in
     place** (the reference donates it): the new kv into its slot, the new
-    recurrent state over the old.  Returns ``(logits (B, Vp), cache)``."""
+    recurrent state over the old; a decoder layer of the encoder-decoder
+    reads its cached cross k/v.  Returns ``(logits (B, Vp), cache)``."""
     B = tokens.shape[0]
     t = torch.as_tensor(t, device=tokens.device).to(torch.long).expand(B)
     x = _embed(tokens, params, cfg, rt.cdtype, t[:, None])
@@ -433,6 +491,10 @@ def decode_step(params: Tree, tokens: torch.Tensor, cache: Tree, t, cfg: ModelCo
                 x = x + 0.5 * (a + s)
             else:
                 x = x + a
+            if g.kind == "dec" and cfg.arch_kind == "encdec":
+                cross = {n: c[li] for n, c in cg["cross_kv"].items()}
+                x = x + attn.attn_cross_decode(norm_apply(x, lp["cross_norm"], nt),
+                                               lp["cross"], cross, cfg)
             if cfg.d_ff > 0:
                 h2 = norm_apply(x, lp["mlp_norm"], nt)
                 if g.kind == "moe":

@@ -103,6 +103,12 @@ class ServeEngine:
                  eos_id: int | None = None, device=None,
                  on_logits: Callable[[torch.Tensor, dict[int, tuple[int, int]]], None]
                  | None = None):
+        if cfg.arch_kind == "encdec":
+            # as repro's engine: requests carry token prompts only
+            raise NotImplementedError(
+                f"{cfg.name} is an encoder-decoder: its prefill needs 'enc_frames', which "
+                "the engine's requests do not carry; serve it through "
+                "models.transformer.prefill and decode_step")
         self.device = resolve_device(device)
         rt = runtime if runtime is not None else T.RuntimeConfig(dtype="float32")
         self.cfg = cfg

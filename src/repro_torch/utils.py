@@ -70,8 +70,11 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks for the
     CPU.  Asking for CUDA on a host without it raises — there is no silent
-    CPU fallback.  Also pins float32 matmuls to full precision (no TF32), as
-    the JAX reference computes in full f32."""
+    CPU fallback.  Also pins float32 matmuls and convolutions to full
+    precision (no TF32), as the JAX reference computes in full f32, and
+    cuDNN to deterministic algorithms without autotuning (some of its
+    weight-gradient algorithms accumulate with atomics), so that a run
+    equals its repeat bit for bit."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -80,4 +83,6 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         )
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     return dev
