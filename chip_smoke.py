@@ -115,30 +115,33 @@ result line):
     configurations, then three claims bit for bit on the final parameters
     and optimizer state: --gossip-delay 0 == no delay, decentlam-sa at gap 0
     == decentlam, flat planes == per leaf at delay 1;
-20. checkpoint and resume at full width, 2 layers, 2 nodes, delay 1 and
+20. checkpoint and resume at full width with the vocabulary cut to
+    ``CHECK_VOCAB`` (as in phases 22, 23's checkpoint half and 32), 2
+    layers, 2 nodes, delay 1 and
     int8-row-ef on planes: a resumed run == an unbroken one bit for bit,
-    channel state included; the same checkpoint resumed without
+    channel state included; the step-2 checkpoint resumed without
     ``--flat-planes`` equals the saved planes unpacked and trains on; GB,
     save and restore seconds (under ``build/ckpt_smoke``, removed after);
 21. one process per node: phase 15's run with ``--simulate-nodes 4
     --gossip-impl ppermute``, 4 ranks sharing the card over gloo (every
-    message staged through pinned host memory), 3 steps: finite losses,
+    message staged through pinned host memory), 2 steps: finite losses,
     exactly 2 stage launches per rank and step (the plane stage at a node
     axis of 1), the step-0 loss equal to phase 15's to 1e-5 relative; the
     backend, step time, gossip seconds per round, staged GB/s, each rank's
     peak memory and the card's; the plane stages at one rank's (1, 648000,
     1024) beside phase 15's tail;
-22. at 4 layers, 2 steps, in one spawned group of 4 ranks: the distributed
+22. at 4 layers (the vocabulary cut), 2 steps, in one spawned group of 4
+    ranks: the distributed
     step against the stacked step for ppermute, allgather, decentlam-sa at
     delay 1, pmsgd (the psum mean), da-dmsgd and bf16 messages (the
     reference's distributed-vs-oracle tolerances), int8-row-ef and top-k
     (finite, egress telemetry), then bit for bit on every rank: planes ==
     per leaf, ``--fused-impl triton`` == ``torch``, delay 0 == undelayed
     for every algorithm;
-23. checkpoint, resume and the drill at full width, 2 layers, decentlam-sa
-    at delay 1 on planes: on 2 ranks a resumed run == an unbroken one bit
+23. checkpoint, resume and the drill, 2 layers, decentlam-sa at delay 1 on
+    planes: on 2 ranks (the vocabulary cut) a resumed run == an unbroken one bit
     for bit on every rank, the ring included; GB, save and restore seconds;
-    on 4 ranks ``--failure-drill`` 4 -> 2 with finite losses, the survivors' state ==
+    on 4 ranks at full width through the CLI ``--failure-drill`` 4 -> 2 with finite losses, the survivors' state ==
     ``elastic_reshape`` of the gathered state bit for bit (files under
     ``build/dist_smoke``, removed after).  Every spawned group has a
     deadline: a hung rank fails the phase;
@@ -183,18 +186,50 @@ result line):
     the reference tests' bounds for Fig. 2, Props. 1-3 and the gamma^2
     scaling) and the simulator's bitwise claims (event engine ==
     run_stacked for every algorithm; vectorized == per-node on
-    straggler_1slow).
+    straggler_1slow; with ``SimSpec(sparse=exact|delta)``: every row
+    touched == dense gossip in both engines, and vectorized == per-node
+    under gradients that touch a third of the rows);
+30. row-sparse gossip, one process per node: 4 ranks sharing the card over
+    gloo, qwen3-0.6b at full width cut to 2 layers, decentlam on exp,
+    planes, through ``build_dist_train_step``: exact mode and delta mode;
+    per step and rank the dirty fraction, ``vol``'s sparse and dense bytes,
+    the bytes sent and staged, gossip seconds, step time, peak memory; one
+    dense round on exact mode's trained planes beside them; exact mode's
+    clean rows at their initial bits on every rank, the plain stage == the
+    kernel (planes, momentum, mask) and every row dirty == the dense
+    channel, bit for bit; 2 stage launches per rank and step; the stage kernel at
+    one rank's plane beside its bound;
+31. the fault-tolerant runtime on phase 15's run (full width and depth, 4
+    stacked nodes, planes): an empty ChaosSchedule and ``--resilient``
+    without faults == the unwrapped run bit for bit over 3 steps; one
+    gossip round alone with and without the resilient layer; 16 steps of
+    node 1 silenced for steps 2..13 under the resilient layer and the host
+    health loop (the monitor's states per step, node 1 distrusted while
+    SUSPECT or DEAD, one round's healed mix on a slice == healed_W @ x in
+    float64, node 1 rejoining from a materialized snapshot of node 0:
+    plane == snapshot, momentum zero, losses finite after), and in the same
+    run a NaN round from node 2 quarantined with every parameter finite; 2
+    launches per step; at 4 layers the plain stage == the kernel under
+    faults;
+32. chaos and the resilient layer on 4 ranks over gloo, 2 layers (the
+    vocabulary cut), 4 steps,
+    with the CLI's schedule parser and health loop: the gathered sender
+    gaps and the monitor's states == the stacked run's, the final
+    parameters and optimizer state within the reference's
+    distributed-vs-oracle tolerance of it (in phase 30's spawned group,
+    which runs before phase 31).
 
 Phases 6 and 9 also run flash at whisper-tiny's two non-causal shapes
 (the encoder's 1500 x 1500, the cross-attention's 224 x 1500).  The line
 before the last is the per-kernel JSON record (the stage kernel on the
-per-leaf, plane, staleness, MoE and whisper paths; flash on the qwen3-0.6b,
-hymba-1.5b and whisper-tiny serve paths; mLSTM on xlstm-350m's); the last
+per-leaf, plane, staleness, MoE, whisper and row-sparse paths; flash on the qwen3-0.6b, hymba-1.5b and whisper-tiny serve paths;
+mLSTM on xlstm-350m's); the last
 line is
 ``{"ok": true, "device": {...}}``.  Triton kernels compile at first use into
 ``build/triton`` inside the checkout; the two CUDA kernels are built by nvcc
 into ``build/cuda``, one nvcc each, both started at once while phases 2-5
-run.
+run.  The profiles are read from the profiler's raw events (``_Trace``),
+held against torch's own parse on every serve path's two decode steps.
 """
 
 from __future__ import annotations
@@ -363,8 +398,8 @@ def _profiled_train(torch, extra=(), watch=None, arch=MAIN["arch"], depth=0):
     steps 1..MAIN["steps"]-1 run unprofiled (the step time), the profiler
     warms up on the next one and records the last two (where the device
     time goes).  ``watch(step, state, metrics)``, if given, sees every step.
-    Returns ``(result, launches by op, total launches, profiler events,
-    unprofiled step ms)``."""
+    Returns ``(result, launches by op, total launches, the profiled steps'
+    :class:`_Trace`, unprofiled step ms)``."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from repro_torch.kernels.fused_update.kernel import fused_stage_launch, reset_launches
@@ -374,7 +409,7 @@ def _profiled_train(torch, extra=(), watch=None, arch=MAIN["arch"], depth=0):
     traced: list = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=MAIN["steps"], warmup=1, active=2, repeat=1),
-                 on_trace_ready=lambda p: traced.append(p.events())) as prof:
+                 on_trace_ready=lambda p: traced.append(_Trace(torch, p))) as prof:
         reset_launches()
         def on_step(*args):
             if watch is not None:
@@ -395,7 +430,7 @@ def phase_main_path(torch):
     """The main path, profiled (see :func:`_profiled_train`)."""
     import math
 
-    res, launches, total, events, step_ms = _profiled_train(torch)
+    res, launches, total, trace, step_ms = _profiled_train(torch)
     steps = len(res["losses"])
     if not all(math.isfinite(v) for v in res["losses"]):
         raise RuntimeError(f"non-finite loss on the main path: {res['losses']}")
@@ -411,7 +446,7 @@ def phase_main_path(torch):
         f"1..{MAIN['steps'] - 1}), {tokens / step_ms * 1e3:.0f} tokens/s, peak memory "
         f"{res['peak_mem_bytes'] / 2**30:.2f} GiB, step times "
         f"{[round(t, 4) for t in res['step_times_s']]}")
-    prof = _profile_report(torch, events, step_ms, 1e3 * sum(res["step_times_s"][-2:]) / 2)
+    prof = _profile_report(torch, trace, step_ms, 1e3 * sum(res["step_times_s"][-2:]) / 2)
     torch.cuda.empty_cache()
     return {"launches": launches, "peak": res["peak_mem_bytes"], "step_ms": step_ms,
             "busy_ms": prof["busy_ms"], "kernels": prof["kernels"]}
@@ -465,10 +500,63 @@ def _matmul_flops_per_step(cfg, n_nodes) -> float:
 # profiler ranges that also appear on the device timeline as annotations
 # (the scheduled profiler's steps, the port's named spans); not device work
 ANNOTATIONS = ("ProfilerStep", "slstm_recurrence", "moe_", "ssm_forward")
+# the model's profiler spans (models/xlstm.py, ssm.py, moe.py)
+TRACE_SPANS = ("slstm_recurrence", "ssm_forward", "moe_router", "moe_dispatch", "moe_experts",
+               "moe_combine")
 
 
-def _device_kernels(torch, events):
-    """``({kernel name: [launches, ms]}, busy ms)`` from a profiler's events."""
+class _Trace:
+    """One profiler window, read from the profiler's raw (Kineto) events:
+    every device event, and the start and thread of each synchronous CPU
+    op, by correlation id.  ``prof.events()`` builds a tree of Python
+    objects over every event first: tens of seconds a window on a prefill
+    wave or two training steps (10^5 launches), where this takes a few.
+    Names are demangled as ``prof.events()`` demangles them."""
+
+    def __init__(self, torch, prof):
+        cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+        names: dict[str, str] = {}
+
+        def name(e):
+            raw = e.name()
+            if raw not in names:
+                names[raw] = torch._C._demangle(raw) if len(raw) > 1 else raw
+            return names[raw]
+
+        self.device = []  # (name, ms, linked correlation id)
+        self.ops = {}     # correlation id -> (thread, start ns)
+        self.cpu = []     # (name, thread, start ns, end ns)
+        for e in prof.profiler.kineto_results.events():
+            if getattr(e, "is_hidden_event", lambda: False)():
+                continue
+            kind = e.device_type()
+            if kind == cuda:
+                self.device.append((name(e), (e.end_ns() - e.start_ns()) / 1e6,
+                                    e.linked_correlation_id()))
+            elif kind == cpu and not e.is_async() and e.start_thread_id() == e.end_thread_id():
+                thread, start = e.start_thread_id(), e.start_ns()
+                if e.linked_correlation_id() == 0:
+                    self.ops[e.correlation_id()] = (thread, start)
+                self.cpu.append((name(e), thread, start, e.end_ns()))
+
+
+def _device_kernels(torch, trace):
+    """``({kernel name: [launches, ms]}, busy ms)`` from a :class:`_Trace`."""
+    kernels: dict[str, list] = {}
+    for name, ms, _ in trace.device:
+        if not name.startswith(ANNOTATIONS):
+            k = kernels.setdefault(name, [0, 0.0])
+            k[0] += 1
+            k[1] += ms
+    busy = sum(v[1] for v in kernels.values())
+    if busy <= 0.0:
+        raise RuntimeError("the profiler recorded no device time")
+    return kernels, busy
+
+
+def _parsed_kernels(torch, events):
+    """:func:`_device_kernels` from ``prof.events()`` (torch's own parse):
+    what :func:`_check_trace` holds the raw reading against."""
     kernels: dict[str, list] = {}
     for e in events:
         if e.device_type == torch.autograd.DeviceType.CUDA and not e.name.startswith(
@@ -476,19 +564,16 @@ def _device_kernels(torch, events):
             k = kernels.setdefault(e.name, [0, 0.0])
             k[0] += 1
             k[1] += e.time_range.elapsed_us() / 1e3
-    busy = sum(v[1] for v in kernels.values())
-    if busy <= 0.0:
-        raise RuntimeError("the profiler recorded no device time")
-    return kernels, busy
+    return kernels
 
 
-def _profile_report(torch, events, step_ms, profiled_ms, flops=None):
-    """Where a main-path step's device time goes, from the profiler's events
-    over 2 steps, against the unprofiled step time ``step_ms``; ``flops`` is
+def _profile_report(torch, trace, step_ms, profiled_ms, flops=None):
+    """Where a main-path step's device time goes, from the profiler's
+    :class:`_Trace` of 2 steps, against the unprofiled step time ``step_ms``; ``flops`` is
     the step's matmul work (default: the qwen3-0.6b main path's)."""
     from repro_torch.configs import get_config
 
-    kernels, busy = _device_kernels(torch, events)
+    kernels, busy = _device_kernels(torch, trace)
     classes: dict[str, float] = {}
     for name, (_, ms) in kernels.items():
         classes[_kernel_class(name)] = classes.get(_kernel_class(name), 0.0) + ms
@@ -833,9 +918,9 @@ def _timed(torch, fn, times):
     return run
 
 
-def _serve_profile(torch, events, what, wall_ms, steps):
+def _serve_profile(torch, trace, what, wall_ms, steps):
     """Device busy share and time by class of ``steps`` serve calls."""
-    kernels, busy = _device_kernels(torch, events)
+    kernels, busy = _device_kernels(torch, trace)
     if busy > wall_ms:
         raise RuntimeError(f"{what}: device time {busy:.1f} ms exceeds the wall {wall_ms:.1f}")
     classes: dict[str, float] = {}
@@ -859,8 +944,9 @@ def _serve_main_path(torch, cfg, phase, launch, reset, per_wave, profile_extra=N
     count set to 0 by ``reset``) launched exactly ``per_wave`` times per
     prefill wave; prints prefill ms per wave, decode ms per step, generated
     tokens/s and peak memory; then profiles one prefill wave
-    (``profile_extra(events)`` adds to its report) and two decode steps
-    (``decode_extra(events)`` likewise).  Returns the kernel's launches in
+    (``profile_extra(trace)`` adds to its report, a :class:`_Trace`) and two
+    decode steps (``decode_extra(trace)`` likewise; their raw reading held
+    against ``prof.events()``, :func:`_check_trace`).  Returns the kernel's launches in
     the engine run."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -921,11 +1007,11 @@ def _serve_main_path(torch, cfg, phase, launch, reset, per_wave, profile_extra=N
         _, cache = prefill(params, batch)
         torch.cuda.synchronize()
         wave_ms = 1e3 * (time.perf_counter() - t)
-    events = prof.events()
-    _serve_profile(torch, events, f"one {cfg.name} prefill wave", wave_ms, 1)
+    trace = _Trace(torch, prof)
+    _serve_profile(torch, trace, f"one {cfg.name} prefill wave", wave_ms, 1)
     if profile_extra is not None:
-        profile_extra(events)
-    del events, prof
+        profile_extra(trace)
+    del trace, prof
     tok = batch["tokens"][:, -1:]
     tvec = torch.full((SERVE["slots"],), SERVE["max_prompt"] - 1, dtype=torch.int32)
     decode(params, tok, cache, tvec)
@@ -936,9 +1022,11 @@ def _serve_main_path(torch, cfg, phase, launch, reset, per_wave, profile_extra=N
             decode(params, tok, cache, tvec)
         torch.cuda.synchronize()
         steps_ms = 1e3 * (time.perf_counter() - t)
-    _serve_profile(torch, prof.events(), f"two {cfg.name} decode steps", steps_ms, 2)
+    trace = _Trace(torch, prof)
+    _serve_profile(torch, trace, f"two {cfg.name} decode steps", steps_ms, 2)
+    _check_trace(torch, prof, trace, f"two {cfg.name} decode steps")
     if decode_extra is not None:
-        decode_extra(prof.events())
+        decode_extra(trace)
     del eng, params, cache
     torch.cuda.empty_cache()
     return launches
@@ -1218,11 +1306,33 @@ def phase_mlstm_vs_plain(torch, built):
         log(f"  {what}: {k_err:.3g}; {p_err:.3g}; {o_err:.3g}; {r_err:.3g}")
 
 
-def _span_report(torch, events, span, what, steps):
-    """Device time and launches of the kernels launched inside the profiler
-    span ``span`` (its ops' kernels, the span's own device annotation
-    left out); returns the device ms per call (None where not measured)."""
-    # the span's CPU range (its copy on the device timeline is an annotation)
+def _span_totals(trace, span):
+    """``(spans, device ms, launches)`` of the kernels launched inside the
+    profiler span ``span``: those whose launching op started within one of
+    the span's CPU ranges, on its thread (the span's own device annotation
+    left out)."""
+    import bisect
+
+    ranges: dict[int, list] = {}
+    for name, thread, start, end in trace.cpu:
+        if name == span:
+            ranges.setdefault(thread, []).append((start, end))
+    for r in ranges.values():
+        r.sort()
+    starts = {t: [s for s, _ in r] for t, r in ranges.items()}
+    ms = n = 0
+    for name, kms, corr in trace.device:
+        op = trace.ops.get(corr)
+        if op is None or op[0] not in ranges or name.startswith(ANNOTATIONS):
+            continue
+        i = bisect.bisect_right(starts[op[0]], op[1]) - 1
+        if i >= 0 and op[1] <= ranges[op[0]][i][1]:
+            ms, n = ms + kms, n + 1
+    return sum(map(len, ranges.values())), ms, n
+
+
+def _parsed_span_totals(torch, events, span):
+    """:func:`_span_totals` from ``prof.events()``'s tree of CPU ops."""
     spans = [e for e in events if e.name == span
              and e.device_type == torch.autograd.DeviceType.CPU]
 
@@ -1238,11 +1348,42 @@ def _span_report(torch, events, span, what, steps):
     for e in spans:
         sms, sn = walk(e)
         ms, n = ms + sms, n + sn
+    return len(spans), ms, n
+
+
+def _check_trace(torch, prof, trace, what):
+    """The raw reading against torch's own parse of the same (small)
+    window: every device kernel's launches and time, and each span's."""
+    events = prof.events()
+
+    def close(a, b):  # counts exactly, milliseconds to 1e-6
+        return len(a) == len(b) and all(
+            abs(x - y) <= 1e-6 * (1.0 + abs(x)) if isinstance(x, float) else x == y
+            for x, y in zip(a, b))
+
+    want, (got, _) = _parsed_kernels(torch, events), _device_kernels(torch, trace)
+    bad = sorted(k for k in set(want) | set(got)
+                 if k not in want or k not in got or not close(want[k], got[k]))
+    spans = sorted({e.name for e in events if e.name in TRACE_SPANS})
+    bad += [s for s in spans
+            if not close(_parsed_span_totals(torch, events, s), _span_totals(trace, s))]
+    if bad:
+        raise RuntimeError(f"{what}: the raw profiler reading differs from prof.events() on "
+                           f"{bad[:5]}")
+    log(f"  ({what}: the raw profiler reading == prof.events() on {len(want)} kernels and "
+        f"the spans {spans})")
+
+
+def _span_report(torch, trace, span, what, steps):
+    """Device time and launches of the kernels launched inside the profiler
+    span ``span`` (:func:`_span_totals`); returns the device ms per call
+    (None where not measured)."""
+    spans, ms, n = _span_totals(trace, span)
     if not spans or ms <= 0.0:
         log(f"  {span}: not measured (the profiler attributed no device time to "
-            f"{len(spans)} spans)")
+            f"{spans} spans)")
         return None
-    log(f"  of which inside the {len(spans) // steps} {span} spans per call ({what}): "
+    log(f"  of which inside the {spans // steps} {span} spans per call ({what}): "
         f"{ms / steps:.2f} ms device time, {n // steps} launches")
     return ms / steps
 
@@ -1254,10 +1395,10 @@ def phase_xlstm_serve_main_path(torch):
 
     cfg = get_config(XSERVE_ARCH)
 
-    def extra(events):
+    def extra(trace):
         # the projections: the matmul kernels with few launches (the sLSTM's
         # per-step recurrent products launch thousands of times)
-        kernels, _ = _device_kernels(torch, events)
+        kernels, _ = _device_kernels(torch, trace)
         big = {n: v for n, v in kernels.items() if _kernel_class(n) == "matmul (cuBLAS)"
                and v[0] < 1000}
         big_ms = sum(v[1] for v in big.values())
@@ -1265,7 +1406,7 @@ def phase_xlstm_serve_main_path(torch):
         log(f"  projection matmuls: {flops / 1e12:.2f} TFLOP per wave (from the shapes) in "
             f"{big_ms:.1f} ms of {sum(v[0] for v in big.values())} launches: "
             f"{flops / big_ms / 1e9:.1f} TFLOP/s of the 67 f32 peak")
-        _span_report(torch, events, "slstm_recurrence", "the sLSTM layers' time loops", 1)
+        _span_report(torch, trace, "slstm_recurrence", "the sLSTM layers' time loops", 1)
         # the mlstm_chunk call's three passes, per call
         parts = {p: [0, 0.0] for p in ("gate_scan", "states", "outputs")}
         for n, (cnt, ms) in kernels.items():
@@ -1707,7 +1848,7 @@ def phase_flat_planes_main_path(torch, leaf, per_stage):
     from repro_torch.train.train_state import init_train_state, model_plane_layout
     from repro_torch.utils import tree_leaves
 
-    res, launches, total, events, step_ms = _profiled_train(torch, ["--flat-planes"])
+    res, launches, total, trace, step_ms = _profiled_train(torch, ["--flat-planes"])
     steps = len(res["losses"])
     if not all(math.isfinite(v) for v in res["losses"]):
         raise RuntimeError(f"non-finite loss on the flat-plane path: {res['losses']}")
@@ -1735,7 +1876,7 @@ def phase_flat_planes_main_path(torch, leaf, per_stage):
         f"{tokens / step_ms * 1e3:.0f} tokens/s, peak memory {peak:.2f} GiB (phase 3, per "
         f"leaf: {leaf['peak'] / 2**30:.2f} GiB), step times "
         f"{[round(t, 4) for t in res['step_times_s']]}")
-    prof = _profile_report(torch, events, step_ms, 1e3 * sum(res["step_times_s"][-2:]) / 2)
+    prof = _profile_report(torch, trace, step_ms, 1e3 * sum(res["step_times_s"][-2:]) / 2)
     log(f"  device busy {prof['busy_ms']:.1f} ms/step (phase 3: {leaf['busy_ms']:.1f}); "
         f"fused_update {prof['classes'].get('fused_update (Triton)', 0.0):.3f} ms/step in the "
         "profile; the kernels whose device time moved most against phase 3's profile "
@@ -2077,7 +2218,7 @@ def phase_staleness_main_path(torch, flat):
         fleet_node_gaps(ring, state["channel"]).tolist())
     seen, undo = _watch_sg(torch)
     try:
-        res, launches, total, events, step_ms = _profiled_train(torch, STALE, watch)
+        res, launches, total, trace, step_ms = _profiled_train(torch, STALE, watch)
     finally:
         undo()
     by_col = dict(fused_stage_launch.launches_by_col)
@@ -2110,7 +2251,7 @@ def phase_staleness_main_path(torch, flat):
         f"peak memory {peak:.2f} GiB (reckoned {PEAK_GIB['delay 1']} GiB; phase 15: "
         f"{flat['peak'] / 2**30:.2f} GiB), step times "
         f"{[round(t, 4) for t in res['step_times_s']]}")
-    prof = _profile_report(torch, events, step_ms, 1e3 * sum(res["step_times_s"][-2:]) / 2)
+    prof = _profile_report(torch, trace, step_ms, 1e3 * sum(res["step_times_s"][-2:]) / 2)
     log(f"  device busy {prof['busy_ms']:.1f} ms/step (phase 15: {flat['busy_ms']:.1f})")
     torch.cuda.empty_cache()
     gossip = _gossip_timing(torch)
@@ -2146,7 +2287,7 @@ def phase_compressed_main_path(torch, flat):
     tele = []
     watch = lambda step, state, metrics: tele.append(
         (float(state["channel"]["t"]["bytes"]), int(state["channel"]["t"]["rounds"])))
-    res, launches, total, events, step_ms = _profiled_train(torch, COMPRESSED, watch)
+    res, launches, total, trace, step_ms = _profiled_train(torch, COMPRESSED, watch)
     steps = len(res["losses"])
     if not all(math.isfinite(v) for v in res["losses"]):
         raise RuntimeError(f"non-finite loss with int8-row-ef gossip: {res['losses']}")
@@ -2170,7 +2311,7 @@ def phase_compressed_main_path(torch, flat):
     log(f"  step {step_ms:.1f} ms (phase 15: {flat['step_ms']:.1f}), peak memory {peak:.2f} GiB "
         f"(reckoned {PEAK_GIB['int8-row-ef']} GiB), step times "
         f"{[round(t, 4) for t in res['step_times_s']]}")
-    prof = _profile_report(torch, events, step_ms, 1e3 * sum(res["step_times_s"][-2:]) / 2)
+    prof = _profile_report(torch, trace, step_ms, 1e3 * sum(res["step_times_s"][-2:]) / 2)
     log(f"  device busy {prof['busy_ms']:.1f} ms/step (phase 15: {flat['busy_ms']:.1f}); the "
         f"gossip rounds alone at the full plane: phase 17")
     torch.cuda.empty_cache()
@@ -2270,7 +2411,21 @@ def phase_gossip_kernel_vs_plain(torch):
         torch.cuda.empty_cache()
 
 
-# phase 20: checkpoint and resume at full width, 2 layers, 2 nodes
+# the vocabulary of the runs that only check a path (phases 20, 22, 23's
+# checkpoint half and 32): qwen3-0.6b's 151,936-row embedding and head are 86 %
+# of a 4-layer node's parameters and set the bytes that the loopback gossip and
+# the checkpoints move; every layer keeps its full width
+CHECK_VOCAB = 16384
+
+
+def _check_config(cfg):
+    import dataclasses
+
+    return dataclasses.replace(cfg, vocab_size=CHECK_VOCAB)
+
+
+# phase 20: checkpoint and resume at full width (the vocabulary cut to
+# CHECK_VOCAB), 2 layers, 2 nodes
 CKPT = ["--nodes", "2", "--arch", "qwen3-0.6b", "--depth", "2", "--seq-len",
         str(MAIN["seq_len"]), "--per-node-batch", str(MAIN["per_node_batch"]),
         "--algorithm", "decentlam-sa", "--gossip-delay", "1", "--compression", "int8-row-ef",
@@ -2288,13 +2443,16 @@ def _host_copy(state) -> dict:
 
 def phase_checkpoint_resume(torch):
     """Phase 17's algorithm with delay 1 and int8-row-ef on planes, qwen3-0.6b
-    at full width, 2 layers, 2 nodes: 4 steps unbroken (saving at step 2;
-    its final checkpoint, which nothing reads, is not written) against 2 steps, a state restored with --resume from the step-2
+    at full width with the vocabulary cut to CHECK_VOCAB (through the CLI's
+    ``_model_config``), 2 layers, 2 nodes: 4 steps unbroken (saving at step 2)
+    against 2 steps, a state restored with --resume from the step-2
     checkpoint in a fresh directory, and 2 more: losses, parameters,
-    optimizer and the whole channel state bit for bit.  Then the resumed
-    run's checkpoint restored without --flat-planes: parameters and
-    momentum equal the saved planes unpacked, the channel state starts
-    afresh, and 2 more steps have finite losses."""
+    optimizer and the whole channel state bit for bit.  Then the same
+    step-2 checkpoint restored without --flat-planes: parameters and
+    momentum equal the planes it saved (copied to the host as it was
+    written), the channel state starts afresh, and 2 more steps have finite
+    losses.  The runs' final checkpoints, which nothing reads, are not
+    written."""
     import dataclasses
     import shutil
 
@@ -2309,7 +2467,8 @@ def phase_checkpoint_resume(torch):
     root = os.path.join(HERE, "build", "ckpt_smoke")
     a, b = os.path.join(root, "unbroken"), os.path.join(root, "resumed")
     free = shutil.disk_usage(HERE).free
-    log(f"phase 20: {free / 1e9:.1f} GB free on the checkout's disk")
+    log(f"phase 20: vocabulary {CHECK_VOCAB:,}; {free / 1e9:.1f} GB free on the checkout's "
+        "disk")
     save, restore = train.save_checkpoint, train.restore_checkpoint
     times = {"save": [], "restore": []}
 
@@ -2324,12 +2483,17 @@ def phase_checkpoint_resume(torch):
 
     timed_save = timed("save", save)
 
-    def save_but_unbroken_final(directory, state, **kw):
-        if directory == a and int(state["step"]) == 4:
+    saved = {}
+
+    def save_but_finals(directory, state, **kw):
+        if int(state["step"]) == 4:  # the runs' final checkpoints: nothing reads them
             return os.path.join(directory, "step_00000004 (not written)")
+        saved.update(_host_copy(state))  # what the step-2 checkpoint holds
         return timed_save(directory, state, **kw)
 
-    train.save_checkpoint = save_but_unbroken_final
+    model_config = train._model_config
+    train._model_config = lambda args: _check_config(model_config(args))
+    train.save_checkpoint = save_but_finals
     train.restore_checkpoint = timed("restore", restore)
     try:
         ha, hb = {}, {}
@@ -2355,29 +2519,28 @@ def phase_checkpoint_resume(torch):
         log(f"  unbroken {ra['losses']} == 2 steps, save, --resume, 2 steps {rb['losses']}; "
             f"the final state bit for bit in all {len(straight)} tensors "
             f"({len(chan)} of the channel: {chan})")
-        shutil.rmtree(os.path.join(b, "step_00000002"))
 
-        # the same checkpoint into the per-leaf form, then 2 steps on it
-        cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=2)
+        # the step-2 checkpoint into the per-leaf form, then 2 steps on it
+        cfg = _check_config(dataclasses.replace(get_config("qwen3-0.6b"), n_layers=2))
         layout = model_plane_layout(cfg)
         tcfg = TrainConfig(algorithm="decentlam-sa", gossip_delay=1, compression="int8-row-ef",
                            fused_update=True, fused_impl="triton",
                            schedule=ScheduleConfig(kind="warmup_cosine", peak_lr=3e-3,
-                                                   warmup_steps=1, total_steps=6))
+                                                   warmup_steps=1, total_steps=4))
         step_fn, channel = build_train_step(cfg, tcfg, 2)
         state = train.resume_state(b, cfg, channel, None, False, 2, torch.device("cuda"))
-        saved_m = {"float32": resumed["opt/m/float32"]}
+        saved_m = {"float32": saved["opt/m/float32"]}
         m_tree = layout.unpack(saved_m, dtype=torch.float32, leading=1)
         got = dict(zip(tree_paths(state["params"]), tree_leaves(state["params"])))
         want_m = dict(zip(tree_paths(m_tree), tree_leaves(m_tree)))
         got_m = dict(zip(tree_paths(state["opt"]["m"]), tree_leaves(state["opt"]["m"])))
-        bad = [p for p, t in got.items() if not _same_bits(torch, t.cpu(), resumed[f"params/{p}"])]
+        bad = [p for p, t in got.items() if not _same_bits(torch, t.cpu(), saved[f"params/{p}"])]
         bad += [p for p, t in got_m.items() if not _same_bits(torch, t.cpu(), want_m[p])]
         # the residual and the ring start afresh; the telemetry carries on
         fresh = all(not t.any() for k, v in state["channel"].items() if k != "t"
                     for t in tree_leaves(v))
         fresh = fresh and all(_same_bits(torch, state["channel"]["t"][k].cpu(),
-                                         resumed[f"channel/t/{k}"]) for k in ("bytes", "rounds"))
+                                         saved[f"channel/t/{k}"]) for k in ("bytes", "rounds"))
         if bad or sorted(got_m) != sorted(want_m) or not fresh:
             raise RuntimeError(f"per-leaf resume: {bad} differ from the saved planes, channel "
                                f"re-initialized: {fresh}")
@@ -2386,21 +2549,22 @@ def phase_checkpoint_resume(torch):
         data = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=MAIN["seq_len"],
                                              per_node_batch=MAIN["per_node_batch"], n_nodes=2))
         losses = []
-        for k in (4, 5):
+        for k in (2, 3):
             state, metrics = step_fn(state, {n: torch.from_numpy(v).cuda()
                                              for n, v in data.batch(k).items()})
             losses.append(float(metrics["loss"]))
-        if state["step"] != 6 or not all(map(math.isfinite, losses)):
+        if state["step"] != 4 or not all(map(math.isfinite, losses)):
             raise RuntimeError(f"per-leaf resume: losses {losses} to step {state['step']}")
-        del state
+        del state, saved
         torch.cuda.empty_cache()
-        log(f"  the resumed run's step-4 checkpoint without --flat-planes: {n_leaves} parameter "
+        log(f"  the step-2 checkpoint without --flat-planes: {n_leaves} parameter "
             f"leaves and every momentum leaf == the saved planes unpacked, the channel state "
             f"re-initialized (zeros) but for the telemetry; 2 more steps, losses {losses}")
         log(f"  {gb:.2f} GB per checkpoint; save {[round(t, 1) for t in times['save']]} s, "
             f"restore {[round(t, 1) for t in times['restore']]} s")
     finally:
         train.save_checkpoint, train.restore_checkpoint = save, restore
+        train._model_config = model_config
         shutil.rmtree(root, ignore_errors=True)
 
 # ---------------------------------------------------------------------------
@@ -2413,7 +2577,7 @@ DIST = ["--simulate-nodes", str(MAIN["nodes"]), "--gossip-impl", "ppermute", "--
         MAIN["arch"], "--topology", "exp", "--algorithm", "decentlam", "--seq-len",
         str(MAIN["seq_len"]), "--per-node-batch", str(MAIN["per_node_batch"]), "--flat-planes",
         "--fused-update", "--fused-impl", "triton", "--log-every", "1"]
-DIST_STEPS = 3
+DIST_STEPS = 2  # 3 before: the script's time limit
 # a deadline for every spawned group: a hung rank fails the phase
 DIST_TIMEOUT_S = 600
 # reckoned device memory per rank at its gossip (GiB): x, m, g, the payload
@@ -2447,7 +2611,7 @@ def _dist_records(tag, world):
 
 def phase_dist_main_path(torch, flat):
     """Phase 15's run as 4 processes, one node each (``--simulate-nodes 4
-    --gossip-impl ppermute``), 3 steps: finite losses, exactly 2 stage
+    --gossip-impl ppermute``), 2 steps: finite losses, exactly 2 stage
     launches per step on every rank (the plane stage at a node axis of 1),
     the step-0 loss equal to phase 15's to 1e-5 relative (both depend only
     on the init and the data); the backend, step time, gossip seconds per
@@ -2550,7 +2714,7 @@ def _dist_tcfg(depth, fields):
     from repro_torch.core.schedules import ScheduleConfig
     from repro_torch.train.step import TrainConfig
 
-    cfg = dataclasses.replace(get_config(MAIN["arch"]), n_layers=depth)
+    cfg = _check_config(dataclasses.replace(get_config(MAIN["arch"]), n_layers=depth))
     tcfg = TrainConfig(**{"fused_update": True, "fused_impl": "triton",
                           "schedule": ScheduleConfig(kind="warmup_cosine", peak_lr=DIST_LR,
                                                      warmup_steps=1, total_steps=3),
@@ -2571,12 +2735,67 @@ def _comparable(state, layout):
     return dict(zip(tree_paths(tree), tree_leaves(tree)))
 
 
+def _share_nodes(group, tree):
+    """Each rank's node of rank 0's stacked ``tree`` (leaf path -> ``(n,
+    ...)`` tensor on the card; None on the other ranks): leaf path -> a
+    ``(1, ...)`` view of rank 0's memory.  The ranks share the card, so a
+    CUDA IPC handle passes each node without a copy (a gather over gloo
+    moved ~11 GB per comparison).  Every rank calls it; rank 0 keeps
+    ``tree`` alive until every rank has dropped its views (a collective
+    after the comparison), then calls ``torch.cuda.ipc_collect()``."""
+    import io
+    import pickle
+    from multiprocessing.reduction import ForkingPickler
+
+    import torch.distributed as dist
+    import torch.multiprocessing  # noqa: F401  (registers the CUDA tensor reductions)
+
+    blobs = [None]
+    if group.rank == 0:
+        blobs = [[]]
+        for r in range(1, group.world):
+            buf = io.BytesIO()
+            ForkingPickler(buf, pickle.HIGHEST_PROTOCOL).dump(
+                {k: v.detach()[r:r + 1] for k, v in tree.items()})
+            blobs[0].append(buf.getvalue())
+    dist.broadcast_object_list(blobs, src=0, group=group.pg)
+    if group.rank == 0:
+        return {k: v.detach()[:1] for k, v in tree.items()}
+    return pickle.loads(blobs[0][group.rank - 1])
+
+
+def _node_errors(group, mine, tree):
+    """max |mine - rank 0's stacked node| over the parameters and over the
+    optimizer state, the largest over the ranks, on every rank (None if a
+    rank's leaves differ from the stacked run's); ``tree`` as for
+    :func:`_share_nodes`.  Nothing of rank 0's memory is read after it
+    returns."""
+    import torch
+    import torch.distributed as dist
+
+    theirs = _share_nodes(group, tree)
+    errs = None
+    if sorted(theirs) == sorted(mine):
+        errs = {part: max(float((mine[k] - theirs[k]).abs().max()) for k in theirs
+                          if k.startswith(part)) for part in ("params", "opt")}
+    del theirs
+    torch.cuda.synchronize(group.device)
+    out = [None] * group.world
+    dist.all_gather_object(out, errs, group=group.pg)
+    if group.rank == 0:
+        torch.cuda.ipc_collect()
+    if any(e is None for e in out):
+        return None
+    return {part: max(e[part] for e in out) for part in ("params", "opt")}
+
+
 def _dist_vs_stacked_rank(group, depth, steps):
     """The body of phase 22 on one rank (see :func:`phase_dist_vs_stacked`).
-    Rank 0 returns the report lines; any failed check raises.  Only the
-    configurations held against the stacked run gather their parameters and
-    optimizer state to rank 0 (compared there on the card); the finite and
-    bitwise checks run on each rank's own node, their verdicts gathered."""
+    Rank 0 returns the report lines; any failed check raises.  A
+    configuration held against the stacked run is compared on each rank's
+    own node: rank 0 runs the stacked step and passes each rank its node
+    through :func:`_share_nodes`; the finite and bitwise checks also run on
+    each rank's own node, their verdicts gathered."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2588,7 +2807,7 @@ def _dist_vs_stacked_rank(group, depth, steps):
     from repro_torch.core.update_spec import run_update, update_spec
     from repro_torch.data.synthetic import SyntheticLM, SyntheticLMConfig
     from repro_torch.train.step import build_dist_train_step, build_train_step
-    from repro_torch.train.train_state import gather_state, init_train_state, model_plane_layout
+    from repro_torch.train.train_state import init_train_state, model_plane_layout
 
     lead = group.rank == 0
     dev = group.device
@@ -2646,29 +2865,27 @@ def _dist_vs_stacked_rank(group, depth, steps):
                      f"telemetry {float(want):.6g} B after {steps} rounds == the f32 sum of "
                      f"wire_bytes")
         elif tol is not None:
-            host = gather_state({"step": steps, "params": state["params"], "opt": state["opt"]},
-                                group)
-            del state, mine
+            del state
             torch.cuda.empty_cache()
+            sstate = want = None
             if lead:
-                got = _comparable(host, layout)
                 sstate, slosses = run(lambda: build_train_step(cfg, tcfg, group.world),
                                       group.world, cfg, tcfg, layout)
                 want = _comparable(sstate, layout)
-                if sorted(want) != sorted(got):
-                    raise RuntimeError(f"{name}: leaves differ from the stacked run's")
-                errs = {part: max(float((got[k].to(dev) - want[k]).abs().max()) for k in want
-                                  if k.startswith(part)) for part in ("params", "opt")}
-                del sstate, want, got
-                # the momentum is the mix's difference over lr: the parameter
-                # tolerance carries over to it divided by the peak lr
-                tols = {"params": tol, "opt": tol / DIST_LR}
-                if not all(errs[p] < tols[p] for p in errs):
-                    raise RuntimeError(f"{name}: max |distributed - stacked| {errs} (tol {tols})")
+                torch.cuda.synchronize(dev)
+            errs = _node_errors(group, mine, want)
+            del sstate, want
+            if errs is None:
+                raise RuntimeError(f"{name}: leaves differ from the stacked run's")
+            # the momentum is the mix's difference over lr: the parameter
+            # tolerance carries over to it divided by the peak lr
+            tols = {"params": tol, "opt": tol / DIST_LR}
+            if not all(errs[p] < tols[p] for p in errs):
+                raise RuntimeError(f"{name}: max |distributed - stacked| {errs} (tol {tols})")
+            if lead:
                 line += (f"; stacked {[round(v, 4) for v in slosses]}; max |distributed - "
                          f"stacked| {errs['params']:.3g} over the final parameters (< {tol}), "
                          f"{errs['opt']:.3g} over the optimizer state (< {tol} / lr)")
-            del host
         lines.append(line)
         state = mine = None
         torch.cuda.empty_cache()
@@ -2717,8 +2934,8 @@ def _dist_vs_stacked_rank(group, depth, steps):
 def phase_dist_vs_stacked(torch):
     """At 4 layers, 2 steps, in one spawned group of 4 ranks through the
     library: each configuration of DIST_VS_STACKED on the distributed step,
-    its final parameters and optimizer state gathered to rank 0 and held
-    against the stacked step's (rank 0 runs it) at the reference's
+    each rank's final parameters and optimizer state held against its node
+    of the stacked step's (rank 0 runs it) at the reference's
     distributed-vs-oracle tolerances (2e-5; 5e-2 with bf16 messages;
     int8-row-ef and top-k finite, with the egress telemetry); then bit for
     bit within the distributed path: planes == per leaf, the stage kernel
@@ -2731,16 +2948,18 @@ def phase_dist_vs_stacked(torch):
     lines = run_ranks(_dist_vs_stacked_rank, MAIN["nodes"], depth, steps,
                       timeout_s=DIST_TIMEOUT_S)[0]
     held = sum(isinstance(tol, float) for _, _, tol in DIST_VS_STACKED)
-    log(f"phase 22: {depth} layers, {steps} steps, {MAIN['nodes']} ranks on the card, "
+    log(f"phase 22: {depth} layers, vocabulary {CHECK_VOCAB:,}, {steps} steps, "
+        f"{MAIN['nodes']} ranks on the card, "
         f"distributed == stacked in {held} configurations, the finite ones, and the "
         f"bitwise claims ({time.perf_counter() - t0:.1f} s):")
     for line in lines:
         log(f"  {line}")
 
 
-# phase 23: checkpoint and resume at full width, 2 layers, on 2 ranks (4
-# until PR 18: the script's time limit; the checkpoint's I/O and the loopback
-# gossip scale with the ranks), and the drill on 4 ranks (4 -> 2)
+# phase 23: checkpoint and resume at full width with the vocabulary cut, 2
+# layers, on 2 ranks (4 before: the script's time limit; the checkpoint's
+# I/O and the loopback gossip scale with the ranks), and the drill at full
+# width on 4 ranks (4 -> 2)
 DIST_CKPT_RANKS = 2
 DIST_CKPT = ["--simulate-nodes", str(MAIN["nodes"]), "--arch", MAIN["arch"], "--depth", "2",
              "--seq-len", str(MAIN["seq_len"]), "--per-node-batch", str(MAIN["per_node_batch"]),
@@ -2793,7 +3012,7 @@ def _dist_resume_rank(group, root, argv):
     from repro_torch.utils import tree_leaves, tree_paths
 
     args = train._parse(argv)
-    cfg, tcfg = train._model_config(args), train._train_config(args)
+    cfg, tcfg = _check_config(train._model_config(args)), train._train_config(args)
     layout = model_plane_layout(cfg)
     dev, lead = group.device, group.rank == 0
     data = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
@@ -2857,12 +3076,13 @@ def _dist_resume_rank(group, root, argv):
 
 
 def phase_dist_checkpoint_resume(torch):
-    """Phase 17's algorithm at delay 1 on planes, qwen3-0.6b at full width, 2
-    layers, 2 processes: 4 steps unbroken against 2 steps, a checkpoint
+    """Phase 17's algorithm at delay 1 on planes, qwen3-0.6b at full width
+    with the vocabulary cut to CHECK_VOCAB, 2 layers, 2 processes: 4 steps
+    unbroken against 2 steps, a checkpoint
     (gathered to rank 0 and written), the trainer's resume (read on rank 0
     and scattered) and 2 more: losses, and every rank's parameters,
     optimizer and channel state (the ring and its count included) bit for
-    bit; GB, save and restore seconds.  Then, on 4 processes,
+    bit; GB, save and restore seconds.  Then, on 4 processes at full width,
     --failure-drill 4 -> 2 over 3 steps: finite losses, and the survivors' state after the shrink ==
     elastic_reshape of the gathered state bit for bit."""
     import shutil
@@ -2884,7 +3104,8 @@ def phase_dist_checkpoint_resume(torch):
         raise RuntimeError(f"resumed losses {rep['losses_b']}, unbroken {rep['losses_a']}; "
                            f"tensors that differ per rank {rep['differ']}")
     chan = [k for k in rep["tensors"] if k.startswith("channel/")]
-    log(f"phase 23: 2 layers, {DIST_CKPT_RANKS} processes, decentlam-sa at delay 1 on planes: "
+    log(f"phase 23: 2 layers, vocabulary {CHECK_VOCAB:,}, {DIST_CKPT_RANKS} processes, "
+        f"decentlam-sa at delay 1 on planes: "
         f"unbroken {rep['losses_a']} == 2 steps, save, resume, 2 steps {rep['losses_b']}; "
         f"every rank's final state bit for bit in all {len(rep['tensors'])} tensors "
         f"({len(chan)} of the channel: {chan}); {time.perf_counter() - t:.1f} s")
@@ -2993,7 +3214,7 @@ def phase_moe_main_path(torch):
 
     cfg = dataclasses.replace(get_config(MOE["arch"]), n_layers=MOE["depth"])
     _moe_layer_no_sync(torch, cfg)
-    res, launches, total, events, step_ms = _profiled_train(
+    res, launches, total, trace, step_ms = _profiled_train(
         torch, ["--flat-planes"], arch=MOE["arch"], depth=MOE["depth"])
     steps = len(res["losses"])
     _finite_run(res, "the MoE main path", moe=True)
@@ -3012,13 +3233,13 @@ def phase_moe_main_path(torch):
     log(f"  step {step_ms:.1f} ms (mean of the unprofiled steps 1..{MAIN['steps'] - 1}), "
         f"{tokens / step_ms * 1e3:.0f} tokens/s, peak memory {peak:.2f} GiB (reckoned "
         f"~{MOE_PEAK_GIB} GiB), step times {[round(t, 4) for t in res['step_times_s']]}")
-    prof = _profile_report(torch, events, step_ms, 1e3 * sum(res["step_times_s"][-2:]) / 2,
+    prof = _profile_report(torch, trace, step_ms, 1e3 * sum(res["step_times_s"][-2:]) / 2,
                            flops=_moe_matmul_flops_per_step(cfg, MAIN["nodes"]))
     for span in MOE_SPANS:
-        ms = _span_report(torch, events, span, "the forward, per step", 2)
+        ms = _span_report(torch, trace, span, "the forward, per step", 2)
         if ms is not None:
             log(f"    {span}: {ms / prof['busy_ms']:.1%} of the step's device time")
-    del events
+    del trace
     torch.cuda.empty_cache()
     plane = phase_plane_timing(torch, cfg=cfg)
     fmt = lambda v: "null" if v is None else f"{v:.3f} ms"
@@ -3076,9 +3297,9 @@ def phase_hybrid_serve_main_path(torch):
         f"on layers {[i for i, w in enumerate(windows) if w == 0]}; SSM d_inner {cfg.d_ssm}, "
         f"state {cfg.ssm_state}")
 
-    def share(events, steps, what):
-        _, busy = _device_kernels(torch, events)
-        ms = _span_report(torch, events, "ssm_forward", what, steps)
+    def share(trace, steps, what):
+        _, busy = _device_kernels(torch, trace)
+        ms = _span_report(torch, trace, "ssm_forward", what, steps)
         if ms is not None:
             log(f"    the SSM branch: {ms * steps / busy:.1%} of the device time")
 
@@ -3543,6 +3764,619 @@ def phase_bias_and_sim(torch):
                     f"{stats[(a, 'vectorized')]:.2f}s)" for a in ("decentlam", "decentlam-sa"))
         + f"; bias experiments {t_bias:.1f}s, simulator {time.perf_counter() - t1:.1f}s")
 
+    # row-sparse gossip in the simulator (SimSpec.sparse): every row touched
+    # == dense gossip, and the engines agree, under gradients that touch a
+    # third of the rows
+    t2 = time.perf_counter()
+    opt = make_optimizer(OptimizerConfig(algorithm="decentlam", momentum=beta))
+    rows = (torch.arange(SIM["d"], device="cuda")[None, :] % 3) == 0
+
+    def sparse_grad(x, s):
+        return torch.where(torch.roll(rows, s, dims=1), small.grad(x), 0.0)
+
+    comm = {}
+    for mode in ("exact", "delta"):
+        for engine in ("pernode", "vectorized"):
+            kw = dict(topology="ring", n=SIM["n"], lr=SIM["lr"], n_steps=SIM["steps"],
+                      scenario="homogeneous", engine=engine)
+            dense = simulate(opt, SimSpec(**kw), x0, grad)
+            every_row = simulate(opt, SimSpec(sparse=mode, **kw), x0, grad)
+            if not same_tree(every_row.params, dense.params):
+                raise RuntimeError(f"simulator: sparse={mode} with every row touched != dense "
+                                   f"({engine})")
+        a = simulate(opt, SimSpec(sparse=mode, engine="pernode", **{
+            k: v for k, v in kw.items() if k != "engine"}), x0, sparse_grad)
+        b = simulate(opt, SimSpec(sparse=mode, engine="vectorized", **{
+            k: v for k, v in kw.items() if k != "engine"}), x0, sparse_grad)
+        if not (same_tree(a.params, b.params) and same_tree(a.opt_state, b.opt_state)):
+            raise RuntimeError(f"simulator: sparse={mode}: vectorized != per-node")
+        comm[mode] = a.comm
+    log(f"phase 29: SimSpec(sparse=exact|delta) on the card ({SIM['steps']} steps, ring): every "
+        f"row touched == dense gossip bit for bit (both engines); a third of the rows touched: "
+        f"vectorized == per-node bit for bit; comm "
+        + "; ".join(f"{m}: wire {c['wire_sparse_bytes']:.0f} of {c['wire_dense_bytes']:.0f} B, "
+                    f"mailbox {c['mailbox_bytes']:.0f} of {c['mailbox_dense_bytes']:.0f} B"
+                    for m, c in comm.items())
+        + f" ({time.perf_counter() - t2:.1f}s)")
+
+
+# ---------------------------------------------------------------------------
+# Row-sparse gossip and the fault-tolerant gossip runtime (phases 30-32)
+# ---------------------------------------------------------------------------
+
+# phase 30: qwen3-0.6b at full width cut to 2 layers (a node's plane 328,512
+# rows, 151,936 of them the untied embedding), 4 ranks sharing the card over
+# gloo, decentlam on exp, planes, 4 x 256 tokens per node
+SPARSE = dict(depth=2, steps=3, plain_steps=2, all_dirty_rows=1 << 16)
+# phase 31: phase 15's run (full width and depth, 4 stacked nodes, planes)
+RES = dict(steps=3, window=(2, 14), fault_steps=16, nan_window=(6, 7), plain_depth=4)
+# phase 32: 4 ranks, 2 layers, 4 steps under chaos and the resilient layer
+RES_DIST = dict(depth=2, steps=4,
+                chaos=("silence,nodes=1,start=1,stop=3", "drop,prob=0.3"))
+RES_LR = 3e-3  # the CLI's default peak lr
+
+
+def _res_tcfg(steps, fields, impl="triton"):
+    """The CLI's TrainConfig for ``steps`` steps (warmup_cosine at its
+    default peak lr) on planes through the stage kernel."""
+    from repro_torch.core.schedules import ScheduleConfig
+    from repro_torch.train.step import TrainConfig
+
+    return TrainConfig(**{"fused_update": True, "fused_impl": impl, "flat_planes": True,
+                          "schedule": ScheduleConfig(kind="warmup_cosine", peak_lr=RES_LR,
+                                                     warmup_steps=min(20, max(steps // 5, 1)),
+                                                     total_steps=max(steps, 2)),
+                          **fields})
+
+
+def _bits_equal_chunked(torch, dev_t, host_t, chunk=1 << 26) -> bool:
+    """A device tensor against a host copy, bit for bit, a chunk at a time
+    (the host copy comes up to the card one chunk at a time)."""
+    a = dev_t.reshape(-1).view(torch.uint8)
+    b = host_t.reshape(-1).view(torch.uint8)
+    if a.numel() != b.numel():
+        return False
+    for lo in range(0, a.numel(), chunk):
+        if not torch.equal(a[lo:lo + chunk], b[lo:lo + chunk].to(a.device, non_blocking=True)):
+            return False
+    return True
+
+
+def _sparse_rank(group, depth):
+    """The body of phase 30 on one rank (see :func:`phase_sparse_main_path`).
+    Rank 0 returns the report; any failed check raises on every rank."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.gossip import PpermuteChannel
+    from repro_torch.core.optimizers import make_optimizer
+    from repro_torch.core.topology import build_topology
+    from repro_torch.data.synthetic import SyntheticLM, SyntheticLMConfig
+    from repro_torch.kernels.fused_update.kernel import fused_stage_launch, reset_launches
+    from repro_torch.sparse import RowTracker, SparsePpermuteChannel
+    from repro_torch.train.step import build_dist_train_step
+    from repro_torch.train.train_state import init_train_state, model_plane_layout
+
+    dev, lead = group.device, group.rank == 0
+    cfg = dataclasses.replace(get_config(MAIN["arch"]), n_layers=depth)
+    layout = model_plane_layout(cfg)
+    (bucket,) = layout.buckets
+    rows = layout.rows[bucket]
+    data = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=MAIN["seq_len"],
+                                         per_node_batch=MAIN["per_node_batch"],
+                                         n_nodes=group.world))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in data.batch(s).items()}
+               for s in range(SPARSE["steps"])]
+
+    def every(value):
+        out = [None] * group.world
+        dist.all_gather_object(out, value, group=group.pg)
+        return out
+
+    def run(fields, steps, impl="triton", keep_init=False, snap_at=None):
+        """``steps`` steps of a ``SPARSE["steps"]``-step schedule; with
+        ``snap_at``, the planes, momentum and mask after that step too."""
+        tcfg = _res_tcfg(SPARSE["steps"], fields, impl)
+        step_fn, channel = build_dist_train_step(cfg, tcfg, group)
+        channel.timings = []
+        state = init_train_state(cfg, make_optimizer(tcfg.opt_config()), 1, device=dev,
+                                 channel=channel, plane_layout=layout)
+        init = state["planes"][bucket].clone() if keep_init else None
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        recs = []
+        for k in range(steps):
+            staged, sent = channel.staged_bytes, getattr(channel, "sent_bytes", 0)
+            vol = ({n: v.clone() for n, v in state["channel"]["rows"]["vol"].items()}
+                   if "rows" in state["channel"] else None)
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            state, m = step_fn(state, batches[k])
+            loss = float(m["loss"])
+            torch.cuda.synchronize(dev)
+            rec = {"loss": loss, "step_s": time.perf_counter() - t,
+                   "gossip_s": channel.timings[-1], "staged": channel.staged_bytes - staged,
+                   "launches": fused_stage_launch.launches}
+            if vol is not None:
+                now = state["channel"]["rows"]["vol"]
+                rec["dirty"] = channel.dirty_fractions(state["channel"])[0]
+                rec["vol_sparse"] = float(now["sparse"][0] - vol["sparse"][0])
+                rec["vol_dense"] = float(now["dense"][0] - vol["dense"][0])
+                rec["sent"] = channel.sent_bytes - sent
+            recs.append(rec)
+            if k == snap_at:
+                snap = {"x": state["planes"][bucket].clone(),
+                        "m": state["opt"]["m"][bucket].clone(),
+                        "dirty": state["channel"]["rows"]["dirty"][bucket][0].clone()}
+        rec_peak = torch.cuda.max_memory_allocated(dev)
+        per_step = 2 if impl == "triton" else 0  # the plain stage launches no kernel
+        ok = (all(math.isfinite(r["loss"]) for r in recs)
+              and [r["launches"] for r in recs] == [per_step * (k + 1) for k in range(steps)])
+        if not all(every(ok)):
+            raise RuntimeError(f"{fields}: non-finite loss or not {per_step} stage launches "
+                               f"per step on some rank: "
+                               f"{[(r['loss'], r['launches']) for r in recs]}")
+        return state, recs, channel, init if snap_at is None else (init, snap), rec_peak
+
+    report = {}
+    # exact mode; clean rows keep their initial bits (weight decay 0: an
+    # untouched embedding row gets no gradient, and the mix leaves it)
+    state, recs, channel, (init, exact), peak = run({"sparse_gossip": True}, SPARSE["steps"],
+                                                    keep_init=True,
+                                                    snap_at=SPARSE["plain_steps"] - 1)
+    report["exact"] = (every(recs), every(peak))
+    launches = dict(fused_stage_launch.launches_by_op)
+    dirty = state["channel"]["rows"]["dirty"][bucket][0]
+    clean = ~dirty
+    n_clean = int(clean.sum())
+    plane = state["planes"][bucket][0]
+    ok = bool(torch.equal(plane[clean].view(torch.int32), init[0][clean].view(torch.int32)))
+    if not all(every(ok)) or n_clean == 0:
+        raise RuntimeError(f"exact mode: clean rows moved on some rank ({n_clean} clean)")
+    tracker = RowTracker.for_model(layout, tied_embeddings=cfg.tie_embeddings)
+    report["clean"] = (n_clean, rows, tracker.summary())
+    x = state["planes"][bucket]
+    del init, state, dirty, clean, plane
+    torch.cuda.empty_cache()
+
+    # a dense round on the trained planes (timed); on their first rows, the
+    # sparse channel's round with every row dirty == the dense channel's
+    topo = build_topology("exp", group.world)
+    dense = PpermuteChannel(topo, group)
+    dense.timings = []
+    dense.apply(dense.init({bucket: x}), {bucket: x}, 0)
+    report["dense round"] = every({"gossip_s": dense.timings[-1], "staged": dense.staged_bytes})
+    part = x[:, :SPARSE["all_dirty_rows"]]
+    _, want = dense.apply(dense.init({bucket: part}), {bucket: part}, 0)
+    sp = SparsePpermuteChannel(topo, group)
+    st = sp.mark(sp.init({bucket: part}), {bucket: torch.ones(part.shape[1], dtype=torch.bool,
+                                                               device=dev)})
+    _, got = sp.apply(st, {bucket: part}, 0)
+    if not all(every(_same_bits(torch, got[bucket], want[bucket]))):
+        raise RuntimeError("exact mode with every row dirty != the dense channel on some rank")
+    report["all_dirty_rows"] = part.shape[1]
+    del x, part, want, got, dense, sp, st
+    torch.cuda.empty_cache()
+
+    # the plain stage in exact mode: the whole state bit for bit (after the
+    # kernel run's second step, kept for it)
+    state, _, _, _, _ = run({"sparse_gossip": True}, SPARSE["plain_steps"], impl="torch")
+    same = (_same_bits(torch, state["planes"][bucket], exact["x"])
+            and _same_bits(torch, state["opt"]["m"][bucket], exact["m"])
+            and _same_bits(torch, state["channel"]["rows"]["dirty"][bucket][0], exact["dirty"]))
+    if not all(every(same)):
+        raise RuntimeError("exact mode: --fused-impl torch != triton on some rank")
+    del state, exact
+    torch.cuda.empty_cache()
+
+    state, recs, _, _, peak = run({"sparse_gossip": True, "sparse_mode": "delta"},
+                                  SPARSE["steps"])
+    report["delta"] = (every(recs), every(peak))
+    for op, k in fused_stage_launch.launches_by_op.items():
+        launches[op] = launches.get(op, 0) + k
+    # the stage kernel's launches in the two sparse runs, summed over the ranks
+    report["launches"] = {op: sum(r.get(op, 0) for r in every(launches))
+                          for op in STAGE_FLOPS}
+    del state
+    torch.cuda.empty_cache()
+    return report if lead else None
+
+
+def _rows_and_faults_rank(group):
+    """Phases 30 and 32 in one spawned group of 4 ranks (one spawn and one
+    CUDA context per rank for both): rank 0 returns both reports."""
+    t = time.perf_counter()
+    sparse = _sparse_rank(group, SPARSE["depth"])
+    sparse_s = time.perf_counter() - t
+    faults = _res_dist_rank(group, RES_DIST["depth"], RES_DIST["steps"])
+    return (sparse, sparse_s, faults) if group.rank == 0 else None
+
+
+def phase_sparse_main_path(torch):
+    """Phase 30 (and phase 32, :func:`_log_dist_faults`, in the same spawned
+    group).  Row-sparse gossip, one process per node: 4 ranks sharing the
+    card over gloo, qwen3-0.6b at full width cut to 2 layers, decentlam on
+    exp, planes, through ``build_dist_train_step``: exact mode and delta
+    mode (exact mode at delay 1 is held against the reference by the CPU
+    tests).  Per step: the dirty fraction, ``vol``'s sparse and
+    dense-equivalent bytes, the bytes sent and staged, gossip seconds, step
+    time, each rank's peak memory; beside them one dense round on exact
+    mode's trained planes (gossip seconds, bytes staged).  Gates: finite
+    losses and 2 stage launches per rank and step in every run; exact mode's
+    clean rows keep their initial bits on every rank; the plain stage == the
+    kernel in exact mode, the whole state bit for bit; exact mode with every
+    row marked == the dense channel on every rank (one round on the
+    planes' first rows)."""
+    from repro_torch.launch.mesh import run_ranks
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report, sparse_s, faults = run_ranks(_rows_and_faults_rank, MAIN["nodes"],
+                                         timeout_s=DIST_TIMEOUT_S)[0]
+    group_s = time.perf_counter() - t0
+    n_clean, rows, summary = report.pop("clean")
+    dense = report.pop("dense round")
+    all_dirty_rows = report.pop("all_dirty_rows")
+    launches = report.pop("launches")
+    emb = next(s for s in summary["sources"] if s["name"] == "embed")
+    log(f"phase 30: row-sparse gossip, {MAIN['nodes']} ranks on the card (gloo), "
+        f"{MAIN['arch']} full width, {SPARSE['depth']} layers ({rows:,} plane rows per node, "
+        f"the untied embedding {emb['rows']:,} of them), decentlam on exp "
+        f"({sparse_s:.1f} s in the spawned group, which took {group_s:.1f} s with phase 32):")
+    for name, (per_rank, peaks) in report.items():
+        log(f"  {name}: losses {[round(r['loss'], 4) for r in per_rank[0]]}, peak memory per "
+            f"rank {[round(p / 2**30, 2) for p in peaks]} GiB")
+        for k in range(len(per_rank[0])):
+            rs = [ranks[k] for ranks in per_rank]
+            line = (f"    step {k}: step {rs[0]['step_s'] * 1e3:.1f} ms, gossip "
+                    f"{[round(r['gossip_s'], 3) for r in rs]} s, staged "
+                    f"{[round(r['staged'] / 1e9, 4) for r in rs]} GB")
+            if "dirty" in rs[0]:
+                line += (f", dirty {[round(r['dirty'], 4) for r in rs]}, vol sparse "
+                         f"{[round(r['vol_sparse'] / 1e9, 4) for r in rs]} GB / dense "
+                         f"{[round(r['vol_dense'] / 1e9, 4) for r in rs]} GB, sent "
+                         f"{[round(r['sent'] / 1e9, 4) for r in rs]} GB")
+            log(line)
+    log(f"  exact mode: {n_clean:,} of {rows:,} rows clean after {SPARSE['steps']} steps, "
+        f"at their initial bits on every rank; plain stage == kernel (planes, momentum, mask "
+        f"after {SPARSE['plain_steps']} steps) bit for bit on every rank; every row dirty == "
+        f"the dense channel bit for bit (one round on the trained planes' first "
+        f"{all_dirty_rows:,} rows)")
+    log(f"  a dense round on exact mode's trained planes: gossip "
+        f"{[round(r['gossip_s'], 3) for r in dense]} s, staged "
+        f"{[round(r['staged'] / 1e9, 4) for r in dense]} GB per rank")
+    # the stage kernel at one rank's plane of this depth
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    plane = phase_plane_timing(torch, nodes=1, cfg=dataclasses.replace(
+        get_config(MAIN["arch"]), n_layers=SPARSE["depth"]))
+    for op, p in plane.items():
+        lib = "null" if p["library_ms"] is None else f"{p['library_ms']:.3f} ms"
+        log(f"  per rank: plane {op} on {p['shape']} f32: kernel {p['ms']:.3f} ms, bound "
+            f"{p['bound_ms']:.3f} ms ({p['bound_ms'] / p['ms']:.1%} of it), plain version "
+            f"{p['plain_ms']:.3f} ms, library {lib}, max |kernel - plain| {p['err']:.3g}")
+    want = 2 * MAIN["nodes"] * SPARSE["steps"]  # exact and delta, every rank, every step
+    if launches != {op: want for op in STAGE_FLOPS}:
+        raise RuntimeError(f"stage launches in the sparse runs over the ranks {launches}, "
+                           f"want {want} of each stage")
+    log(f"  stage launches in the exact and delta runs, over the ranks: {launches}")
+    _log_dist_faults(faults)
+    return {"launches": launches, "plane": plane}
+
+
+def phase_resilience_main_path(torch, flat):
+    """The fault-tolerant runtime on phase 15's run (qwen3-0.6b at full
+    width and depth, 4 stacked nodes, planes, the stage kernel): an empty
+    ChaosSchedule and the resilient layer with no fault equal the unwrapped
+    run bit for bit over 3 steps; silence on node 1 for steps 2..13 under
+    the resilient layer and the host's health monitor (its states per step,
+    node 1 distrusted while SUSPECT or DEAD, one round's mix on a slice ==
+    healed_W @ x in float64, node 1 rejoining from a materialized snapshot
+    of node 0 after the window) and, in the same run, a NaN round from node
+    2 quarantined with every parameter finite; 2 launches per step; at 4
+    layers the plain stage
+    == the kernel under chaos and the resilient layer, the whole state bit
+    for bit."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.gossip import StackedChannel
+    from repro_torch.core.optimizers import make_optimizer
+    from repro_torch.core.topology import build_topology
+    from repro_torch.data.synthetic import SyntheticLM, SyntheticLMConfig
+    from repro_torch.kernels.fused_update.kernel import fused_stage_launch, reset_launches
+    from repro_torch.launch.train import _Health, _parse_chaos
+    from repro_torch.resilience import (
+        ChaosChannel,
+        ChaosSchedule,
+        ResilientChannel,
+        healed_W,
+        rejoin_node,
+        with_trust,
+    )
+    from repro_torch.serve import WeightPublisher
+    from repro_torch.train.step import build_train_step
+    from repro_torch.train.train_state import init_train_state, model_plane_layout
+    from repro_torch.utils import tree_leaves
+
+    n, dev = MAIN["nodes"], torch.device("cuda")
+    t_phase = time.perf_counter()
+
+    def run(cfg, fields, steps, impl="triton", hook=None):
+        layout = model_plane_layout(cfg)
+        tcfg = _res_tcfg(steps, fields, impl)
+        step_fn, channel = build_train_step(cfg, tcfg, n)
+        state = init_train_state(cfg, make_optimizer(tcfg.opt_config()), n, device=dev,
+                                 channel=channel, plane_layout=layout)
+        data = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=MAIN["seq_len"],
+                                             per_node_batch=MAIN["per_node_batch"], n_nodes=n))
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        losses, times, launches = [], [], []
+        for k in range(steps):
+            batch = {key: torch.from_numpy(v).to(dev) for key, v in data.batch(k).items()}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            launches.append(fused_stage_launch.launches)
+            if hook is not None:
+                state = hook(k, state, channel, layout)
+        if not all(map(math.isfinite, losses)):
+            raise RuntimeError(f"{fields}: losses {losses}")
+        per_step = 2 if impl == "triton" else 0  # the plain stage launches no kernel
+        if launches != [per_step * (k + 1) for k in range(steps)]:
+            raise RuntimeError(f"{fields}: stage launches after each step {launches}, want "
+                               f"{per_step} per step")
+        return state, losses, times, torch.cuda.max_memory_allocated()
+
+    cfg = get_config(MAIN["arch"])
+    steady = lambda ts: 1e3 * sum(ts[1:]) / max(len(ts) - 1, 1)  # noqa: E731
+
+    # the unwrapped run, its final planes kept on the host
+    state, base_losses, times, peak = run(cfg, {}, RES["steps"])
+    (bucket,) = state["planes"]
+    host = {"x": state["planes"][bucket].cpu(), "m": state["opt"]["m"][bucket].cpu()}
+    rows = [f"unwrapped {steady(times):.1f} ms/step, peak {peak / 2**30:.2f} GiB"]
+    del state
+    torch.cuda.empty_cache()
+    for name, fields in (("an empty ChaosSchedule", {"chaos": ChaosSchedule()}),
+                         ("--resilient with no fault", {"resilient": True})):
+        state, losses, times, peak = run(cfg, fields, RES["steps"])
+        same = (losses == base_losses
+                and _bits_equal_chunked(torch, state["planes"][bucket], host["x"])
+                and _bits_equal_chunked(torch, state["opt"]["m"][bucket], host["m"]))
+        if not same:
+            raise RuntimeError(f"{name}: not the unwrapped run bit for bit ({losses} vs "
+                               f"{base_losses})")
+        rows.append(f"{name} == unwrapped bit for bit (losses, parameter and momentum "
+                    f"planes), {steady(times):.1f} ms/step, peak {peak / 2**30:.2f} GiB")
+        del state
+        torch.cuda.empty_cache()
+    del host
+    # one gossip round on the full plane, alone: the stacked channel and the
+    # resilient layer around it (clean: every peer trusted, every payload
+    # finite)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    shape = (n, model_plane_layout(cfg).rows[bucket], 1024)
+    x = torch.randn(shape, generator=gen, device=dev)
+    topo = build_topology("exp", n)
+    round_ms = {}
+    for name, ch in (("stacked", StackedChannel(topo)),
+                     ("resilient", ResilientChannel(StackedChannel(topo)))):
+        st = ch.init(x)
+        st, y = ch.apply(st, x, 0)
+        del y
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(3):
+            st, y = ch.apply(st, x, 0)
+            del y
+        torch.cuda.synchronize()
+        round_ms[name] = 1e3 * (time.perf_counter() - t) / 3
+        del st
+    del x
+    torch.cuda.empty_cache()
+    rows.append(f"one round on the {shape} plane alone: stacked "
+                f"{round_ms['stacked']:.2f} ms, resilient around it {round_ms['resilient']:.2f} "
+                "ms (host clock, 3 rounds between syncs)")
+    log(f"phase 31: {MAIN['arch']} full width and depth x {n} nodes, planes, {RES['steps']} "
+        f"steps: " + "; ".join(rows) + f" (phase 15: {flat['step_ms']:.1f} ms/step, peak "
+        f"{flat['peak'] / 2**30:.2f} GiB)")
+
+    # silence on node 1, healed: the monitor's states, the trust mask, one
+    # round's healed mix, the rejoin from node 0's snapshot; in the same run
+    # a NaN round from node 2, quarantined (a poisoned payload is no missed
+    # round: node 2's version gaps, and so its state, stay those of a live
+    # peer)
+    lo, hi = RES["window"]
+    nlo, nhi = RES["nan_window"]
+    spec = f"silence,nodes=1,start={lo},stop={hi}"
+    nan_spec = f"nan,nodes=2,frac=0.001,start={nlo},stop={nhi},prob=1"
+    sched = _parse_chaos([spec, nan_spec], 0)
+    health = _Health(1, n, lead=False)
+    trusts, checks = [], {}
+    topo = build_topology("exp", n)
+
+    def hook(k, state, channel, layout):
+        state = health(k, state, channel)
+        trust = channel._vec(state["channel"]["res"]["trust"]).copy()
+        trusts.append(trust)
+        if k == lo + 2:  # node 1 distrusted: one round on a slice of the planes
+            x = state["planes"][bucket][:, :4096].clone()
+            ch = ResilientChannel(ChaosChannel(StackedChannel(topo), sched))
+            st = with_trust(ch.init(x), trust)
+            st["in"]["x"]["round"].fill_(k + 1)
+            _, y = ch.apply(st, x, k + 1)
+            want = torch.from_numpy(healed_W(topo, k + 1, trust)).to(dev) @ x.reshape(n, -1).double()
+            err = float((y.reshape(n, -1).double() - want).abs().max() / want.abs().max())
+            if not err <= 1e-6:
+                raise RuntimeError(f"healed mix off healed_W @ x by {err:.3g} of scale")
+            checks["healed"] = err
+        if k == hi - 1:  # the window closes: node 1 rejoins from node 0's snapshot
+            t = time.perf_counter()
+            pub = WeightPublisher(layout, gap_threshold=0)
+            pub.offer({b: p[0] for b, p in state["planes"].items()}, version=k + 1, gap=0)
+            snap = pub.current.materialize()
+            del pub
+            state = rejoin_node(state, 1, snap.planes, params_key="planes", reset=("opt",))
+            ok = (_same_bits(torch, state["planes"][bucket][1], snap.planes[bucket].to(dev))
+                  and not bool(state["opt"]["m"][bucket][1].any()))
+            del snap
+            if not ok:
+                raise RuntimeError("rejoin: node 1's plane != the snapshot or momentum not zero")
+            health.monitor.report_alive([1])
+            state = {**state, "channel": with_trust(state["channel"], health.monitor.trust)}
+            health.applied = health.monitor.trust.copy()
+            checks["rejoin_s"] = time.perf_counter() - t
+        return state
+
+    state, losses, times, peak = run(cfg, {"chaos": sched, "resilient": True},
+                                     RES["fault_steps"], hook=hook)
+    states = [s for _, s in health.states]
+    want = ([["alive"] * n] * lo + [["alive", "suspect", "alive", "alive"]] * 8
+            + [["alive", "dead", "alive", "alive"]] * (hi - lo - 8)
+            + [["alive"] * n] * (RES["fault_steps"] - hi))
+    if states != want:
+        raise RuntimeError(f"health states {states} != {want}")
+    bad_trust = [k for k, (t, s) in enumerate(zip(trusts, states)) if t[1] != (s[1] == "alive")]
+    if bad_trust or trusts[-1].tolist() != [True] * n:
+        raise RuntimeError(f"node 1's trust does not follow its state at steps {bad_trust}")
+    quar = [int(v) for v in state["channel"]["res"]["quarantined"].cpu()]
+    finite = all(bool(torch.isfinite(t).all()) for t in tree_leaves(state["planes"]))
+    if not (sum(quar) > 0 and finite):
+        raise RuntimeError(f"NaN round: quarantined {quar}, parameters finite {finite}")
+    log(f"phase 31: --chaos '{spec}' --chaos '{nan_spec}' --resilient, {RES['fault_steps']} "
+        f"steps: losses "
+        f"{[round(v, 4) for v in losses]}; node 1's state per step "
+        f"{[s[1] for s in states]} (SUSPECT from its first missed round, DEAD after 3 + 6 "
+        f"suspect rounds, trusted only while ALIVE); one round on rows 0..4095 == healed_W @ "
+        f"x within {checks['healed']:.3g} of scale (float64); rejoined after step {hi - 1} "
+        f"from node 0's materialized snapshot in {checks['rejoin_s']:.2f} s (plane == "
+        f"snapshot, momentum zero), losses after it {[round(v, 4) for v in losses[hi:]]}; "
+        f"{steady(times):.1f} ms/step (phase 15: {flat['step_ms']:.1f}), peak "
+        f"{peak / 2**30:.2f} GiB; 2 stage launches per step; the NaN round from node 2 "
+        f"quarantined per node {quar}, every parameter finite")
+    del state
+    torch.cuda.empty_cache()
+
+    # the plain stage == the kernel under chaos and the resilient layer
+    small = dataclasses.replace(cfg, n_layers=RES["plain_depth"])
+    faults = _parse_chaos(["silence,nodes=1,start=1,stop=3", "nan,nodes=2,frac=0.01,prob=1,"
+                           "start=2,stop=3", "dup,prob=0.3"], 0)
+    finals = {}
+    for impl in ("triton", "torch"):
+        st, ls, _, _ = run(small, {"chaos": faults, "resilient": True}, RES["steps"], impl)
+        finals[impl] = (ls, [t.clone() for t in tree_leaves(
+            {"p": st["planes"], "o": st["opt"], "c": st["channel"]}) if t.is_cuda])
+        del st
+    (la, ta), (lb, tb) = finals["triton"], finals["torch"]
+    if la != lb or len(ta) != len(tb) or not all(_same_bits(torch, a, b) for a, b in zip(ta, tb)):
+        raise RuntimeError("chaos + resilient: the plain stage != the kernel")
+    log(f"phase 31: at {RES['plain_depth']} layers, {RES['steps']} steps under silence, NaN "
+        f"and dup faults with --resilient: --fused-impl torch == triton bit for bit (losses, "
+        f"planes, momentum, the channel's device state: {len(ta)} tensors); phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del finals, ta, tb
+    torch.cuda.empty_cache()
+
+
+def _res_dist_rank(group, depth, steps):
+    """The body of phase 32 on one rank: the distributed step under the
+    chaos schedule and the resilient layer with the CLI's health loop; rank
+    0 runs the stacked step under the same schedule and loop, and each rank
+    holds its node against the stacked run's (:func:`_node_errors`)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.optimizers import make_optimizer
+    from repro_torch.data.synthetic import SyntheticLM, SyntheticLMConfig
+    from repro_torch.launch.train import _Health, _parse_chaos
+    from repro_torch.resilience import fleet_sender_gaps
+    from repro_torch.train.step import build_dist_train_step, build_train_step
+    from repro_torch.train.train_state import init_train_state, model_plane_layout
+
+    dev, lead = group.device, group.rank == 0
+    cfg = _check_config(dataclasses.replace(get_config(MAIN["arch"]), n_layers=depth))
+    layout = model_plane_layout(cfg)
+    tcfg = _res_tcfg(steps, {"chaos": _parse_chaos(list(RES_DIST["chaos"]), 0),
+                             "resilient": True})
+    data = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=MAIN["seq_len"],
+                                         per_node_batch=MAIN["per_node_batch"],
+                                         n_nodes=group.world))
+
+    def run(build, n):
+        step_fn, channel = build()
+        state = init_train_state(cfg, make_optimizer(tcfg.opt_config()), n, device=dev,
+                                 channel=channel, plane_layout=layout)
+        health = _Health(1, group.world, lead=False)
+        losses, gaps = [], []
+        for k in range(steps):
+            batch = {key: torch.from_numpy(v).to(dev) for key, v in data.batch(k).items()}
+            state, metrics = step_fn(state, batch)
+            losses.append(float(metrics["loss"]))
+            gaps.append(fleet_sender_gaps(channel, state["channel"]).tolist())
+            state = health(k, state, channel)
+        return state, losses, gaps, [s for _, s in health.states]
+
+    t0 = time.perf_counter()
+    state, losses, gaps, states = run(lambda: build_dist_train_step(cfg, tcfg, group), 1)
+    dist_s = time.perf_counter() - t0
+    mine = _comparable(state, layout)
+    del state
+    torch.cuda.empty_cache()
+    sstate = want = None
+    if lead:
+        sstate, slosses, sgaps, sstates = run(lambda: build_train_step(cfg, tcfg, group.world),
+                                              group.world)
+        want = _comparable(sstate, layout)
+        torch.cuda.synchronize(dev)
+    errs = _node_errors(group, mine, want)
+    del sstate, want, mine
+    torch.cuda.empty_cache()
+    if not lead:
+        return None
+    tols = {"params": 2e-5, "opt": 2e-5 / RES_LR}
+    if (gaps != sgaps or states != sstates or errs is None
+            or not all(errs[p] < tols[p] for p in errs)):
+        raise RuntimeError(f"distributed vs stacked under chaos: gaps {gaps} vs {sgaps}, "
+                           f"states {states} vs {sstates}, errors {errs} (tol {tols})")
+    return {"losses": losses, "stacked": slosses, "gaps": gaps, "states": states,
+            "errs": errs, "dist_s": dist_s}
+
+
+def _log_dist_faults(r):
+    """Phase 32's report (run in phase 30's spawned group): chaos and the
+    resilient layer on 4 ranks sharing the card (gloo), 2 layers, 4 steps,
+    with the CLI's schedule parser and health loop: the sender gaps every
+    rank gathers (``fleet_sender_gaps``) and the monitor's states equal the
+    stacked run's, and the final parameters and optimizer state are within
+    the reference's distributed-vs-oracle tolerance of it (every rank draws
+    the same fires from the hash)."""
+    log(f"phase 32: {MAIN['nodes']} ranks (gloo), {RES_DIST['depth']} layers, vocabulary "
+        f"{CHECK_VOCAB:,}, "
+        f"{RES_DIST['steps']} steps, --chaos " + " --chaos ".join(f"'{c}'" for c in
+                                                                  RES_DIST["chaos"])
+        + f" --resilient: losses {[round(v, 4) for v in r['losses']]} (stacked "
+        f"{[round(v, 4) for v in r['stacked']]}); sender gaps per step {r['gaps']} == the "
+        f"stacked run's; monitor states {r['states']} == the stacked run's; max |distributed "
+        f"- stacked| {r['errs']['params']:.3g} over the parameters (< 2e-5), "
+        f"{r['errs']['opt']:.3g} over the optimizer state (< 2e-5 / lr); the distributed run "
+        f"{r['dist_s']:.1f} s")
+
 
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
@@ -3610,6 +4444,9 @@ def main() -> int:
     whisper = timed("27 whisper-tiny train and serve", phase_whisper)
     timed("28 ResNet-20 through run_stacked", phase_resnet)
     timed("29 bias experiments and the simulator", phase_bias_and_sim)
+    sparse = timed("30 + 32 row-sparse gossip; chaos and the resilient layer on 4 ranks",
+                   phase_sparse_main_path)
+    timed("31 resilience on the stacked trainer", phase_resilience_main_path, flat)
     log(f"phase times (s): {phases}; total {time.perf_counter() - t0:.1f}s")
     # one record per specialization of the Triton kernel on the training main
     # path (times per step, summed over the 14 leaves), and the flash and
@@ -3745,6 +4582,20 @@ def main() -> int:
         "bound_by": rec["bound_by"],
         "library_ms": rec["library_ms"],
     } for k, rec in fa_whisper.items()]
+    # phase 30: one rank's plane at 2 layers under row-sparse gossip
+    records += [{
+        "name": f"fused_update[rank plane {op}, {SPARSE['depth']} layers, row-sparse gossip]",
+        "route": "triton",
+        "source": "src/repro_torch/kernels/fused_update/_triton.py",
+        "replaces": "src/repro/kernels/fused_update/kernel.py:66",
+        "launches": sparse["launches"][op],
+        "max_abs_err": rec["err"],
+        "ms": rec["ms"],
+        "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"],
+        "library_ms": rec["library_ms"],
+    } for op, rec in sparse["plane"].items()]
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

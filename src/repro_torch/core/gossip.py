@@ -559,26 +559,34 @@ class _Wire:
         """Send the flat contiguous ``send`` to rank ``dst`` and receive
         ``numel`` elements of ``dtype`` from rank ``src`` (either None:
         nothing that way); ``consume(lo, hi, piece)`` sees each received
-        element range ``[lo, hi)`` as a tensor on ``device``."""
+        element range ``[lo, hi)`` as a tensor on ``device``.  The two
+        directions may differ in size: each is chunked on its own and the
+        k-th chunks of both go out together, so every message's chunks pair
+        with its receiver's."""
         if dst is None and src is None:
             return
         staged, pg = self.group.staged, self.group.pg
         itemsize = torch.empty((), dtype=dtype).element_size()
-        for lo, hi in self._chunks(numel, itemsize):
-            nb = (hi - lo) * itemsize
+        outs = ([] if dst is None else
+                [(lo, hi) for lo, hi in self._chunks(send.numel(), send.element_size())])
+        ins = [] if src is None else self._chunks(numel, itemsize)
+        for k in range(max(len(outs), len(ins))):
             ops = []
-            if dst is not None:
+            if k < len(outs):
+                lo, hi = outs[k]
                 out = send[lo:hi].view(torch.uint8)
                 if staged:
-                    out = self._buf("send", nb, None, host=True).copy_(out)
-                    self.staged_bytes += nb
+                    out = self._buf("send", out.numel(), None, host=True).copy_(out)
+                    self.staged_bytes += out.numel()
                 ops.append(dist.P2POp(dist.isend, out, dst, group=pg))
-            if src is not None:
+            if k < len(ins):
+                lo, hi = ins[k]
+                nb = (hi - lo) * itemsize
                 into = self._buf("recv", nb, device, host=staged)
                 ops.append(dist.P2POp(dist.irecv, into, src, group=pg))
             for work in dist.batch_isend_irecv(ops):
                 work.wait()
-            if src is not None:
+            if k < len(ins):
                 if staged:
                     into = self._buf("recv_dev", nb, device).copy_(into)
                     self.staged_bytes += nb

@@ -63,6 +63,14 @@ Examples::
         --arch granite-moe-1b-a400m --depth 12 --steps 5 --seq-len 256 \\
         --per-node-batch 4 --fused-update --fused-impl triton --flat-planes
 
+    # fault injection healed by the resilient layer: node 1 silent for steps
+    # 2..13 (distrusted by the health monitor, its weight given back to each
+    # receiver), then a NaN-poisoned payload from node 2 (quarantined)
+    PYTHONPATH=src python -m repro_torch.launch.train --nodes 4 --arch qwen3-0.6b \\
+        --smoke --steps 16 --seq-len 32 --per-node-batch 2 --fused-update --device cpu \\
+        --flat-planes --chaos 'silence,nodes=1,start=2,stop=14' \\
+        --chaos 'nan,nodes=2,frac=0.001,start=6,stop=7' --resilient
+
     # tiny LM on the host CPU (the kernel's plain version), int8 gossip with
     # error feedback, checkpointed every 2 steps; then resumed to step 6
     PYTHONPATH=src python -m repro_torch.launch.train --nodes 4 --preset tiny \\
@@ -182,6 +190,21 @@ def _parse(argv=None):
     p.add_argument("--max-skipped-steps", dest="max_skipped_steps", type=int, default=0,
                    help="abort once this many steps had their update skipped by the finite "
                    "guard (0 = no budget)")
+    p.add_argument("--chaos", action="append", default=None, metavar="SPEC",
+                   help="inject a wire fault (repeatable).  SPEC is 'KIND[,key=val...]' with "
+                   "KIND in silence|drop|dup|delay|corrupt|nan and keys nodes=0-2 (range) or "
+                   "nodes=0.3.5 (list), start=, stop=, prob=, frac=, bit=.  e.g. --chaos "
+                   "'drop,prob=0.2' --chaos 'silence,nodes=0-1,start=50,stop=120'")
+    p.add_argument("--chaos-seed", dest="chaos_seed", type=int, default=0)
+    p.add_argument("--resilient", action="store_true",
+                   help="wrap the transport in the self-healing ResilientChannel (trust-masked "
+                   "mixing with W-row renormalization + NaN/Inf payload quarantine) and drive "
+                   "its trust mask from a gap-based HealthMonitor")
+    p.add_argument("--resilient-gap", dest="resilient_gap", type=int, default=None,
+                   help="distrust bound on a sender's version gap, applied in the round (None "
+                   "= the host monitor only)")
+    p.add_argument("--health-every", dest="health_every", type=int, default=1,
+                   help="steps between health-monitor observations when --resilient is set")
     p.add_argument("--ckpt-dir", dest="ckpt_dir", default=None)
     p.add_argument("--ckpt-every", dest="ckpt_every", type=int, default=100)
     p.add_argument("--resume", action="store_true",
@@ -193,6 +216,80 @@ def _parse(argv=None):
                    help="write the run's step time, tokens/s and peak memory here")
     p.add_argument("--log-every", dest="log_every", type=int, default=10)
     return p.parse_args(argv)
+
+
+def _parse_chaos(specs, seed):
+    """A ChaosSchedule from repeated ``--chaos 'KIND[,key=val...]'`` specs
+    (``repro.launch.train._parse_chaos``)."""
+    from ..resilience import (
+        BitCorrupt, ChaosSchedule, Drop, Duplicate, ExtraDelay, NaNInject, PeerSilence,
+    )
+
+    kinds = {"silence": PeerSilence, "drop": Drop, "dup": Duplicate,
+             "delay": ExtraDelay, "corrupt": BitCorrupt, "nan": NaNInject}
+    faults = []
+    for spec in specs:
+        kind, _, rest = spec.partition(",")
+        if kind not in kinds:
+            raise SystemExit(f"--chaos: unknown kind {kind!r} (want {'|'.join(kinds)})")
+        kw = {}
+        for item in filter(None, rest.split(",")):
+            k, _, v = item.partition("=")
+            if k == "nodes":
+                if "-" in v:
+                    lo, hi = v.split("-")
+                    kw["nodes"] = tuple(range(int(lo), int(hi) + 1))
+                else:
+                    kw["nodes"] = tuple(int(i) for i in v.split("."))
+            elif k in ("start", "stop", "bit"):
+                kw[k] = int(v)
+            elif k in ("prob", "frac"):
+                kw[k] = float(v)
+            else:
+                raise SystemExit(f"--chaos: unknown key {k!r} in {spec!r}")
+        try:
+            faults.append(kinds[kind](**kw))
+        except TypeError as e:
+            raise SystemExit(f"--chaos: {spec!r}: {e}")
+    return ChaosSchedule(faults=tuple(faults), seed=seed)
+
+
+class _Health:
+    """The host health loop of ``--resilient``: every ``--health-every``
+    steps the monitor observes the per-sender version gaps
+    (``fleet_sender_gaps``, a collective on ranks), and a changed trust mask
+    goes into the channel state (``with_trust``).  ``states`` holds the
+    monitor's states at each observation."""
+
+    def __init__(self, every: int, n_nodes: int, lead: bool = True):
+        from ..resilience import HealthMonitor
+
+        self.every, self.lead = every, lead
+        self.monitor = HealthMonitor(n_nodes)
+        self.applied = self.monitor.trust.copy()
+        self.states: list = []
+
+    def __call__(self, step: int, state: dict, channel) -> dict:
+        import numpy as np
+
+        from ..resilience import fleet_sender_gaps, with_trust
+
+        if step % self.every:
+            return state
+        trust = self.monitor.observe(fleet_sender_gaps(channel, state["channel"]))
+        self.states.append((step, self.monitor.states()))
+        if not np.array_equal(trust, self.applied):
+            state = {**state, "channel": with_trust(state["channel"], trust)}
+            self.applied = trust.copy()
+            if self.lead:
+                print(f"health: {self.monitor.states()} (step {step})", flush=True)
+        return state
+
+
+def _quarantined(state: dict):
+    """The resilient layer's quarantine counts (None without it)."""
+    res = state["channel"].get("res")
+    return None if res is None else [int(v) for v in res["quarantined"].reshape(-1).cpu()]
 
 
 def _serve_demo(args, cfg, layout, channel, device, runtime, on_serve):
@@ -320,6 +417,9 @@ def _train_config(args) -> TrainConfig:
         flat_planes=args.flat_planes,
         track_consensus=args.track_consensus,
         finite_guard=args.finite_guard,
+        chaos=_parse_chaos(args.chaos, args.chaos_seed) if args.chaos else None,
+        resilient=args.resilient,
+        resilient_gap=args.resilient_gap,
     )
 
 
@@ -402,6 +502,7 @@ def main(argv=None, *, on_step=None, serve_runtime=None, on_serve=None,
     losses, lrs, gaps, consensus, step_times = [], [], [], [], []
     model_metrics = {k: [] for k in MODEL_METRICS}
     skipped_steps, saved = 0, False
+    health = _Health(args.health_every, n_nodes) if args.resilient else None
     t0 = time.perf_counter()
     batches = prefetch_to_device(lambda k: data.batch(start + k), device,
                                  max(args.steps - start, 0))
@@ -423,6 +524,8 @@ def main(argv=None, *, on_step=None, serve_runtime=None, on_serve=None,
                     f"on {skipped_steps} steps, exceeding --max-skipped-steps="
                     f"{args.max_skipped_steps} — the gradients are persistently non-finite"
                 )
+        if health is not None:
+            state = health(step, state, channel)
         if serve is not None:
             serve(step, state)
         losses.append(loss)
@@ -469,6 +572,9 @@ def main(argv=None, *, on_step=None, serve_runtime=None, on_serve=None,
     }
     if args.track_consensus:
         result["consensus_sq"] = consensus
+    if health is not None:
+        result["health"] = health.states
+        result["quarantined"] = _quarantined(state)
     print(f"done: {len(losses)} steps in {total:.1f}s; steady step {step_s:.4f}s, "
           f"{result['tokens_per_s']:.0f} tokens/s", flush=True)
     if serve is not None:
@@ -602,6 +708,7 @@ def rank_main(group, argv, on_step=None, on_shrink=None) -> dict:
     losses, lrs, gaps, consensus, step_times, card_used = [], [], [], [], [], []
     model_metrics = {k: [] for k in MODEL_METRICS}
     skipped_steps, saved, drill, shrunk = 0, False, None, None
+    health = _Health(args.health_every, group.world, lead) if args.resilient else None
     t0 = time.perf_counter()
     for step in range(start, args.steps):
         batch = {k: torch.from_numpy(v).to(device) for k, v in data.batch(step).items()}
@@ -624,6 +731,8 @@ def rank_main(group, argv, on_step=None, on_shrink=None) -> dict:
                     f"on {skipped_steps} steps, exceeding --max-skipped-steps="
                     f"{args.max_skipped_steps} — the gradients are persistently non-finite"
                 )
+        if health is not None:
+            state = health(step, state, channel)
         losses.append(loss)
         lrs.append(float(metrics["lr"]))
         gaps.append(metrics["gossip_gap"])
@@ -660,6 +769,8 @@ def rank_main(group, argv, on_step=None, on_shrink=None) -> dict:
                 shrunk = on_shrink(group, gathered, state)
             del gathered
             data = data_of(group.world)
+            if health is not None:
+                health = _Health(args.health_every, group.world, lead)
     total = time.perf_counter() - t0
 
     warm = step_times[1:] or step_times
@@ -711,6 +822,11 @@ def rank_main(group, argv, on_step=None, on_shrink=None) -> dict:
         result["consensus_sq"] = consensus
     if shrunk is not None:
         result["on_shrink"] = shrunk
+    if health is not None:
+        result["health"] = health.states
+        every_q = [None] * group.world
+        torch.distributed.all_gather_object(every_q, _quarantined(state), group=group.pg)
+        result["quarantined"] = [q for part in every_q for q in part]
     if lead:
         print(f"done: {len(losses)} steps in {total:.1f}s; steady step {step_s:.4f}s, "
               f"{result['tokens_per_s']:.0f} tokens/s", flush=True)

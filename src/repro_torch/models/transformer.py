@@ -286,28 +286,38 @@ _AUX = ("moe_load_balance", "moe_router_z")
 
 
 def _run_groups(x, groups_params, cfg: ModelConfig, positions, rt: RuntimeConfig,
-                serve: bool, *, stack: str = "dec", enc_out=None):
+                serve: bool, *, stack: str = "dec", enc_out=None, collect_rows: bool = False):
     """Every block group of ``stack`` in order, over ``groups_params``
     (``params["groups"]``, or the encoder's ``params["enc"]``).  Returns
     ``(x, aux totals, entries)``: the router terms summed over each MoE
     group's layers, then over the groups (the reference's order);
-    ``entries[gi]`` the layers' serve entries (with ``serve``)."""
+    ``entries[gi]`` the layers' serve entries (with ``serve``).
+    ``collect_rows`` adds ``aux["_row_info"]``: each MoE group's
+    layer-stacked ``(Lg, E)`` expert-hit masks under ``"moe/g<gi>"`` (the
+    :class:`~repro_torch.sparse.RowTracker` source names)."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux_tot = {k: zero for k in _AUX}
-    entries = {}
+    entries, row_info = {}, {}
     for gi, g in enumerate(block_groups(cfg, stack=stack)):
         group_aux = {k: [] for k in _AUX}
+        hits = []
         layer_entries = []
         for lp in _layers(groups_params[f"g{gi}"], g.count):
             x, aux, entry = _block_fwd(x, lp, cfg, g, positions, rt=rt, serve=serve,
                                        enc_out=enc_out)
             for k in aux.keys() & group_aux.keys():
                 group_aux[k].append(aux[k])
+            if "moe_expert_hits" in aux:
+                hits.append(aux["moe_expert_hits"].detach())
             layer_entries.append(entry)
         for k, vals in group_aux.items():
             if vals:
                 aux_tot[k] = aux_tot[k] + torch.sum(torch.stack(vals))
+        if collect_rows and hits:
+            row_info[f"moe/g{gi}"] = torch.stack(hits)
         entries[gi] = layer_entries
+    if collect_rows:
+        aux_tot["_row_info"] = row_info
     return x, aux_tot, entries
 
 
@@ -329,7 +339,8 @@ def _encode(params: Tree, batch: dict, cfg: ModelConfig, rt: RuntimeConfig):
 
 
 def forward_loss(params: Tree, batch: dict, cfg: ModelConfig,
-                 rt: RuntimeConfig = RuntimeConfig(dtype="float32")):
+                 rt: RuntimeConfig = RuntimeConfig(dtype="float32"), *,
+                 collect_rows: bool = False):
     """batch: tokens (B, S), targets (B, S) [, patch_embeds (B, P, d) for a
     VLM, enc_frames (B, T_enc, d) for the encoder-decoder].  Returns
     ``(total, metrics)``: the total is the cross entropy plus the MoE router
@@ -340,7 +351,9 @@ def forward_loss(params: Tree, batch: dict, cfg: ModelConfig,
     cast to it where the reference casts them, and every layer casts its
     weights to the activations' dtype.  mLSTM layers run the cell's plain
     version, as the reference trains with ``mlstm_impl="ref"`` (the kernel
-    has no backward), and attention its plain path (``attn_impl="jnp"``)."""
+    has no backward), and attention its plain path (``attn_impl="jnp"``).
+    ``collect_rows`` adds ``metrics["_row_info"]`` (see :func:`_run_groups`)
+    for row-sparse gossip."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     dt = rt.cdtype
@@ -349,7 +362,8 @@ def forward_loss(params: Tree, batch: dict, cfg: ModelConfig,
     rt = dataclasses.replace(rt, attn_impl="torch", mlstm_impl="torch")
     enc_out = _encode(params, batch, cfg, rt) if cfg.arch_kind == "encdec" else None
     x, aux, _ = _run_groups(x, params["groups"], cfg, positions, rt, serve=False,
-                            enc_out=enc_out)
+                            enc_out=enc_out, collect_rows=collect_rows)
+    row_info = aux.pop("_row_info", None)
     x = norm_apply(x, params["final_norm"], cfg.norm_type)
     w = params["embed"]["table"].T if cfg.tie_embeddings else params["lm_head"]["w"]
     logits = lm_head_logits(x, w.to(dt))
@@ -361,7 +375,10 @@ def forward_loss(params: Tree, batch: dict, cfg: ModelConfig,
                  + 1e-3 * aux["moe_router_z"])
     else:  # the router terms are zeros: the reference's sum is the cross entropy
         total = loss
-    return total, {"xent": loss, **aux}
+    metrics = {"xent": loss, **aux}
+    if row_info is not None:
+        metrics["_row_info"] = row_info
+    return total, metrics
 
 
 # ---------------------------------------------------------------------------

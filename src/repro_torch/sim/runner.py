@@ -110,13 +110,30 @@ def _make_step(opt: Optimizer, topology: Topology, grad_fn: GradFn, lr_fn, spec)
     mix; the channel state — error-feedback residuals for top-k — is
     threaded per node exactly like the optimizer state.  ``None`` keeps the
     channel stateless and ``chstate`` an empty dict.
+
+    ``spec.sparse`` swaps in a :class:`~repro_torch.sparse.channel.
+    SparseStackedChannel` and marks each node's touched rows from its
+    gradient support before the mix; the row masks live in ``chstate``
+    with every leaf leading-n, so the event engines thread them per node
+    like error-feedback residuals (a node's mask rides its snapshot).
     """
-    channel = StackedChannel(topology, compression=spec.compression)
+    if spec.sparse:
+        from ..sparse import SparseStackedChannel, grad_row_masks
+
+        channel = SparseStackedChannel(topology, mode=spec.sparse,
+                                       crossover=spec.sparse_crossover,
+                                       calls_per_step=opt.gossips_per_step,
+                                       compression=spec.compression)
+        mark = lambda ch, g: channel.mark(ch, grad_row_masks(g))  # noqa: E731
+    else:
+        channel = StackedChannel(topology, compression=spec.compression)
+        mark = lambda ch, g: ch  # noqa: E731
     mean = make_stacked_mean(topology.n)
 
     def one(params, state, chstate, step: int, node_gaps: np.ndarray):
         grads = grad_fn(params, step)
         dev = _device(params)
+        chstate = mark(chstate, grads)
         with torch.no_grad():
             return opt.step(
                 params, grads, state,
@@ -292,10 +309,6 @@ def simulate(opt: Optimizer, spec, *args, **kwargs) -> SimResult:
             "simulate(opt, spec, params0, grad_fn) takes exactly four "
             "arguments when called with a SimSpec"
         )
-    if spec.sparse:
-        raise NotImplementedError(
-            f"SimSpec(sparse={spec.sparse!r}): row-sparse gossip is not ported yet "
-            "(ROADMAP queue 1, item 3)")
     params0, grad_fn = args
     scenario = spec.scenario
     if scenario is None:
@@ -349,13 +362,17 @@ def _run_event_pernode(
 
     depth = scenario.max_staleness + 4
     mailbox = _new_mailboxes(n, depth)
+    codec = _DeltaMailbox(n, depth, spec.sparse_crossover) if spec.sparse else None
     events_log: list[dict] = []
     trace: list[dict] = []
     next_record = record_dt if record_dt > 0 else None
 
     def publish(i: int, t: float) -> None:
+        row_x = _row(x, i)
+        if codec is not None:
+            row_x = codec.encode(i, row_x)
         mailbox[i].append(
-            (int(steps[i]), t, _row(x, i), _row(state, i), _row(chstate, i))
+            (int(steps[i]), t, row_x, _row(state, i), _row(chstate, i))
         )
 
     def alive_nodes() -> list[int]:
@@ -473,6 +490,8 @@ def _run_event_pernode(
                     # lagging reader may request (the SSP read invariant
                     # holds across re-entry)
                     row_x, row_s, row_c = _row(x, i), _row(state, i), _row(chstate, i)
+                    if codec is not None:
+                        row_x = codec.encode_full(i, row_x)
                     mailbox[i] = deque(
                         ((v, t, row_x, row_s, row_c)
                          for v in range(max(0, min(min_alive, sync_step)), sync_step + 1)),
@@ -525,6 +544,8 @@ def _run_event_pernode(
         one, channel = _make_step(opt, topo, grad_fn, lr_fn, spec)
         nbrs = topo.in_neighbors()
         mailbox[:] = _new_mailboxes(new_n, depth)
+        if codec is not None:
+            codec.reset(new_n)
         waiting.clear()
         # drop every pending completion (the collapse is a sync barrier)
         while queue:
@@ -564,7 +585,8 @@ def _run_event_pernode(
                 vers[j] = steps[i]
             else:
                 snap = _visible(mailbox[j], st - link_delay.get((j, i), 0.0), int(steps[i]))
-                rows_x.append(snap[2])
+                rows_x.append(snap[2] if codec is None else tree_map(
+                    lambda a: torch.as_tensor(a, device=_device(x)), codec.decode(j, snap[2])))
                 rows_s.append(snap[3])
                 rows_c.append(snap[4])
                 vers[j] = snap[0]
@@ -609,7 +631,8 @@ def _run_event_pernode(
     waiting.clear()
 
     return _result(spec, x, state, chstate, steps, stall, t, n_cur, recovery_mode, dead,
-                   kept_indices, trace, events_log, alive_nodes(), next_record, record)
+                   kept_indices, trace, events_log, alive_nodes(), next_record, record,
+                   codec)
 
 
 def _result(spec, x, state, chstate, steps, stall, t, n_cur, recovery_mode, dead,
@@ -651,10 +674,24 @@ def _run_delayed_engine(opt, spec: SimSpec, params0, grad_fn, lr_fn, scenario) -
     metric_fn = spec.metric_fn
     record_dt = spec.record_dt
     topology = build_topology(spec.topology, n)
-    channel = DelayedStackedChannel(
-        topology, scenario.gossip_delay, calls_per_step=opt.gossips_per_step,
-        compression=spec.compression,
-    )
+    if spec.sparse:
+        # exact-mode sparse composes with the delay ring (delta raises in the
+        # constructor); the stationarity it needs (zero weight decay) is the
+        # optimizer's, documented at the channel
+        from ..sparse import SparseStackedChannel, grad_row_masks
+
+        channel = SparseStackedChannel(
+            topology, scenario.gossip_delay, mode=spec.sparse,
+            crossover=spec.sparse_crossover, calls_per_step=opt.gossips_per_step,
+            compression=spec.compression,
+        )
+        mark = lambda ch, g: channel.mark(ch, grad_row_masks(g))  # noqa: E731
+    else:
+        channel = DelayedStackedChannel(
+            topology, scenario.gossip_delay, calls_per_step=opt.gossips_per_step,
+            compression=spec.compression,
+        )
+        mark = lambda ch, g: ch  # noqa: E731
     mean = make_stacked_mean(n)
     chstate = channel.init(params0)
     state = opt.init(params0)
@@ -665,6 +702,7 @@ def _run_delayed_engine(opt, spec: SimSpec, params0, grad_fn, lr_fn, scenario) -
     params = params0
     for k in range(n_steps):
         grads = grad_fn(params, k)
+        chstate = mark(chstate, grads)
         with torch.no_grad():
             params, state, chstate = opt.step(
                 params, grads, state,

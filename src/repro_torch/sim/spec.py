@@ -51,10 +51,13 @@ class SimSpec:
     * ``engine`` — ``"auto"`` | ``"vectorized"`` | ``"pernode"`` event-loop
       strategy (ignored by ``engine="delayed"`` scenarios, which run
       synchronous rounds either way).
-    * ``sparse`` / ``sparse_crossover`` — the reference's row-sparse gossip
-      mode and its dense fallback; validated as the reference does, but
-      :func:`~repro_torch.sim.runner.simulate` refuses a sparse mode until
-      the row-sparse channel is ported.
+    * ``sparse`` — ``None`` (dense gossip) or a row-sparse channel mode
+      (``"exact"`` | ``"delta"``, see :mod:`repro_torch.sparse.channel`):
+      every step marks the rows its gradient touched, the pernode engine
+      row-delta-compacts its parameter mailboxes, and ``SimResult.comm``
+      accounts the bytes.
+    * ``sparse_crossover`` — the dirty-row fraction past which a bucket
+      ships dense.
     """
 
     topology: str | TopologySpec | Topology = "ring"

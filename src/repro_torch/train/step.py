@@ -45,8 +45,21 @@ or ``allgather``, delayed when asked), means through ``make_psum_mean``
 mean over nodes, ``gossip_gap`` the fleet maximum, the consensus distance
 ``(1/n) sum_i ||x_i - x_bar||^2`` from two ``all_reduce`` sums.  The stage
 kernel launches on the rank's own node (a node axis of 1).  Tensor
-parallelism (tp > 1) and row-sparse gossip raise: they wait for ROADMAP
-queue 1, items 2 and 3.
+parallelism (tp > 1) raises: it waits for ROADMAP queue 1, item 2.
+
+Row-sparse gossip (``sparse_gossip``, :mod:`repro_torch.sparse`) runs on the
+distributed step with ``ppermute`` on flat planes, as the reference's: the
+forward pass collects the MoE groups' expert hits, a
+:class:`~repro_torch.sparse.RowTracker` turns them and the rank's token ids
+into plane-row masks, and ``channel.mark`` feeds them to the sparse channel
+before the update tail.  The stacked step refuses it, as the reference's
+refuses it for a non-distributed transport.
+
+Fault tolerance (:mod:`repro_torch.resilience`): ``chaos`` wraps the
+channel in a :class:`~repro_torch.resilience.ChaosChannel` and
+``resilient`` then in a :class:`~repro_torch.resilience.ResilientChannel`
+(outside-in: faults on the wire, healed one layer up), in both builders.
+The host's health loop sets the trust mask (``launch/train.py``).
 """
 
 from __future__ import annotations
@@ -80,7 +93,8 @@ from .train_state import model_plane_layout
 
 Tree = Any
 
-__all__ = ["TrainConfig", "build_train_step", "build_dist_train_step", "build_gossip_channel"]
+__all__ = ["TrainConfig", "build_train_step", "build_dist_train_step", "build_gossip_channel",
+           "build_dist_channel"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,8 +129,18 @@ class TrainConfig:
     # skip a node's optimizer update when its grad norm goes non-finite (the
     # skip count surfaces as the "skipped_nonfinite" metric)
     finite_guard: bool = True
-    # row-sparse gossip (repro.sparse): not ported, raises
+    # row-sparse gossip (repro.sparse): ship only the touched rows of each
+    # plane bucket per round; the distributed step with ppermute on flat
+    # planes only.  "exact" equals dense gossip; "delta" heals rows after
+    # delivery (lossy, delay 0 only)
     sparse_gossip: bool = False
+    sparse_mode: str = "exact"  # exact | delta
+    sparse_crossover: float = 0.9  # dirty fraction at which a bucket goes dense
+    # fault tolerance (repro.resilience): a seeded fault schedule on the
+    # wire, and/or the self-healing ResilientChannel around the transport
+    chaos: Any = None  # ChaosSchedule | None (frozen, hashable)
+    resilient: bool = False
+    resilient_gap: int | None = None  # on-the-fly distrust bound on a sender's gap
 
     def opt_config(self) -> OptimizerConfig:
         return OptimizerConfig(
@@ -129,19 +153,76 @@ class TrainConfig:
         )
 
 
+def _wrap_resilience(tcfg: TrainConfig, channel: GossipChannel) -> GossipChannel:
+    """The resilience wrappers, outside-in: chaos injects on the wire, the
+    resilient layer heals one level up (so it also heals real faults)."""
+    if tcfg.chaos is not None:
+        from ..resilience import ChaosChannel
+
+        channel = ChaosChannel(channel, tcfg.chaos)
+    if tcfg.resilient:
+        from ..resilience import ResilientChannel
+
+        channel = ResilientChannel(channel, suspect_gap=tcfg.resilient_gap)
+    return channel
+
+
 def build_gossip_channel(tcfg: TrainConfig, topology, gossips_per_step: int) -> GossipChannel:
     """The transport for a train config: the delayed stacked channel (one
     ring slot per gossip call of the step) when ``gossip_delay > 0``, else
-    the stacked channel; compressed as configured, telemetry on."""
+    the stacked channel; compressed as configured, telemetry on; wrapped in
+    the chaos and resilient layers when asked."""
     if tcfg.gossip_delay > 0:
-        return DelayedStackedChannel(topology, tcfg.gossip_delay,
-                                     calls_per_step=gossips_per_step,
-                                     compression=tcfg.compression, telemetry=True)
-    return StackedChannel(topology, compression=tcfg.compression, telemetry=True)
+        channel = DelayedStackedChannel(topology, tcfg.gossip_delay,
+                                        calls_per_step=gossips_per_step,
+                                        compression=tcfg.compression, telemetry=True)
+    else:
+        channel = StackedChannel(topology, compression=tcfg.compression, telemetry=True)
+    return _wrap_resilience(tcfg, channel)
+
+
+def build_dist_channel(tcfg: TrainConfig, topology, group,
+                       gossips_per_step: int) -> GossipChannel:
+    """The distributed step's transport (``repro.train.step.
+    build_gossip_channel``): ppermute or allgather, delayed when
+    ``gossip_delay > 0``, telemetry on; the row-sparse ppermute channel with
+    ``sparse_gossip`` (which needs ``ppermute``, ``weight_decay == 0`` at a
+    delay, and refuses the resilience wrappers); else wrapped in the chaos
+    and resilient layers when asked."""
+    if tcfg.gossip_impl not in ("ppermute", "allgather"):
+        raise ValueError(
+            f"gossip_impl={tcfg.gossip_impl!r}; the distributed step needs a distributed "
+            "transport: ppermute | allgather")
+    if tcfg.sparse_gossip and (tcfg.chaos is not None or tcfg.resilient):
+        # the sparse channels ship row segments, not whole payloads: the
+        # wrappers' sender-side masking would corrupt the row addressing
+        raise ValueError("chaos/resilient wrappers do not compose with sparse_gossip: use "
+                         "dense gossip for fault-injection runs")
+    if tcfg.sparse_gossip:
+        if tcfg.gossip_impl != "ppermute":
+            raise ValueError("sparse_gossip requires gossip_impl='ppermute' (the sparse "
+                             "channels ride the edge-class wire path)")
+        if tcfg.gossip_delay > 0 and tcfg.weight_decay != 0.0:
+            # delayed exact sparsity skips rows that stay in consensus; weight
+            # decay drifts untouched rows, which the channel never re-ships
+            raise ValueError("sparse_gossip with gossip_delay > 0 requires weight_decay == 0 "
+                             "(untouched rows must be stationary for delayed exact "
+                             "row-skipping to be lossless)")
+        from ..sparse import build_sparse_channel
+
+        return build_sparse_channel("ppermute", topology, group, mode=tcfg.sparse_mode,
+                                    crossover=tcfg.sparse_crossover,
+                                    compression=tcfg.compression, delay=tcfg.gossip_delay,
+                                    calls_per_step=gossips_per_step, telemetry=True)
+    channel = build_channel(tcfg.gossip_impl, topology, group, compression=tcfg.compression,
+                            delay=tcfg.gossip_delay, calls_per_step=gossips_per_step,
+                            telemetry=True)
+    return _wrap_resilience(tcfg, channel)
 
 
 def _node_grads(params: Tree, batch: dict, cfg: ModelConfig, n_nodes: int, out=None,
-                rt: T.RuntimeConfig = T.RuntimeConfig(dtype="float32"), accum: int = 1):
+                rt: T.RuntimeConfig = T.RuntimeConfig(dtype="float32"), accum: int = 1,
+                row_info: list | None = None):
     """Per-node loss and gradient, one node at a time, into a stacked f32
     gradient tree (``out``'s leaves where given: the views of a gradient
     plane).  With ``accum`` > 1 each node's rows split into ``accum``
@@ -149,7 +230,10 @@ def _node_grads(params: Tree, batch: dict, cfg: ModelConfig, n_nodes: int, out=N
     accum`` in f32 from zeros, as the reference's scan does, and each model
     metric (``xent`` and the MoE router terms) is the mean over the
     microbatches.  Returns ``(grads, per-node values)``: ``{"loss": (n,)}``,
-    each node's total, and ``{metric: (n,)}``."""
+    each node's total, and ``{metric: (n,)}``.  With a ``row_info`` list the
+    forward passes collect the MoE groups' expert hits, and node ``i``'s
+    ``{"moe/g<k>": (Lg, E)}`` (the union over its microbatches) is appended
+    to it."""
     leaves = tree_leaves(params)
     g_leaves = (tree_leaves(out) if out is not None else
                 [torch.empty(p.shape, dtype=torch.float32, device=p.device) for p in leaves])
@@ -166,7 +250,11 @@ def _node_grads(params: Tree, batch: dict, cfg: ModelConfig, n_nodes: int, out=N
         for j in range(accum):
             lo = i * b + j * mb
             batch_j = {k: v[lo:lo + mb] for k, v in batch.items()}
-            loss, metrics = T.forward_loss(params_i, batch_j, cfg, rt)
+            loss, metrics = T.forward_loss(params_i, batch_j, cfg, rt,
+                                           collect_rows=row_info is not None)
+            hits = metrics.pop("_row_info", None)
+            if hits is not None:
+                hits_i = hits if j == 0 else {k: hits_i[k] + v for k, v in hits.items()}
             micro.append({k: v.detach() for k, v in metrics.items()})
             grads = torch.autograd.grad(loss, leaves_i)
             if accum == 1:
@@ -182,6 +270,8 @@ def _node_grads(params: Tree, batch: dict, cfg: ModelConfig, n_nodes: int, out=N
             loss_i = loss_i + loss.detach().to(torch.float32) / accum
             del grads
         losses.append(loss_i)
+        if row_info is not None:
+            row_info.append(hits_i)
         node_metrics.append(micro[0] if accum == 1 else
                             {k: torch.mean(torch.stack([m[k] for m in micro]))
                              for k in micro[0]})
@@ -279,8 +369,6 @@ def _step_fn(cfg: ModelConfig, tcfg: TrainConfig, fleet, channel: GossipChannel,
     lr_fn = build_schedule(tcfg.schedule)
     if tcfg.grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {tcfg.grad_accum}")
-    if tcfg.sparse_gossip:
-        raise NotImplementedError("row-sparse gossip is not ported yet (ROADMAP queue 1, item 3)")
     n_local = 1 if isinstance(fleet, _Ranks) else fleet.n
     rt = tcfg.runtime
     if tcfg.flat_planes:
@@ -289,6 +377,19 @@ def _step_fn(cfg: ModelConfig, tcfg: TrainConfig, fleet, channel: GossipChannel,
                                  inplace=True)
     else:
         stage = make_stage(tcfg.fused_impl, inplace=True) if tcfg.fused_update else None
+    tracker = None
+    if tcfg.sparse_gossip:
+        if not isinstance(fleet, _Ranks):
+            # the stacked W @ mix is the oracle layout; the reference's train
+            # step refuses sparse gossip on a non-distributed transport too
+            raise ValueError("sparse_gossip runs on the distributed step "
+                             "(build_dist_train_step, gossip_impl='ppermute')")
+        if not tcfg.flat_planes:
+            raise ValueError("sparse_gossip requires flat_planes=True: the RowTracker "
+                             "addresses the gossip payload through the plane row->segment map")
+        from ..sparse import RowTracker
+
+        tracker = RowTracker.for_model(layout, tied_embeddings=cfg.tie_embeddings)
 
     def train_step(state: Tree, batch: dict):
         params, opt_state = state["params"], state["opt"]
@@ -298,6 +399,7 @@ def _step_fn(cfg: ModelConfig, tcfg: TrainConfig, fleet, channel: GossipChannel,
         batch = fleet.rows(batch)
 
         planes = g_planes = None
+        row_info = [] if tracker is not None else None
         if tcfg.flat_planes:
             planes = state["planes"]
             # every segment element is written below; the pads are zeroed
@@ -307,7 +409,7 @@ def _step_fn(cfg: ModelConfig, tcfg: TrainConfig, fleet, channel: GossipChannel,
             layout.zero_pads(g_planes, leading=1)
             grads, per_node = _node_grads(params, batch, cfg, n_local,
                                           layout.view_unpack(g_planes, leading=1), rt,
-                                          tcfg.grad_accum)
+                                          tcfg.grad_accum, row_info)
         else:
             grads, per_node = _node_grads(params, batch, cfg, n_local, None, rt,
                                           tcfg.grad_accum)
@@ -321,11 +423,17 @@ def _step_fn(cfg: ModelConfig, tcfg: TrainConfig, fleet, channel: GossipChannel,
                 gl[bad] = 0.0
             saved = {k: [t[bad].clone() for t in tree_leaves(v)] for k, v in opt_state.items()}
 
+        comp_state = state["channel"]
+        if tracker is not None:
+            # the rows this step touched: the rank's token ids and its MoE
+            # groups' expert hits, over the dense leaves' base rows
+            comp_state = channel.mark(comp_state, tracker.step_masks(
+                {"embed": batch["tokens"], **row_info[0]}, device=dev))
         if planes is not None:
             new_x, new_opt, comp = run_update(
                 spec, ocfg, x=planes, g=g_planes, state=opt_state, lr=lr,
                 step_idx=step_idx, gossip=channel, mean=mean,
-                comp_state=state["channel"], stage=stage,
+                comp_state=comp_state, stage=stage,
                 scalars=plane_scalars(ocfg, layout, params, grads, stacked=True),
             )
             for k, p in planes.items():
@@ -341,13 +449,13 @@ def _step_fn(cfg: ModelConfig, tcfg: TrainConfig, fleet, channel: GossipChannel,
             new_params, new_opt, comp = run_update(
                 spec, ocfg, x=params, g=grads, state=opt_state, lr=lr,
                 step_idx=step_idx, gossip=channel, mean=mean,
-                comp_state=state["channel"], stage=stage,
+                comp_state=comp_state, stage=stage,
                 scalars=node_grad_scalars(ocfg, params, grads),
             )
         else:
             new_params, new_opt, comp = opt.step(
                 params, grads, opt_state, lr=lr, step_idx=step_idx,
-                gossip=channel, mean=mean, comp_state=state["channel"],
+                gossip=channel, mean=mean, comp_state=comp_state,
                 scalars=node_grad_scalars(ocfg, params, grads),
             )
         del grads, g_planes
@@ -421,20 +529,13 @@ def build_dist_train_step(cfg: ModelConfig, tcfg: TrainConfig, group, *, tp: int
     with one node, or a scattered one), updated in place on the fused path;
     ``batch`` is the global batch of ``group.world * b`` rows, of which the
     rank takes ``[rank * b, (rank + 1) * b)``.  Every rank calls it at every
-    step.  The channel is ``tcfg.gossip_impl`` (``ppermute`` or
-    ``allgather``; delayed with ``gossip_delay``), telemetry on."""
+    step.  The channel is :func:`build_dist_channel`'s."""
     if tp != 1:
         raise NotImplementedError(
             f"tensor parallelism (tp={tp}) is not ported yet (ROADMAP queue 1, item 2)")
-    if tcfg.gossip_impl not in ("ppermute", "allgather"):
-        raise ValueError(
-            f"gossip_impl={tcfg.gossip_impl!r}; the distributed step needs a distributed "
-            "transport: ppermute | allgather")
     n = group.world
     topology = _topology(tcfg, n)
-    channel = build_channel(tcfg.gossip_impl, topology, group, compression=tcfg.compression,
-                            delay=tcfg.gossip_delay,
-                            calls_per_step=make_optimizer(tcfg.opt_config()).gossips_per_step,
-                            telemetry=True)
+    channel = build_dist_channel(tcfg, topology, group,
+                                 make_optimizer(tcfg.opt_config()).gossips_per_step)
     step = _step_fn(cfg, tcfg, _Ranks(group), channel, make_psum_mean(group, n))
     return step, channel

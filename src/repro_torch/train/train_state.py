@@ -102,8 +102,9 @@ def init_train_state(
 
 def _merge_channel(abstract: Tree, old: Tree, device) -> Tree:
     """Keep restored leaves whose shape and dtype match the abstract spec;
-    zeros for anything missing or reshaped (channel state is zero at init,
-    so zeros == ``channel.init``)."""
+    for anything missing or reshaped, ``channel.init``'s value: zeros on the
+    device for payload-shaped leaves (built on meta tensors here), the host
+    leaf itself for host bookkeeping."""
     if isinstance(abstract, dict):
         if not isinstance(old, dict):
             old = {}
@@ -111,8 +112,9 @@ def _merge_channel(abstract: Tree, old: Tree, device) -> Tree:
     if isinstance(old, torch.Tensor):
         if old.shape == abstract.shape and old.dtype == abstract.dtype:
             return old
-    return torch.zeros(abstract.shape, dtype=abstract.dtype,
-                       device=device if abstract.device.type == "meta" else abstract.device)
+    if abstract.device.type != "meta":  # a host leaf of channel.init: its own value
+        return abstract  # (a trust mask is all-true at init)
+    return torch.zeros(abstract.shape, dtype=abstract.dtype, device=device)
 
 
 def _restructured(template: Tree, tree: Tree) -> Tree | None:
@@ -167,18 +169,28 @@ def ensure_channel_state(state: Tree, channel: GossipChannel | None,
     One conversion goes beyond the reference's: ``repro``'s trainer keeps
     its telemetry per node (``(n,)``, every entry equal), the stacked
     channels as scalars; a per-node telemetry vector restores as its node-0
-    entry, so a resume from a ``repro`` checkpoint keeps the telemetry."""
+    entry, so a resume from a ``repro`` checkpoint keeps the telemetry.  The
+    chaos and resilient wrappers' state (their inner channel's under
+    ``"in"``; the round and miss counters, the trust mask, the last good
+    payload) and the sparse channels' ``rows`` resume by the same rules."""
     if channel is None:
         return {**state, "channel": {}}
     device = tree_leaves(state["params"])[0].device
     abstract = channel.init(_channel_template(state, plane_layout))
     old = state.get("channel", {})
-    if not isinstance(old, dict):
-        old = {}
+    return {**state, "channel": _ensure(abstract, old if isinstance(old, dict) else {}, device)}
+
+
+def _ensure(abstract: dict, old: dict, device) -> dict:
+    """:func:`ensure_channel_state`'s merge of one channel's state: the
+    resilience wrappers nest their inner channel's state under ``"in"``,
+    which merges by the same rules."""
     merged: Tree = {}
     for key, abs_v in abstract.items():
         old_v = old.get(key)
-        if key == "delay":
+        if key == "in":
+            merged[key] = _ensure(abs_v, old_v if isinstance(old_v, dict) else {}, device)
+        elif key == "delay":
             merged[key] = {}
             for slot_key, abs_slot in abs_v.items():
                 old_slot = old_v.get(slot_key) if isinstance(old_v, dict) else None
@@ -193,7 +205,7 @@ def ensure_channel_state(state: Tree, channel: GossipChannel | None,
             merged[key] = _merge_channel(abs_v, per_node, device)
         else:
             merged[key] = _merge_channel(abs_v, old_v, device)
-    return {**state, "channel": merged}
+    return merged
 
 
 def reconcile_plane_state(state: Tree, plane_layout: PlaneLayout, flat_planes: bool) -> Tree:

@@ -1,6 +1,8 @@
 """The port's distributed gossip channels — ``PpermuteChannel`` (every
-compressor), ``DelayedPpermuteChannel``, ``AllgatherChannel`` and
-``make_psum_mean`` — on 8 gloo CPU ranks, one process per node, against
+compressor), ``DelayedPpermuteChannel``, ``AllgatherChannel``, the
+row-sparse ppermute channels (exact, delta, delayed exact), ``ChaosChannel``
+and ``ResilientChannel`` over ppermute, and ``make_psum_mean`` — on 8 gloo
+CPU ranks, one process per node, against
 ``repro``'s channels inside ``shard_map`` on 8 simulated devices, on the
 same seeded numpy payloads for 3 steps (``torch_dist_cases``).  The JAX side
 runs in one subprocess per module (this process's jax has one device), the
@@ -76,9 +78,49 @@ def test_channel_matches_repro_over_three_steps(key, ref, port):
     keys = [k for k in ref if k.startswith(f"{key}/")]
     assert keys and sorted(keys) == sorted(k for k in port if k.startswith(f"{key}/")
                                            and "/fleet_gaps/" not in k
-                                           and k not in (f"{key}/collectives", f"{key}/bytes"))
+                                           and k not in (f"{key}/collectives", f"{key}/bytes",
+                                                         f"{key}/sent"))
     for k in keys:
         _close(port[k], ref[k], k)
+
+
+@pytest.mark.parametrize("sparse,dense", [("sparse-exact-exp-all", "ppermute-exp-none"),
+                                          ("sparse-delta-exp-all", "ppermute-exp-none"),
+                                          ("sparse-exact-exp-d1-all", "delayed-exp-d1"),
+                                          ("resilient-exp-clean", "ppermute-exp-none")])
+def test_all_dirty_sparse_and_clean_resilient_equal_dense_bit_for_bit(sparse, dense, port):
+    """Within the port: every row dirty, the sparse channels' mixes are the
+    dense channel's bits (exact, delta, delayed exact); a clean resilient
+    layer (no fault, every peer trusted) is transparent."""
+    rounds = len(C.rounds(C.CASES[dense]))
+    assert rounds == len(C.rounds(C.CASES[sparse]))
+    for r in range(rounds):
+        for k in C.LEAVES:
+            a, b = port[f"{sparse}/mix/{r}/{k}"], port[f"{dense}/mix/{r}/{k}"]
+            assert a.dtype == b.dtype and np.array_equal(a.view(np.uint8), b.view(np.uint8)), (
+                sparse, r, k)
+
+
+@pytest.mark.parametrize("key", [k for k, c in C.CASES.items() if c["kind"] == "sparse"
+                                 and c["mode"] == "exact" and not c["compression"]])
+def test_sparse_wire_carries_only_the_dirty_rows(key, port):
+    """Exact mode ships the agreed mask's rows and nothing else (their
+    indices are implied by the mask): each rank sent, per round, its dirty
+    rows' f32 bytes along each of the phase's edge classes it sends on."""
+    case = C.CASES[key]
+    topo = ttopo.build_topology(case["family"], C.N)
+    for rank, res in enumerate(port["_ranks"]):
+        sent, dirty = res[f"{key}/sent"]
+        want = 0
+        for (step, _), counts in zip(C.rounds(case), dirty):
+            sends = sum(1 for c in topo.edge_classes(step % topo.period) if c.perm[rank] >= 0)
+            for (name, shape), k in zip(sorted(C.LEAVES.items()), counts):
+                want += sends * 4 * k * int(np.prod(shape[1:]))
+        assert sent == want, (key, rank)
+        dense = sum(sends * 4 * int(np.prod(s)) for s in C.LEAVES.values()
+                    for sends in [len(topo.edge_classes(0))]) * len(dirty)
+        if not case.get("all"):
+            assert sent < dense
 
 
 def test_psum_mean_matches_repro(ref, port):

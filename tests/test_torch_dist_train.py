@@ -66,6 +66,24 @@ def test_gossip_gap_and_consensus_are_fleet_wide(cases):
     assert all(m["consensus_sq"] > 0 for m in cases["smoke-grad-accum-consensus"]["metrics"])
 
 
+def test_sparse_and_resilient_steps_account_and_guard(cases):
+    """The sparse steps' volume: exact mode ships fewer bytes than dense
+    (an untied embedding's untouched rows stay home), equal on every node;
+    delta mode trains finite; the resilient step quarantines node 2's NaN
+    round on every receiver, and its parameters stay finite."""
+    for name in ("smoke-sparse-exact-planes", "moe-sparse-exact-planes",
+                 "smoke-sparse-exact-sa-delay1", "smoke-sparse-delta-planes"):
+        vol = cases[name]["vol"]
+        assert (vol["rounds"] == W.TRAIN_STEPS).all(), name
+        assert (vol["sparse"] < vol["dense"]).all() and (vol["sparse"] > 0).all(), name
+        if "exact" in name:
+            assert (vol["sparse"] == vol["sparse"][0]).all(), name
+    delta = cases["smoke-sparse-delta-planes"]
+    assert delta["finite"] and all(np.isfinite(m["loss"]) for m in delta["metrics"])
+    res = cases["smoke-chaos-resilient-planes"]
+    assert res["finite"] and (res["quarantined"] > 0).all()
+
+
 @pytest.mark.parametrize("pair", [f"{a} == {b}" for a, b in W.TRAIN_BITWISE])
 def test_bitwise_claims_within_the_distributed_path(pair, cases):
     """Planes == per leaf and the stage executor == its plain version, on the

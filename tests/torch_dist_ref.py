@@ -1,6 +1,7 @@
 """The JAX side of ``tests/test_torch_dist_gossip.py``: ``repro``'s
 distributed channels (``PpermuteChannel``, ``DelayedPpermuteChannel``,
-``AllgatherChannel``, ``make_psum_mean``) run inside ``shard_map`` on 8
+``AllgatherChannel``, the sparse ppermute channels, ``ChaosChannel`` and
+``ResilientChannel`` over ppermute, ``make_psum_mean``) run inside ``shard_map`` on 8
 simulated CPU devices, on the seeded payloads of ``torch_dist_cases``, and
 their mixes, states and gaps written to an npz.
 
@@ -43,6 +44,12 @@ def main(out_path: str) -> None:
         topo = build_topology(case["family"], C.N)
         return topo.exclude(case["dead"]) if case.get("dead") else topo
 
+    from repro import resilience as R
+    from repro import sparse as S
+
+    kinds = {"silence": R.PeerSilence, "drop": R.Drop, "dup": R.Duplicate,
+             "delay": R.ExtraDelay, "corrupt": R.BitCorrupt, "nan": R.NaNInject}
+
     for key, case in C.CASES.items():
         topo = topo_of(case)
         if case["kind"] == "allgather":
@@ -50,26 +57,43 @@ def main(out_path: str) -> None:
         elif case["kind"] == "delayed":
             ch = G.DelayedPpermuteChannel(topo, axes, case["delay"],
                                           calls_per_step=case["calls"], telemetry=True)
+        elif case["kind"] == "sparse":
+            ch = S.build_sparse_channel("ppermute", topo, axes, mode=case["mode"],
+                                        delay=case["delay"], compression=case["compression"],
+                                        calls_per_step=case.get("calls", 1), telemetry=True)
+        elif case["kind"] in ("chaos", "resilient"):
+            sched = R.ChaosSchedule(faults=tuple(kinds[k](**kw) for k, kw in case["faults"]),
+                                    seed=11)
+            ch = R.ChaosChannel(G.PpermuteChannel(topo, axes, telemetry=True), sched)
+            if case["kind"] == "resilient":
+                ch = R.ResilientChannel(ch)
         else:
             ch = G.PpermuteChannel(topo, axes, compression=case["compression"], telemetry=True)
         tmpl = jax.tree.map(lambda a: jnp.asarray(a[0]), C.payload(0))
         st = jax.tree.map(lambda a: jnp.broadcast_to(a[None], (C.N,) + a.shape), ch.init(tmpl))
+        if "trust" in case:
+            st = R.with_trust(st, np.asarray(case["trust"], bool))
+        sparse = case["kind"] == "sparse"
 
-        def body(s, x, step, ch=ch):
+        def body(s, x, m, step, ch=ch, sparse=sparse):
             s1 = jax.tree.map(lambda a: a[0], s)
             x1 = jax.tree.map(lambda a: a[0], x)
+            if sparse:
+                s1 = ch.mark(s1, jax.tree.map(lambda a: a[0], m))
             s1, mix = ch.apply(s1, x1, step)
             gap = jnp.int32(ch.node_gaps(s1))
             return (jax.tree.map(lambda a: a[None], s1), jax.tree.map(lambda a: a[None], mix),
                     gap[None])
 
         x0 = {k: jnp.asarray(v) for k, v in C.payload(0).items()}
-        fn = jax.jit(shard_map(body, mesh=mesh, in_specs=(spec(st), spec(x0), P()),
+        m0 = {k: jnp.asarray(v) for k, v in C.masks(case, 0).items()}
+        fn = jax.jit(shard_map(body, mesh=mesh, in_specs=(spec(st), spec(x0), spec(m0), P()),
                                out_specs=(spec(st), spec(x0), P("data")),
                                axis_names={"data"}))
         for r, (step, seed) in enumerate(C.rounds(case)):
             x = {k: jnp.asarray(v) for k, v in C.payload(seed).items()}
-            st, mix, gaps = fn(st, x, jnp.int32(step))
+            m = {k: jnp.asarray(v) for k, v in C.masks(case, seed).items()}
+            st, mix, gaps = fn(st, x, m, jnp.int32(step))
             for k, v in mix.items():
                 out[f"{key}/mix/{r}/{k}"] = np.asarray(v)
             out[f"{key}/gaps/{r}"] = np.asarray(gaps)

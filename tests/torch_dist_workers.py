@@ -23,6 +23,12 @@ def gossip_cases(group) -> dict:
     from repro_torch.core import gossip as G
     from repro_torch.core.topology import build_topology
 
+    from repro_torch import resilience as R
+    from repro_torch.sparse import build_sparse_channel
+    from repro_torch.utils import tree_leaves
+
+    kinds = {"silence": R.PeerSilence, "drop": R.Drop, "dup": R.Duplicate,
+             "delay": R.ExtraDelay, "corrupt": R.BitCorrupt, "nan": R.NaNInject}
     me = slice(group.rank, group.rank + 1)
     out = {}
     for key, case in C.CASES.items():
@@ -34,19 +40,42 @@ def gossip_cases(group) -> dict:
         elif case["kind"] == "delayed":
             ch = G.build_channel("ppermute", topo, group, delay=case["delay"],
                                  calls_per_step=case["calls"], telemetry=True)
+        elif case["kind"] == "sparse":
+            ch = build_sparse_channel("ppermute", topo, group, mode=case["mode"],
+                                      delay=case["delay"], compression=case["compression"],
+                                      calls_per_step=case.get("calls", 1), telemetry=True,
+                                      chunk_bytes=4096)
+        elif case["kind"] in ("chaos", "resilient"):
+            sched = R.ChaosSchedule(faults=tuple(kinds[k](**kw) for k, kw in case["faults"]),
+                                    seed=11)
+            ch = R.ChaosChannel(G.build_channel("ppermute", topo, group, telemetry=True,
+                                                chunk_bytes=4096), sched)
+            if case["kind"] == "resilient":
+                ch = R.ResilientChannel(ch)
         else:
             ch = G.build_channel("ppermute", topo, group, compression=case["compression"],
                                  telemetry=True, chunk_bytes=4096)
         st = ch.init({k: torch.from_numpy(v[me].copy()) for k, v in C.payload(0).items()})
+        if "trust" in case:
+            st = R.with_trust(st, np.asarray(case["trust"], bool))
+        dirty = []
         for r, (step, seed) in enumerate(C.rounds(case)):
             x = {k: torch.from_numpy(v[me].copy()) for k, v in C.payload(seed).items()}
+            if case["kind"] == "sparse":
+                st = ch.mark(st, {k: torch.from_numpy(v[group.rank].copy())
+                                  for k, v in C.masks(case, seed).items()})
             st, mix = ch.apply(st, x, step)
+            if case["kind"] == "sparse" and case["mode"] == "exact":
+                # what this round shipped: each leaf's agreed mask, its rows
+                dirty.append([int(d[0].sum()) for d in tree_leaves(st["rows"]["dirty"])])
             for k, v in mix.items():
                 out[f"{key}/mix/{r}/{k}"] = v.numpy()
             out[f"{key}/gaps/{r}"] = np.asarray(ch.node_gaps(st), np.int32).reshape(1)
             out[f"{key}/fleet_gaps/{r}"] = G.fleet_node_gaps(ch, st)
         for path, leaf in _flat(st):
             out[f"{key}/state/{path}"] = leaf.numpy()
+        if case["kind"] == "sparse":
+            out[f"{key}/sent"] = (ch.sent_bytes, dirty)
         payload = {k: torch.zeros((1,) + s) for k, s in C.LEAVES.items()}
         out[f"{key}/collectives"] = ch.collectives_per_round(payload)
         out[f"{key}/bytes"] = ch.bytes_per_step(4.0 * sum(int(np.prod(s))
@@ -148,6 +177,20 @@ TRAIN_CASES = [
     ("smoke-topk", "smoke", {"compression": "topk:0.05"}, "finite"),
     ("tiny-ppermute", "tiny", {}, 2e-5),
     ("tiny-sa-delay2", "tiny", {"algorithm": "decentlam-sa", "gossip_delay": 2}, 2e-5),
+    # row-sparse gossip against the stacked step's dense gossip (exact mode
+    # equals it); delta mode is lossy and only kept finite
+    ("smoke-sparse-exact-planes", "smoke", {"flat_planes": True, "sparse_gossip": True}, 2e-5),
+    ("moe-sparse-exact-planes", "moe", {"flat_planes": True, "sparse_gossip": True}, 2e-5),
+    ("smoke-sparse-exact-sa-delay1", "smoke", {"flat_planes": True, "sparse_gossip": True,
+                                               "algorithm": "decentlam-sa",
+                                               "gossip_delay": 1}, 2e-5),
+    ("smoke-sparse-delta-planes", "smoke", {"flat_planes": True, "sparse_gossip": True,
+                                            "sparse_mode": "delta"}, None),
+    # chaos and the resilient layer: every rank draws the same fires
+    ("smoke-chaos-resilient-planes", "smoke", {"flat_planes": True, "resilient": True,
+                                               "chaos": "silence,nodes=1,start=1,stop=3;"
+                                                        "drop,prob=0.3;nan,nodes=2,frac=0.01,"
+                                                        "prob=1,start=2"}, 2e-5),
 ]
 TRAIN_LR = 3e-3
 TRAIN_STEPS = 3
@@ -160,9 +203,14 @@ def _train_setup(model, fields):
     from repro_torch.core.schedules import ScheduleConfig
     from repro_torch.train.step import TrainConfig
 
+    from repro_torch.launch.train import _parse_chaos
+
     cfg = (get_config("qwen3-0.6b", smoke=True) if model == "smoke"
+           else get_config("granite-moe-1b-a400m", smoke=True) if model == "moe"
            else tiny_lm(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
                         vocab_size=256))
+    if "chaos" in fields:  # the CLI's specs, ";"-joined
+        fields = {**fields, "chaos": _parse_chaos(fields["chaos"].split(";"), 0)}
     tcfg = TrainConfig(**{"fused_update": True, "fused_impl": "triton",
                           "schedule": ScheduleConfig(kind="warmup_cosine", peak_lr=TRAIN_LR,
                                                      warmup_steps=1, total_steps=TRAIN_STEPS),
@@ -207,6 +255,8 @@ def train_cases(group) -> dict:
     config and returns per case the losses, the metrics, the largest
     differences of the final parameters and optimizer state, whether all
     is finite and the telemetry; and the bitwise pairs."""
+    import dataclasses
+
     import torch
 
     from repro_torch.train.step import build_dist_train_step, build_train_step
@@ -222,17 +272,25 @@ def train_cases(group) -> dict:
         if host is None:
             continue
         got = _comparable(host, layout)
+        inner = host["channel"]
+        while "in" in inner:  # the resilience wrappers nest the transport's state
+            inner = inner["in"]
         res = {"metrics": metrics,
                "finite": all(bool(torch.isfinite(v).all()) for v in got.values()),
-               "tele": (host["channel"]["t"]["bytes"].numpy(),
-                        host["channel"]["t"]["rounds"].numpy()),
+               "tele": (inner["t"]["bytes"].numpy(), inner["t"]["rounds"].numpy()),
                "comp_nonzero": float(sum(v.abs().sum() for v in
-                                         _leaves(host["channel"].get("comp", {}))))}
+                                         _leaves(inner.get("comp", {}))))}
+        if "rows" in inner:
+            res["vol"] = {k: v.numpy() for k, v in inner["rows"]["vol"].items()}
+        if "res" in host["channel"]:
+            res["quarantined"] = host["channel"]["res"]["quarantined"].numpy()
         if any(name in pair for pair in TRAIN_BITWISE):
             finals[name] = got
         if tol is not None and tol != "finite":
-            sstate, smetrics = _run(group, lambda: build_train_step(cfg, tcfg, group.world),
-                                    group.world, cfg, tcfg, layout)
+            # the stacked step gossips densely (exact sparse gossip equals it)
+            scfg = dataclasses.replace(tcfg, sparse_gossip=False)
+            sstate, smetrics = _run(group, lambda: build_train_step(cfg, scfg, group.world),
+                                    group.world, cfg, scfg, layout)
             want = _comparable(sstate, layout)
             assert sorted(want) == sorted(got), name
             res["stacked_metrics"] = smetrics
