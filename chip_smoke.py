@@ -217,12 +217,32 @@ result line):
     gaps and the monitor's states == the stacked run's, the final
     parameters and optimizer state within the reference's
     distributed-vs-oracle tolerance of it (in phase 30's spawned group,
-    which runs before phase 31).
+    which runs before phase 31);
+33. tensor-parallel serving: qwen3-0.6b at full width and depth behind the
+    engine on a (1 x 2) grid, 2 ranks sharing the card over gloo (every
+    model-group collective staged through host memory), f32, the flash
+    kernel at each rank's local heads; 8 slots, 8 requests of 256..2048
+    prompt tokens, 16 new: the first wave's logits and the first 4 decode
+    steps' against the tp = 1 engine on the same weights at 5e-4 relative,
+    both ranks' tokens equal, 28 flash launches per wave on each rank;
+    prefill and decode ms, the collectives' seconds and staged bytes per
+    decode step, peak memory per rank and the card's;
+34. tensor-parallel training: qwen3-0.6b at full width and depth, 2 nodes x
+    tp 2 = 4 ranks over gloo, planes, decentlam on exp, 2 steps through the
+    CLI's rank body: grad_step and decentlam_post each launched once per
+    rank and step (counted by op after every step), each rank's shard
+    of its node's final parameters against the tp = 1 one-process-per-node
+    run on 2 ranks (same spawned group, read through CUDA IPC) within 1e-5
+    of scale; step time, gossip seconds per round, the collectives' seconds
+    and staged bytes per step, peak memory;
+35. ``--simulate-nodes 2 --serve-while-training`` at 4 layers (the
+    vocabulary cut): every shipped snapshot == node 0's parameters bit for
+    bit, every request served.
 
 Phases 6 and 9 also run flash at whisper-tiny's two non-causal shapes
 (the encoder's 1500 x 1500, the cross-attention's 224 x 1500).  The line
 before the last is the per-kernel JSON record (the stage kernel on the
-per-leaf, plane, staleness, MoE, whisper and row-sparse paths; flash on the qwen3-0.6b, hymba-1.5b and whisper-tiny serve paths;
+per-leaf, plane, staleness, MoE, whisper and row-sparse paths; flash on the qwen3-0.6b, hymba-1.5b and whisper-tiny serve paths and at tp 2;
 mLSTM on xlstm-350m's); the last
 line is
 ``{"ok": true, "device": {...}}``.  Triton kernels compile at first use into
@@ -234,6 +254,7 @@ held against torch's own parse on every serve path's two decode steps.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -276,7 +297,9 @@ FA_MAIN_SHAPES = {"qwen3-0.6b prefill": (8, 2048, 2048, 16, 8, 64, 0, True),
                   "h2o-danube-1.8b": (1, 4608, 4608, 32, 8, 80, 4096, True),
                   "hymba-1.5b prefill": (8, 2048, 2048, 25, 5, 64, 1024, True),
                   "whisper-tiny encoder": (8, 1500, 1500, 6, 6, 64, 0, False),
-                  "whisper-tiny cross": (8, WHISPER["prompt"], 1500, 6, 6, 64, 0, False)}
+                  "whisper-tiny cross": (8, WHISPER["prompt"], 1500, 6, 6, 64, 0, False),
+                  # one rank of phase 33's tp 2: its 8 q heads over its 4 kv heads
+                  "qwen3-0.6b prefill, a tp 2 rank": (8, 2048, 2048, 8, 4, 64, 0, True)}
 # the head layouts of this slice's models beyond phase 6's product, (H, Hkv,
 # hd): hymba's GQA group of 5 and olmo-1b's MHA at hd 128
 FA_ZOO_HEADS = ((25, 5, 64), (16, 16, 128))
@@ -1769,10 +1792,11 @@ def phase_plane_kernel_vs_plain(torch):
 
 
 
-def phase_plane_timing(torch, nodes=MAIN["nodes"], cfg=None):
+def phase_plane_timing(torch, nodes=MAIN["nodes"], cfg=None, tp=1):
     """The flat-plane path's two stages at qwen3-0.6b's full stacked plane
     (4, 648000, 1024) f32 — or ``(nodes, 648000, 1024)``: one rank's plane
-    is (1, ...); or at the plane of ``cfg`` — one launch each per step:
+    is (1, ...); or at the plane of ``cfg``; at ``tp > 1`` a model rank's
+    local plane — one launch each per step:
     kernel time, bound, the plain version (node by node: its temporaries
     over the whole plane would not fit) and, for grad_step,
     ``torch.addcmul``."""
@@ -1786,7 +1810,7 @@ def phase_plane_timing(torch, nodes=MAIN["nodes"], cfg=None):
     )
     from repro_torch.train.train_state import model_plane_layout
 
-    full = model_plane_layout(cfg if cfg is not None else get_config(MAIN["arch"]))
+    full = model_plane_layout(cfg if cfg is not None else get_config(MAIN["arch"]), tp)
     (key,) = full.buckets
     shape = (nodes, full.rows[key], 1024)
     ctx = MathCtx(beta=0.9)
@@ -3006,6 +3030,7 @@ def _dist_resume_rank(group, root, argv):
     from repro_torch.core.optimizers import make_optimizer
     from repro_torch.data.synthetic import SyntheticLM, SyntheticLMConfig
     from repro_torch.launch import train
+    from repro_torch.launch.mesh import init_grid
     from repro_torch.train.checkpoint import save_checkpoint
     from repro_torch.train.step import build_dist_train_step
     from repro_torch.train.train_state import gather_state, init_train_state, model_plane_layout
@@ -3054,7 +3079,7 @@ def _dist_resume_rank(group, root, argv):
 
     step_fn, channel = build_dist_train_step(cfg, tcfg, group)
     t = time.perf_counter()
-    state = train._resume_ranks(group, root, cfg, channel, layout, True)
+    state = train._resume_ranks(init_grid(group, 1), root, cfg, channel, layout, True)
     sync()
     restore_s = time.perf_counter() - t
     losses_b = []
@@ -4378,6 +4403,439 @@ def _log_dist_faults(r):
         f"{r['dist_s']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phases 33-35: tensor parallelism on a (nodes x tp) grid of ranks sharing the
+# card over gloo (every collective staged through host memory), and serving
+# while training on the one-process-per-node trainer
+# ---------------------------------------------------------------------------
+
+# phase 33: qwen3-0.6b at full width and depth, tp 2 on 2 ranks, f32, flash
+TP_SERVE = dict(arch="qwen3-0.6b", tp=2, slots=8, requests=8, min_prompt=256,
+                max_prompt=2048, max_new=16, checked=4)
+TP_RTOL = 5e-4  # tests/scripts/distributed_serve.py's sharded-vs-tp=1 tolerance
+# phase 34: 2 nodes x tp 2 = 4 ranks at full width and depth, planes, 2 steps
+TP_TRAIN = dict(nodes=2, tp=2, steps=2)
+TP_TRAIN_RTOL = 1e-5  # the final parameters, relative to each leaf's scale
+TP_DIR = os.path.join(HERE, "build", "tp_smoke")
+# phase 35: --serve-while-training on 2 ranks, 4 layers, the vocabulary cut
+SWT_DIST = dict(nodes=2, depth=4, steps=4, publish_every=2, requests=8)
+
+
+def _tp_requests(vocab):
+    import numpy as np
+
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(TP_SERVE["min_prompt"], TP_SERVE["max_prompt"] + 1,
+                        TP_SERVE["requests"])
+    return [Request(rid=i, tokens=rng.integers(0, vocab, int(n)).astype(np.int32),
+                    max_new_tokens=TP_SERVE["max_new"]) for i, n in enumerate(lens)]
+
+
+def _tp_engine_run(torch, cfg, make_params, grid):
+    """The phase-33 engine over ``make_params()`` (the global tree, freed
+    once the engine holds its shard) on ``grid`` (None: one process,
+    tp = 1): the first wave's prefill logits and the first
+    ``checked`` decode batches' logits (gathered, on the host), prefill and
+    decode wall ms, flash launches, tokens, peak memory (the rank's and the
+    card's in use), and the steps' model-group collectives."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_launch,
+        reset_launches,
+    )
+    from repro_torch.models.transformer import RuntimeConfig
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train.serve import gather_logits
+
+    slots = TP_SERVE["slots"]
+    rec = {"decode": [], "prefill_ms": [], "decode_ms": [], "card": 0, "active": []}
+
+    def on_logits(lg, active):
+        if len(rec["decode"]) < TP_SERVE["checked"]:  # numpy: it leaves the rank
+            rec["decode"].append(lg.float().cpu().numpy())
+            rec["active"].append(dict(active))
+
+    params = make_params()
+    engine = ServeEngine(cfg, slots=slots, max_prompt=TP_SERVE["max_prompt"],
+                         max_new=TP_SERVE["max_new"], params=params, device="cuda", grid=grid,
+                         timing=grid is not None, on_logits=on_logits,
+                         runtime=RuntimeConfig(dtype="float32", attn_impl="cuda"))
+    del params
+    torch.cuda.empty_cache()
+    pre, dec = engine.prefill_step, engine.decode_step
+
+    def card():
+        free, total = torch.cuda.mem_get_info()
+        rec["card"] = max(rec["card"], total - free)
+
+    def prefill(p, b):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg, cache = pre(p, b)
+        torch.cuda.synchronize()
+        rec["prefill_ms"].append(1e3 * (time.perf_counter() - t))
+        card()
+        if "prefill" not in rec:
+            lg = gather_logits(lg, grid, global_batch=slots)
+            rec["prefill"] = lg.float().cpu().numpy()
+        return lg, cache
+
+    def decode(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = dec(*args)
+        torch.cuda.synchronize()
+        rec["decode_ms"].append(1e3 * (time.perf_counter() - t))
+        return out
+
+    engine.prefill_step, engine.decode_step = prefill, decode
+    for r in _tp_requests(cfg.vocab_size):
+        engine.submit(r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    done = engine.run_until_drained()
+    card()
+    rec.update(flash=flash_attention_launch.launches, waves=engine.prefills,
+               tokens={c.rid: c.tokens.tolist() for c in done},
+               peak=torch.cuda.max_memory_allocated(),
+               tp={k: None if f.tp is None else (f.tp.seconds, f.tp.calls, f.tp.staged_bytes)
+                   for k, f in (("prefill", pre), ("decode", dec))})
+    return rec
+
+
+def _tp_serve_rank(world):
+    """Phase 33 on one of the 2 ranks: the engine on the (1 x 2) grid; then
+    rank 0 alone runs the tp = 1 engine on the same weights.  Rank 0
+    returns both records."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_grid
+    from repro_torch.models import transformer as T
+
+    grid = init_grid(world, TP_SERVE["tp"])
+    cfg = get_config(TP_SERVE["arch"])
+
+    def make():  # the same global tree at every call
+        return T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                             tp=TP_SERVE["tp"])
+
+    mine = _tp_engine_run(torch, cfg, make, grid)
+    if world.rank:
+        return mine
+    torch.cuda.empty_cache()
+    return mine, _tp_engine_run(torch, cfg, make, None)
+
+
+def _tp_compare(tp, ref):
+    """Phase 33's gates on rank 0's two records: the first wave's logits,
+    then each slot's decode logits while its tokens agree (where they part,
+    the tp = 1 run's own top-two gap there must be under the tolerance: a
+    near tie).  Returns the largest relative differences."""
+    import numpy as np
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    errs = {"prefill": rel(tp["prefill"], ref["prefill"])}
+    if not errs["prefill"] <= TP_RTOL:
+        raise RuntimeError(f"TP prefill logits off the tp = 1 engine's by {errs['prefill']:.3g}"
+                           f" (rtol {TP_RTOL})")
+    parted, dec = {}, []
+    for s, (a, b) in enumerate(zip(tp["decode"], ref["decode"])):
+        scale = float(np.abs(b).max())
+        for j in sorted(ref["active"][s]):
+            if j in parted:
+                continue
+            dec.append(float(np.abs(a[j] - b[j]).max()) / scale)
+            if dec[-1] > TP_RTOL:
+                raise RuntimeError(f"decode step {s}, slot {j}: logits off by {dec[-1]:.3g}")
+            if int(a[j].argmax()) != int(b[j].argmax()):
+                top = np.sort(b[j])[::-1][:2]
+                if float(top[0] - top[1]) > TP_RTOL * scale:
+                    raise RuntimeError(f"decode step {s}, slot {j}: the tokens part at a gap "
+                                       f"{float(top[0] - top[1]):.3g} (no near tie)")
+                parted[j] = s
+    errs["decode"], errs["parted"] = max(dec), parted
+    return errs
+
+
+def phase_tp_serve(torch):
+    """Phase 33: tensor-parallel serving.  qwen3-0.6b at full width and
+    depth behind the engine on a (1 x 2) grid: 2 ranks sharing the card over
+    gloo (every model-group collective staged through host memory), f32, the
+    flash kernel at each rank's 8 q heads and 4 kv heads; 8 slots, 8
+    requests of 256..2048 prompt tokens, 16 new each.  Gates: the first
+    wave's logits and the first 4 decode steps' against the tp = 1 engine on
+    the same weights at 5e-4 relative; every request completes on both
+    ranks with the same tokens; 28 flash launches per wave on each rank.
+    Prints prefill ms per wave, decode ms per step, the collectives' seconds,
+    count and staged bytes per decode step, peak memory per rank and the
+    card's."""
+    from repro_torch.launch.mesh import run_ranks
+
+    torch.cuda.empty_cache()
+    out = run_ranks(_tp_serve_rank, TP_SERVE["tp"], device="cuda", timeout_s=DIST_TIMEOUT_S)
+    (tp0, ref), tp1 = out[0], out[1]
+    errs = _tp_compare(tp0, ref)
+    from repro_torch.configs import get_config
+
+    cfg_layers = get_config(TP_SERVE["arch"]).n_layers
+    for r, rec in enumerate((tp0, tp1)):
+        if rec["flash"] != cfg_layers * rec["waves"] or rec["waves"] != 1:
+            raise RuntimeError(f"rank {r}: {rec['flash']} flash launches in {rec['waves']} "
+                               f"waves, want {cfg_layers} per wave")
+        if len(rec["tokens"]) != TP_SERVE["requests"]:
+            raise RuntimeError(f"rank {r}: {len(rec['tokens'])} of {TP_SERVE['requests']} done")
+    if tp0["tokens"] != tp1["tokens"]:
+        raise RuntimeError("the two ranks generated different tokens")
+    same = sum(tp0["tokens"][k] == ref["tokens"][k] for k in ref["tokens"])
+    steps = len(tp0["decode_ms"])
+    sec, calls, staged = tp0["tp"]["decode"]
+    psec, pcalls, pstaged = tp0["tp"]["prefill"]
+    mean = lambda v: sum(v) / len(v)  # noqa: E731
+    log(f"phase 33: {TP_SERVE['arch']} full width and depth, tp {TP_SERVE['tp']} on 2 ranks "
+        f"sharing the card (gloo, staged through host memory), f32, flash: "
+        f"{TP_SERVE['requests']} requests of {TP_SERVE['min_prompt']}..{TP_SERVE['max_prompt']}"
+        f" prompt tokens, {TP_SERVE['max_new']} new; all complete on both ranks with the same "
+        f"tokens ({same} of {len(ref['tokens'])} requests token for token as the tp = 1 "
+        f"engine); flash launches per rank {tp0['flash']}, {tp1['flash']} in 1 wave (28 per "
+        f"wave)")
+    log(f"  against the tp = 1 engine on the same weights: prefill logits max rel diff "
+        f"{errs['prefill']:.3g}, the first {TP_SERVE['checked']} decode steps "
+        f"{errs['decode']:.3g} (rtol {TP_RTOL}); slots whose tokens parted at a near tie "
+        f"{errs['parted'] or 'none'}")
+    log(f"  prefill {mean(tp0['prefill_ms']):.1f} ms per wave (tp = 1: "
+        f"{mean(ref['prefill_ms']):.1f}); its collectives {psec:.3f} s, {pcalls} calls, "
+        f"{pstaged / 1e9:.3f} GB staged; decode {mean(tp0['decode_ms'][1:]):.1f} ms per step "
+        f"(steps 1..{steps - 1}; tp = 1: {mean(ref['decode_ms'][1:]):.1f}); the model group's "
+        f"collectives per decode step {sec / steps * 1e3:.1f} ms (each after a device sync), "
+        f"{calls / steps:.0f} calls, {staged / steps / 1e6:.2f} MB staged (device -> host and "
+        "back)")
+    log(f"  peak memory per rank {tp0['peak'] / 2**30:.2f}, {tp1['peak'] / 2**30:.2f} GiB "
+        f"(tp = 1: {ref['peak'] / 2**30:.2f}); the card in use at most "
+        f"{max(tp0['card'], tp1['card']) / 2**30:.2f} GiB")
+    return {"flash": tp0["flash"], "errs": errs}
+
+
+def _tp_keep(store, steps, step, state, metrics):
+    """``on_step`` of phase 34's runs: the stage launches by op after each
+    step, and the final parameter planes (kept alive in ``store``)."""
+    from repro_torch.kernels.fused_update.kernel import fused_stage_launch
+
+    store.setdefault("launches", []).append(dict(fused_stage_launch.launches_by_op))
+    if step == steps - 1:
+        store["planes"] = state["planes"]
+
+
+def _tp_train_rank(world, argv_tp, argv_one):
+    """Phase 34 on one of 4 ranks: the CLI's rank body at (2 x 2); then on
+    ranks 0 and 1 the tp = 1 run of the same flags (2 nodes, one each), and
+    each tp rank holds its shard of its node's final parameters against the
+    tp = 1 node's (read through a CUDA IPC handle: the ranks share the
+    card).  Returns each run's result and the comparison."""
+    import functools
+    import io
+    import pickle
+    from multiprocessing.reduction import ForkingPickler
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing  # noqa: F401  (the CUDA tensor reductions)
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.fused_update.kernel import reset_launches
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import subgroup
+    from repro_torch.train.train_state import model_plane_layout
+    from repro_torch.utils import tree_leaves, tree_paths
+
+    steps, tp = TP_TRAIN["steps"], TP_TRAIN["tp"]
+    keep_tp, keep_one = {}, {}
+    reset_launches()
+    res_tp = train.rank_main(world, argv_tp, functools.partial(_tp_keep, keep_tp, steps))
+    torch.cuda.empty_cache()
+    node, m = divmod(world.rank, tp)
+    sub = subgroup(world, list(range(TP_TRAIN["nodes"])))
+    res_one = None
+    if sub is not None:
+        reset_launches()
+        res_one = train.rank_main(sub, argv_one, functools.partial(_tp_keep, keep_one, steps))
+    blob = None
+    if sub is not None:
+        buf = io.BytesIO()
+        ForkingPickler(buf, pickle.HIGHEST_PROTOCOL).dump(keep_one["planes"])
+        blob = buf.getvalue()
+    blobs = [None] * world.world
+    dist.all_gather_object(blobs, blob)
+    theirs = keep_one["planes"] if node == world.rank else pickle.loads(blobs[node])
+    cfg = get_config(TP_SERVE["arch"])
+    one, lay = model_plane_layout(cfg), model_plane_layout(cfg, tp)
+    want = lay.shard_slice(one.view_unpack(theirs, leading=1), m, leading=1)
+    got = lay.view_unpack(keep_tp["planes"], leading=1)
+    err = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+              for a, b in zip(tree_leaves(got), tree_leaves(want)))
+    worst = max(zip((float((a - b).abs().max()) for a, b in zip(tree_leaves(got),
+                                                               tree_leaves(want))),
+                    tree_paths(got)))
+    del theirs, want, got
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.ipc_collect()
+    return {"tp": res_tp, "one": res_one, "err": err, "worst": worst,
+            "launches": (keep_tp["launches"], keep_one.get("launches"))}
+
+
+def phase_tp_train(torch):
+    """Phase 34: tensor-parallel training.  qwen3-0.6b at full width and
+    depth, 2 nodes x tp 2 = 4 ranks sharing the card over gloo, flat planes,
+    the fused update, decentlam on exp, 4 x 256 tokens per node, 2 steps,
+    through the CLI's rank body (``--simulate-nodes 2 --tp 2``).  Gates:
+    finite losses; each stage op launched once per rank and step (each
+    rank's local plane), counted by op after every step; each rank's shard of its node's final parameters against the
+    tp = 1 one-process-per-node run on 2 ranks (the same flags, in the same
+    spawned group) within 1e-5 of each leaf's scale, the losses within 1e-5
+    relative.  Prints the step time, gossip seconds per round, the model
+    group's collective seconds, count and staged bytes per step, peak
+    memory per rank and the card's."""
+    import shutil
+
+    from repro_torch.launch.mesh import run_ranks
+
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    os.makedirs(TP_DIR)
+    torch.cuda.empty_cache()
+    flags = ["--simulate-nodes", str(TP_TRAIN["nodes"]), "--arch", TP_SERVE["arch"],
+             "--steps", str(TP_TRAIN["steps"]), "--seq-len", str(MAIN["seq_len"]),
+             "--per-node-batch", str(MAIN["per_node_batch"]), "--algorithm", "decentlam",
+             "--topology", "exp", "--flat-planes", "--fused-update", "--fused-impl", "triton",
+             "--log-every", "1"]
+    argv_tp = flags + ["--tp", str(TP_TRAIN["tp"]), "--measure-json",
+                       os.path.join(TP_DIR, "tp.json")]
+    argv_one = flags + ["--measure-json", os.path.join(TP_DIR, "one.json")]
+    world = TP_TRAIN["nodes"] * TP_TRAIN["tp"]
+    out = run_ranks(_tp_train_rank, world, argv_tp, argv_one, device="cuda",
+                    timeout_s=DIST_TIMEOUT_S)
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    res, one = out[0]["tp"], out[0]["one"]
+    steps = TP_TRAIN["steps"]
+    if not all(math.isfinite(v) for v in res["losses"] + one["losses"]):
+        raise RuntimeError(f"losses {res['losses']}, tp = 1 {one['losses']}")
+    # each op once per rank and step, in both runs (the tp = 1 run on ranks
+    # 0 and 1 only)
+    want = [{op: k + 1 for op in STAGE_FLOPS} for k in range(steps)]
+    for r, o in enumerate(out):
+        if o["launches"][0] != want or (o["launches"][1] not in (None, want)):
+            raise RuntimeError(f"rank {r}: stage launches by op after each step "
+                               f"{o['launches']}, want {want}")
+    # the tp run's launches of each op, summed over the ranks
+    launches = {op: sum(o["launches"][0][-1][op] for o in out) for op in STAGE_FLOPS}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(res["losses"], one["losses"]))
+    err = max(o["err"] for o in out)
+    if not (rel <= 1e-5 and err <= TP_TRAIN_RTOL):
+        raise RuntimeError(f"tp 2 against tp 1: losses rel {rel:.3g}, parameters {err:.3g} "
+                           f"of scale (worst {[o['worst'] for o in out]})")
+    mean = lambda v: sum(v) / len(v)  # noqa: E731
+    log(f"phase 34: {TP_SERVE['arch']} full width and depth, {TP_TRAIN['nodes']} nodes x "
+        f"{TP_TRAIN['tp']}-way TP = {world} ranks sharing the card ({res['backend']}), planes, "
+        f"decentlam on exp, {steps} steps: losses {res['losses']} (tp = 1 on 2 ranks: "
+        f"{one['losses']}, max rel {rel:.3g}); each rank's shard of its node's final "
+        f"parameters within {err:.3g} of scale of the tp = 1 run's (tol {TP_TRAIN_RTOL}); "
+        f"stage launches by op after each step, rank 0's {out[0]['launches'][0]}, summed over "
+        f"the {world} ranks {launches}")
+    times = [round(t, 3) for t in res["step_times_s"]]
+    log(f"  step {1e3 * res['step_s']:.1f} ms (step times {times}; tp = 1 on 2 ranks: "
+        f"{1e3 * one['step_s']:.1f} ms); gossip per rank and round "
+        f"{[round(t, 3) for t in res['gossip_s_per_round']]} s, staged "
+        f"{[round(b / 1e9, 3) for b in res['staged_bytes_per_round']]} GB (tp = 1: "
+        f"{[round(t, 3) for t in one['gossip_s_per_round']]} s, "
+        f"{[round(b / 1e9, 3) for b in one['staged_bytes_per_round']]} GB)")
+    log(f"  the model group's collectives per rank and step (each after a device sync): "
+        f"{[round(t, 3) for t in res['tp_s_per_step']]} s, "
+        f"{[round(c) for c in res['tp_calls_per_step']]} calls, "
+        f"{[round(b / 1e9, 3) for b in res['tp_staged_bytes_per_step']]} GB staged")
+    log(f"  peak memory per rank {[round(p / 2**30, 2) for p in res['peak_mem_bytes_by_rank']]} "
+        f"GiB (tp = 1: {[round(p / 2**30, 2) for p in one['peak_mem_bytes_by_rank']]}); the "
+        f"card in use at most {res['card_used_bytes'] / 2**30:.2f} GiB (tp = 1 run: "
+        f"{one['card_used_bytes'] / 2**30:.2f}, the tp planes kept beside it)")
+    plane = phase_plane_timing(torch, nodes=1, tp=TP_TRAIN["tp"])
+    fmt = lambda v: "null" if v is None else f"{v:.3f} ms"  # noqa: E731
+    for op, p in plane.items():
+        log(f"  a tp rank's plane {op} on {p['shape']} f32: kernel {p['ms']:.3f} ms, bound "
+            f"{p['bound_ms']:.3f} ms by {p['bound_by']} ({p['bound_ms'] / p['ms']:.1%} of it), "
+            f"plain version {p['plain_ms']:.3f} ms, library {fmt(p['library_ms'])}, max "
+            f"|kernel - plain| {p['err']:.3g}")
+    return {"res": res, "one": one, "plane": plane, "launches": launches}
+
+
+def _swt_check(engine, pub):
+    """``on_serve`` of phase 35 (rank 0): each offer that ships is held
+    against the snapshot's planes, bit for bit.  Returns the counts."""
+    import torch
+
+    seen = {"checked": 0, "equal": 0}
+    offer = pub.offer
+
+    def checked(src, **kw):
+        shipped = offer(src, **kw)
+        if shipped:
+            seen["checked"] += 1
+            seen["equal"] += all(_same_bits(torch, pub.current.planes[k].to(p.device), p)
+                                 for k, p in src.items())
+        return shipped
+
+    pub.offer = checked
+    return seen
+
+
+def _swt_rank(world, argv):
+    """Phase 35 on one rank: the CLI's rank body with the vocabulary cut."""
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import RuntimeConfig
+
+    model_config = train._model_config
+    train._model_config = lambda args: _check_config(model_config(args))
+    return train.rank_main(world, argv, None, None,
+                           RuntimeConfig(dtype="float32", attn_impl="cuda"), _swt_check)
+
+
+def phase_dist_serve_while_training(torch):
+    """Phase 35: ``--simulate-nodes 2 --serve-while-training`` (tp = 1) at
+    full width cut to 4 layers and the vocabulary to CHECK_VOCAB, planes,
+    the stage kernel; rank 0 publishes its node every 2 steps and serves 8
+    requests from the snapshots with the flash kernel.  Gates: every
+    shipped snapshot equals node 0's parameters bit for bit, every request
+    completes, finite losses."""
+    from repro_torch.launch.mesh import run_ranks
+
+    torch.cuda.empty_cache()
+    argv = ["--simulate-nodes", str(SWT_DIST["nodes"]), "--arch", MAIN["arch"], "--depth",
+            str(SWT_DIST["depth"]), "--steps", str(SWT_DIST["steps"]), "--seq-len",
+            str(MAIN["seq_len"]), "--per-node-batch", str(MAIN["per_node_batch"]),
+            "--flat-planes", "--fused-update", "--fused-impl", "triton",
+            "--serve-while-training", "--publish-every", str(SWT_DIST["publish_every"]),
+            "--serve-requests", str(SWT_DIST["requests"]), "--log-every", "1"]
+    res = run_ranks(_swt_rank, SWT_DIST["nodes"], argv, device="cuda",
+                    timeout_s=DIST_TIMEOUT_S)[0]
+    serve = res["serve"]
+    shipped = serve["publisher"]["published"]
+    if not all(math.isfinite(v) for v in res["losses"]):
+        raise RuntimeError(f"losses {res['losses']}")
+    if not (shipped == SWT_DIST["steps"] // SWT_DIST["publish_every"]
+            and serve["on_serve"] == {"checked": shipped, "equal": shipped}
+            and serve["completed"] == SWT_DIST["requests"]):
+        raise RuntimeError(f"serving while training on ranks: {serve}")
+    log(f"phase 35: --simulate-nodes {SWT_DIST['nodes']} --serve-while-training, "
+        f"{MAIN['arch']} at full width, {SWT_DIST['depth']} layers, vocabulary {CHECK_VOCAB:,}, "
+        f"{SWT_DIST['steps']} steps: losses {res['losses']}; {shipped} snapshots shipped by "
+        f"rank 0, each == node 0's parameters bit for bit; {serve['completed']} of "
+        f"{SWT_DIST['requests']} requests done, {serve['engine']['swaps']} swap(s), swap stall "
+        f"{serve['engine']['swap_stall_s']:.3f} s; step {1e3 * res['step_s']:.1f} ms")
+    return serve
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -4398,10 +4856,20 @@ def main() -> int:
     t0 = time.perf_counter()
     phases = {}
 
+    held = {}
+
     def timed(name, fn, *args):
+        # each phase starts with the allocator's free segments released (after
+        # a collection: a reference cycle, such as phase 16's hooked engine,
+        # holds its tensors until one), and what it leaves allocated is
+        # logged: a tensor kept past its phase pins a segment that later
+        # phases (and spawned ranks) cannot use
+        gc.collect()
+        torch.cuda.empty_cache()
         t = time.perf_counter()
         out = fn(torch, *args)
         phases[name] = round(time.perf_counter() - t, 1)
+        held[name.split()[0]] = round(torch.cuda.memory_allocated() / 2**30, 2)
         return out
 
     def build_timed(build):
@@ -4447,7 +4915,11 @@ def main() -> int:
     sparse = timed("30 + 32 row-sparse gossip; chaos and the resilient layer on 4 ranks",
                    phase_sparse_main_path)
     timed("31 resilience on the stacked trainer", phase_resilience_main_path, flat)
+    tp_serve = timed("33 tensor-parallel serve", phase_tp_serve)
+    tp_train = timed("34 tensor-parallel train", phase_tp_train)
+    timed("35 serve while training on ranks", phase_dist_serve_while_training)
     log(f"phase times (s): {phases}; total {time.perf_counter() - t0:.1f}s")
+    log(f"device memory allocated after each phase (GiB): {held}")
     # one record per specialization of the Triton kernel on the training main
     # path (times per step, summed over the 14 leaves), and the flash and
     # mLSTM kernels at their serve main paths' prefill shapes (times per call)
@@ -4510,6 +4982,7 @@ def main() -> int:
         "library_ms": rec["library_ms"],
     } for op, rec in moe["plane"].items()]
     fa_whisper = {k: fa[k] for k in ("whisper-tiny encoder", "whisper-tiny cross")}
+    fa_tp = fa["qwen3-0.6b prefill, a tp 2 rank"]
     fa, hy = fa["qwen3-0.6b prefill"], fa["hymba-1.5b prefill"]
     records.append({
         "name": "flash_attention[causal, f32, hd 64]",
@@ -4596,6 +5069,38 @@ def main() -> int:
         "bound_by": rec["bound_by"],
         "library_ms": rec["library_ms"],
     } for op, rec in sparse["plane"].items()]
+    # phase 34: a tp 2 rank's local plane, one launch per stage, rank and step
+    # (the launches summed over the 4 ranks)
+    records += [{
+        "name": f"fused_update[tp 2 rank plane {op}]",
+        "route": "triton",
+        "source": "src/repro_torch/kernels/fused_update/_triton.py",
+        "replaces": "src/repro/kernels/fused_update/kernel.py:66",
+        "launches": tp_train["launches"][op],
+        "max_abs_err": rec["err"],
+        "ms": rec["ms"],
+        "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"],
+        "library_ms": rec["library_ms"],
+    } for op, rec in tp_train["plane"].items()]
+    # phase 33: flash at a tp 2 rank's local heads, launched 28 times per
+    # wave on each rank (the count is rank 0's); the time at that shape
+    # (phase 9)
+    records.append({
+        "name": "flash_attention[qwen3-0.6b at tp 2, a rank's prefill: causal, f32, hd 64, "
+                "8/4 heads]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:99",
+        "launches": tp_serve["flash"],
+        "max_abs_err": fa_tp["err"],
+        "ms": fa_tp["ms"],
+        "plain_ms": fa_tp["plain_ms"],
+        "bound_ms": fa_tp["bound_ms"],
+        "bound_by": fa_tp["bound_by"],
+        "library_ms": fa_tp["library_ms"],
+    })
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

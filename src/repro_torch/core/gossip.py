@@ -578,12 +578,12 @@ class _Wire:
                 if staged:
                     out = self._buf("send", out.numel(), None, host=True).copy_(out)
                     self.staged_bytes += out.numel()
-                ops.append(dist.P2POp(dist.isend, out, dst, group=pg))
+                ops.append(dist.P2POp(dist.isend, out, self.group.peer(dst), group=pg))
             if k < len(ins):
                 lo, hi = ins[k]
                 nb = (hi - lo) * itemsize
                 into = self._buf("recv", nb, device, host=staged)
-                ops.append(dist.P2POp(dist.irecv, into, src, group=pg))
+                ops.append(dist.P2POp(dist.irecv, into, self.group.peer(src), group=pg))
             for work in dist.batch_isend_irecv(ops):
                 work.wait()
             if k < len(ins):

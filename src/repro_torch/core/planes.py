@@ -1,5 +1,5 @@
 """Flat parameter planes: dtype-bucketed contiguous views of a tree (the
-port of ``repro.core.planes`` at tensor-parallel degree 1).
+port of ``repro.core.planes``).
 
 The per-leaf path pays one kernel launch per leaf per update stage.  A
 :class:`PlaneLayout` packs the whole tree into one contiguous ``(rows,
@@ -31,9 +31,20 @@ of its segment's rows (contiguous per node), the forward pass reads the
 views, and the update writes the plane in place — no per-step pack and
 unpack (see :mod:`repro_torch.train.step`).
 
-The tensor-parallel parts (``tp > 1``, ``shardings``, ``pack_global``,
-``unpack_global``, ``shard_slice``) come with the tensor-parallel slice;
-:meth:`PlaneLayout.build` raises on ``tp != 1``.
+**Sharded layouts (tensor parallelism).**  ``build(template, tp=k,
+shardings=axes)`` plans one model rank's *local* layout, as the reference
+does: ``template`` carries global shapes, ``shardings`` (a tree of ints or
+None, :func:`~repro_torch.models.transformer.param_shard_axes`) names the
+axis of each leaf split over the model group, and its segment records the
+local shard shape beside the global one.  Replicated leaves pack whole on
+every rank.  Each rank's bucket is a valid ``(rows, LANES)`` plane,
+``ROW_MULTIPLE``-aligned, so the stage kernel runs on it unchanged.  The
+global form stacks the tp rank blocks along the row axis: ``pack_global``
+gives ``(tp * rows, LANES)`` buckets with rank ``r`` owning rows ``[r *
+rows, (r + 1) * rows)``, ``unpack_global`` inverts it, ``shard_slice``
+cuts a global tree to a rank's shard, and ``global_layout()`` is the
+unsharded layout of the global template (the checkpoint's and the
+publisher's rank-free form).
 """
 
 from __future__ import annotations
@@ -43,7 +54,7 @@ from typing import Any
 
 import torch
 
-from ..utils import tree_leaves, tree_unflatten
+from ..utils import shard, tree_leaves, tree_unflatten, unshard
 
 Tree = Any
 
@@ -72,21 +83,26 @@ class Segment:
     row_start: int  # first plane row of this leaf
     rows: int  # ceil(size / LANES)
     size: int  # true element count (rows * LANES - size is zero pad)
+    global_shape: tuple[int, ...] | None = None  # None: the same as ``shape``
+    shard_axis: int | None = None  # the axis split over the model group
+
+    @property
+    def full_shape(self) -> tuple[int, ...]:
+        """The global (unsharded) leaf shape."""
+        return self.shape if self.global_shape is None else self.global_shape
 
 
 class PlaneLayout:
     """Static packing plan for one tree template (see the module docstring)."""
 
-    # the reference layout's shard metadata at tp = 1 (its defaults), which
-    # checkpoint manifests record
-    tp = 1
-    model_axis = "model"
-
     def __init__(self, template: Tree, segments: dict[str, tuple[Segment, ...]],
-                 rows: dict[str, int]):
+                 rows: dict[str, int], *, tp: int = 1, model_axis: str = "model"):
         self.template = template  # the structure leaves are unflattened into
         self.segments = segments
-        self.rows = rows  # per-bucket row totals (ROW_MULTIPLE aligned)
+        self.rows = rows  # per-bucket LOCAL row totals (ROW_MULTIPLE aligned)
+        # the shard metadata checkpoint manifests record (the reference's)
+        self.tp = tp
+        self.model_axis = model_axis
         self.n_leaves = sum(len(s) for s in segments.values())
         # row -> segment position within the bucket; tail-pad rows alias
         # segment 0 (their data is zero, so any scalar they pick up is inert)
@@ -100,28 +116,43 @@ class PlaneLayout:
     # -- construction -------------------------------------------------------
 
     @classmethod
-    def build(cls, template: Tree, *, tp: int = 1) -> "PlaneLayout":
+    def build(cls, template: Tree, *, tp: int = 1, shardings: Tree | None = None,
+              model_axis: str = "model") -> "PlaneLayout":
         """Plan the packing for ``template`` (only each leaf's ``.shape`` and
-        ``.dtype`` are read; meta tensors do)."""
-        if tp != 1:
-            raise NotImplementedError(
-                "sharded plane layouts (tp > 1) come with the tensor-parallel slice"
-            )
+        ``.dtype`` are read; meta tensors do).  At ``tp > 1`` the template
+        holds global shapes and ``shardings`` (a tree of ints or None like
+        it) the axis each leaf splits over the model group: the plan is one
+        rank's local layout (module docstring)."""
+        leaves = tree_leaves(template)
+        if tp > 1 and shardings is None:
+            raise ValueError("PlaneLayout.build(tp > 1) needs `shardings` (the shard axis "
+                             "of each leaf) to locate the model axis")
+        axes = tree_leaves(shardings) if tp > 1 else [None] * len(leaves)
+        if len(axes) != len(leaves):
+            raise ValueError(f"shardings has {len(axes)} leaves, the template {len(leaves)}")
         segs: dict[str, list[Segment]] = {}
-        for i, leaf in enumerate(tree_leaves(template)):
+        for i, (leaf, ax) in enumerate(zip(leaves, axes)):
             bucket = segs.setdefault(_bucket_key(leaf.dtype), [])
             start = bucket[-1].row_start + bucket[-1].rows if bucket else 0
-            shape = tuple(leaf.shape)
+            gshape = tuple(leaf.shape)
+            shape = gshape
+            if ax is not None:
+                if gshape[ax] % tp:
+                    raise ValueError(f"leaf {i}: axis {ax} of {gshape} is sharded over "
+                                     f"{model_axis!r} but not divisible by tp={tp}")
+                shape = gshape[:ax] + (gshape[ax] // tp,) + gshape[ax + 1:]
             size = 1
             for d in shape:
                 size *= d
-            bucket.append(Segment(i, shape, leaf.dtype, start, max(1, -(-size // LANES)), size))
+            bucket.append(Segment(i, shape, leaf.dtype, start, max(1, -(-size // LANES)),
+                                  size, gshape, ax))
         rows = {
             key: -(-(b[-1].row_start + b[-1].rows) // ROW_MULTIPLE) * ROW_MULTIPLE
             for key, b in segs.items()
         }
-        skeleton = tree_unflatten(template, [None] * sum(len(b) for b in segs.values()))
-        return cls(skeleton, {k: tuple(v) for k, v in segs.items()}, rows)
+        skeleton = tree_unflatten(template, [None] * len(leaves))
+        return cls(skeleton, {k: tuple(v) for k, v in segs.items()}, rows, tp=tp,
+                   model_axis=model_axis)
 
     @property
     def buckets(self) -> tuple[str, ...]:
@@ -134,9 +165,77 @@ class PlaneLayout:
         return {key: ((self.rows[key], LANES), dtype if dtype is not None else _dtype_of(key))
                 for key in self.buckets}
 
+    # -- sharded (tensor-parallel) views ------------------------------------
+
+    @property
+    def sharded(self) -> bool:
+        return self.tp > 1
+
+    def _template_of(self, full: bool) -> Tree:
+        out: list = [None] * self.n_leaves
+        for segs in self.segments.values():
+            for seg in segs:
+                out[seg.index] = torch.empty(seg.full_shape if full else seg.shape,
+                                             dtype=seg.dtype, device="meta")
+        return tree_unflatten(self.template, out)
+
+    def local_template(self) -> Tree:
+        """Meta tensors of one rank's LOCAL leaves (the global ones at tp 1)."""
+        return self._template_of(False)
+
+    def global_template(self) -> Tree:
+        """Meta tensors of the GLOBAL (unsharded) leaves."""
+        return self._template_of(True)
+
+    def shard_axes(self) -> Tree:
+        """The tree of each leaf's shard axis (None: replicated)."""
+        out: list = [None] * self.n_leaves
+        for segs in self.segments.values():
+            for seg in segs:
+                out[seg.index] = seg.shard_axis
+        return tree_unflatten(self.template, out)
+
     def global_layout(self) -> "PlaneLayout":
-        """The rank-free layout consumers outside a mesh see: ``self`` at tp 1."""
-        return self
+        """The unsharded layout of the global template (``self`` at tp 1):
+        the rank-free plane form of the publisher's snapshots and the common
+        ground of checkpoints written at different tp."""
+        if self.tp == 1:
+            return self
+        if getattr(self, "_global", None) is None:
+            self._global = PlaneLayout.build(self.global_template())
+        return self._global
+
+    def shard_slice(self, tree: Tree, rank: int, *, leading: int = 0) -> Tree:
+        """Model rank ``rank``'s local shard of a GLOBAL tree (views):
+        sharded leaves cut along their axis (after ``leading`` axes),
+        replicated ones whole."""
+        if self.tp == 1:
+            return tree
+        self._leaves(tree)  # the leaf count
+        return shard(tree, self.shard_axes(), self.tp, rank, leading=leading)
+
+    def pack_global(self, tree: Tree, *, dtype: torch.dtype | None = None,
+                    leading: int = 0) -> dict:
+        """A GLOBAL tree -> stacked shard planes ``(..., tp * rows, LANES)``,
+        rank ``r``'s local pack in row block ``r`` (:meth:`pack` at tp 1)."""
+        packs = [self.pack(self.shard_slice(tree, r, leading=leading), dtype=dtype,
+                           leading=leading) for r in range(self.tp)]
+        if self.tp == 1:
+            return packs[0]
+        return {k: torch.cat([p[k] for p in packs], dim=leading) for k in packs[0]}
+
+    def unpack_global(self, planes: dict, *, like: Tree | None = None,
+                      dtype: torch.dtype | None = None, leading: int = 0) -> Tree:
+        """Stacked shard planes -> the GLOBAL tree (copies): each rank
+        block unpacked, sharded leaves joined along their axis, replicated
+        leaves from rank 0."""
+        if self.tp == 1:
+            return self.unpack(planes, like=like, dtype=dtype, leading=leading)
+        ranks = [self.unpack(
+            {k: p.narrow(leading, r * self.rows[k], self.rows[k]) for k, p in planes.items()},
+            like=None if like is None else self.shard_slice(like, r, leading=leading),
+            dtype=dtype, leading=leading) for r in range(self.tp)]
+        return unshard(ranks, self.shard_axes(), leading=leading)
 
     def _leaves(self, tree: Tree) -> list:
         leaves = tree_leaves(tree)
@@ -260,7 +359,8 @@ class PlaneLayout:
         return out
 
 
-def plane_scalars(cfg, layout: PlaneLayout, x: Tree, g: Tree, *, stacked: bool = False) -> dict:
+def plane_scalars(cfg, layout: PlaneLayout, x: Tree, g: Tree, *, stacked: bool = False,
+                  tp=None) -> dict:
     """Gradient-preprocessing scalars for the plane path.
 
     Runs the per-leaf :func:`~repro_torch.core.update_spec.grad_scalars` on
@@ -272,7 +372,9 @@ def plane_scalars(cfg, layout: PlaneLayout, x: Tree, g: Tree, *, stacked: bool =
     scalars=...)`` with plane operands."""
     from .update_spec import grad_scalars, node_grad_scalars
 
-    s = dict((node_grad_scalars if stacked else grad_scalars)(cfg, x, g))
+    sharded = [a is not None for a in tree_leaves(layout.shard_axes())]
+    s = dict((node_grad_scalars if stacked else grad_scalars)(cfg, x, g, tp=tp,
+                                                               sharded=sharded))
     # "r" is a per-leaf tree exactly when the LARS family is active
     if isinstance(s.get("r"), dict):
         s["r"] = layout.row_scalars(s["r"])

@@ -382,10 +382,19 @@ def _sq_sum(x) -> torch.Tensor:
     return torch.sum(torch.square(x.to(torch.float32)))
 
 
-def grad_scalars(cfg, x: Tree, g: Tree) -> dict[str, Any]:
+def grad_scalars(cfg, x: Tree, g: Tree, *, tp=None, sharded: list | None = None
+                 ) -> dict[str, Any]:
     """Scalars applied inside the fused stages: ``gs`` (global-norm clip
     scale) and ``r`` (LARS trust ratio, a tree of per-leaf scalars).  Entries
-    are 1.0 when the feature is off."""
+    are 1.0 when the feature is off.
+
+    With a model group (``tp``, a :class:`~repro_torch.models.layers.
+    TPContext` of size > 1) ``x`` and ``g`` are a rank's shards and
+    ``sharded`` says, leaf by leaf, which are split over the group: a
+    sharded leaf's squared norm is summed over the group and a replicated
+    one counted once, so every rank gets the node's tp = 1 scalars."""
+    if tp is not None and tp.enabled:
+        return _grad_scalars_tp(cfg, x, g, tp, sharded)
     dev = tree_leaves(g)[0].device
     one = torch.ones((), dtype=torch.float32, device=dev)
     s: dict[str, Any] = {"gs": one, "r": one}
@@ -411,20 +420,55 @@ def grad_scalars(cfg, x: Tree, g: Tree) -> dict[str, Any]:
     return s
 
 
-def node_grad_scalars(cfg, x: Tree, g: Tree) -> dict[str, Any]:
+def _grad_scalars_tp(cfg, x: Tree, g: Tree, tp, sharded: list) -> dict[str, Any]:
+    dev = tree_leaves(g)[0].device
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    mask = torch.tensor(sharded, dtype=torch.bool, device=dev)
+
+    def group_sums(sq: list) -> torch.Tensor:
+        v = torch.stack(sq)
+        zero = torch.zeros((), dtype=v.dtype, device=dev)
+        return tp.all_reduce(torch.where(mask, v, zero)) + torch.where(mask, zero, v)
+
+    s: dict[str, Any] = {"gs": one, "r": one}
+    clip = cfg.grad_clip > 0.0
+    if clip:
+        norm = torch.sqrt(torch.sum(group_sums([_sq_sum(l) for l in tree_leaves(g)])))
+        s["gs"] = torch.clamp(cfg.grad_clip / torch.clamp(norm, min=1e-12), max=1.0)
+    if cfg.lars or cfg.algorithm == "pmsgd-lars":
+        coupled = cfg.weight_decay > 0.0 and not cfg.decoupled_wd
+        psq, gsq = [], []
+        for p, gl in zip(tree_leaves(x), tree_leaves(g)):
+            p32 = p.to(torch.float32)
+            g32 = s["gs"] * gl.to(torch.float32) if clip else gl.to(torch.float32)
+            if coupled:
+                g32 = cfg.weight_decay * p32 + g32
+            psq.append(_sq_sum(p32))
+            gsq.append(_sq_sum(g32))
+        pn, gn = torch.sqrt(group_sums(psq)), torch.sqrt(group_sums(gsq))
+        denom = gn + cfg.weight_decay * pn + cfg.lars_eps
+        r = torch.where((pn > 0.0) & (gn > 0.0), cfg.lars_trust * pn / denom, one)
+        s["r"] = tree_unflatten(x, list(r.unbind()))
+    return s
+
+
+def node_grad_scalars(cfg, x: Tree, g: Tree, *, tp=None, sharded: list | None = None
+                      ) -> dict[str, Any]:
     """:func:`grad_scalars` of each node of stacked ``(n, ...)`` trees: ``gs``
     an ``(n,)`` tensor, ``r`` a tree of ``(n,)`` tensors, entry ``i`` equal to
     ``grad_scalars(cfg, x[i], g[i])`` — each node clips by its own norm and
     takes its own LARS norms, as inside ``repro``'s shard_map step.  A
     feature that is off keeps its scalar 1.0, so without clip and LARS this
-    is ``grad_scalars`` itself (no reduction)."""
+    is ``grad_scalars`` itself (no reduction).  ``tp`` and ``sharded``:
+    see :func:`grad_scalars`."""
     clip = cfg.grad_clip > 0.0
     lars = bool(cfg.lars or cfg.algorithm == "pmsgd-lars")
     if not (clip or lars):
         return grad_scalars(cfg, x, g)
     n = tree_leaves(g)[0].shape[0]
     per = [
-        grad_scalars(cfg, tree_map(lambda a: a[i], x), tree_map(lambda a: a[i], g))
+        grad_scalars(cfg, tree_map(lambda a: a[i], x), tree_map(lambda a: a[i], g), tp=tp,
+                     sharded=sharded)
         for i in range(n)
     ]
     s = dict(per[0])

@@ -16,6 +16,14 @@ Flat parameter planes convert the same way: a reference plane dict
 the same keys, shapes and elements; :func:`planes_from_numpy` and
 :func:`planes_to_numpy` also check the buckets against a
 :class:`~repro_torch.core.planes.PlaneLayout`.
+
+Tensor parallelism: :func:`shard` cuts a global tree (``repro``'s
+``init_params(key, cfg, tp)`` as numpy, or the port's) into one rank's
+shard along a tree of shard axes
+(:func:`~repro_torch.models.transformer.param_shard_axes`), and
+:func:`unshard` joins the ranks' shards back into the global tree (the
+one cut and join of the port: :class:`~repro_torch.core.planes.PlaneLayout`
+and the grid's checkpoint gather use them too).
 """
 
 from __future__ import annotations
@@ -26,11 +34,12 @@ import numpy as np
 import torch
 
 from .core.planes import LANES
-from .utils import tree_map
+from .utils import shard, tree_map, unshard
 
 Tree = Any
 
-__all__ = ["from_numpy", "to_numpy", "planes_from_numpy", "planes_to_numpy"]
+__all__ = ["from_numpy", "to_numpy", "planes_from_numpy", "planes_to_numpy", "shard",
+           "unshard"]
 
 
 def _leaf_to_torch(a, device) -> torch.Tensor:

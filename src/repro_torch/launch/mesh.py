@@ -16,6 +16,15 @@ failure:
   (:attr:`NodeGroup.staged`);
 * **gloo** on the CPU when the caller asks for ``device="cpu"``.
 
+Tensor parallelism lays the world out as a ``(nodes x tp)`` grid
+(:class:`Grid`, :func:`init_grid`): rank ``r`` is node ``r // tp`` at model
+index ``r % tp``, ``jax.make_mesh((n, tp), ("data", "model"))``'s device
+order.  The **model group** (the ranks of one node) carries the
+tensor-parallel collectives; the **node group** (the ranks of one model
+index) carries the gossip, as the node group of a tp = 1 run does.  The
+backend rule is the world's: with fewer cards than ranks every group runs
+over gloo, its messages staged through pinned host memory.
+
 :func:`run_ranks` spawns a group on this host (the ``spawn`` start method,
 never ``fork``), gives every rank a deadline and raises if any rank fails.
 """
@@ -34,8 +43,8 @@ from typing import Any, Callable
 import torch
 import torch.distributed as dist
 
-__all__ = ["NodeGroup", "pick_backend", "init_node_group", "subgroup", "n_nodes_of",
-           "node_index", "run_ranks"]
+__all__ = ["NodeGroup", "Grid", "pick_backend", "init_node_group", "init_grid", "subgroup",
+           "n_nodes_of", "node_index", "run_ranks"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +57,13 @@ class NodeGroup:
     backend: str  # "nccl" | "gloo"
     device: torch.device
     pg: Any = None
+    # the global rank of each group rank (None: the group rank itself)
+    members: tuple[int, ...] | None = None
+
+    def peer(self, r: int) -> int:
+        """The global rank of group rank ``r`` (point-to-point ops and a
+        collective's ``src``/``dst`` name global ranks)."""
+        return r if self.members is None else self.members[r]
 
     @property
     def staged(self) -> bool:
@@ -111,6 +127,55 @@ def subgroup(group: NodeGroup, ranks: list[int]) -> NodeGroup | None:
     if group.rank not in ranks:
         return None
     return dataclasses.replace(group, world=len(ranks), pg=pg)
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """This rank's place on the ``(nodes x tp)`` grid: ``world`` every rank
+    (the default group), ``node`` the ranks of this model index (gossip;
+    its rank is the node index), ``model`` the ranks of this node (the
+    tensor-parallel collectives; its rank is the model index)."""
+
+    world: NodeGroup
+    node: NodeGroup
+    model: NodeGroup
+    tp: int
+
+    @property
+    def nodes(self) -> int:
+        return self.node.world
+
+    def describe(self) -> str:
+        return (f"{self.world.describe()}: node {self.node.rank} of {self.nodes}, model index "
+                f"{self.model.rank} of {self.tp}")
+
+
+def init_grid(world: NodeGroup, tp: int) -> Grid:
+    """Lay the ranks of ``world`` out as ``world.world // tp`` nodes of
+    ``tp`` model ranks and make the subgroups: every rank creates every
+    model group (node by node), then every node group (index by index), in
+    that order.  At tp = 1 the node group is ``world`` itself and the model
+    group a group of one, and no subgroup is made."""
+    if tp < 1 or world.world % tp:
+        raise ValueError(f"{world.world} ranks do not form nodes of tp={tp} ranks")
+    n = world.world // tp
+    i, m = divmod(world.rank, tp)
+    if tp == 1:
+        return Grid(world=world, node=world,
+                    model=dataclasses.replace(world, rank=0, world=1, pg=None,
+                                              members=(world.rank,)), tp=1)
+    model = node = None
+    for j in range(n):
+        ranks = tuple(range(j * tp, (j + 1) * tp))
+        pg = dist.new_group(ranks=list(ranks), backend=world.backend)
+        if j == i:
+            model = dataclasses.replace(world, rank=m, world=tp, pg=pg, members=ranks)
+    for k in range(tp):
+        ranks = tuple(range(k, n * tp, tp))
+        pg = dist.new_group(ranks=list(ranks), backend=world.backend)
+        if k == m:
+            node = dataclasses.replace(world, rank=i, world=n, pg=pg, members=ranks)
+    return Grid(world=world, node=node, model=model, tp=tp)
 
 
 def n_nodes_of(group: NodeGroup) -> int:

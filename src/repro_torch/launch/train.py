@@ -19,6 +19,14 @@ halfway (rank 0 gathers the state and collapses it with
 ``elastic_reshape``, the upper half of the ranks leave, the survivors form
 a new group and resume).  Under ``torchrun`` (``RANK`` and ``WORLD_SIZE``
 set) the same flags run this process as one rank of the launched group.
+``--tp T`` adds tensor parallelism there: ``--simulate-nodes N --tp T``
+spawns ``N x T`` ranks laid out as ``(nodes x tp)`` (under torchrun
+``WORLD_SIZE`` must be ``N x T``); each node's T ranks split the dense
+decoder Megatron-style and gossip their shards over the node groups.
+Checkpoints hold the global state and resume across tp through the
+manifest's ``plane_tp``.  ``--serve-while-training`` there (tp = 1) has
+rank 0 publish its node through the consensus-gated publisher, every rank
+taking part in the fleet's gap gather, and serve from the snapshots.
 
 Examples::
 
@@ -51,6 +59,11 @@ Examples::
     PYTHONPATH=src python -m repro_torch.launch.train --simulate-nodes 4 \\
         --device cpu --arch qwen3-0.6b --smoke --steps 6 --seq-len 32 \\
         --per-node-batch 2 --fused-update --ckpt-dir build/ckpt --failure-drill
+
+    # 2 nodes x 2-way tensor parallelism: 4 ranks (on one card over gloo)
+    PYTHONPATH=src python -m repro_torch.launch.train --simulate-nodes 2 --tp 2 \\
+        --arch qwen3-0.6b --steps 3 --seq-len 256 --per-node-batch 4 \\
+        --fused-update --fused-impl triton --flat-planes
 
     # several cards, one process each (NCCL)
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
@@ -96,6 +109,7 @@ from ..core.optimizers import make_optimizer
 from ..core.schedules import ScheduleConfig
 from ..data.pipeline import prefetch_to_device
 from ..data.synthetic import SyntheticLM, SyntheticLMConfig
+from ..models import transformer as T
 from ..models.transformer import RuntimeConfig, count_params
 from ..train.checkpoint import (
     check_plane_manifest,
@@ -106,13 +120,16 @@ from ..train.checkpoint import (
 from ..train.step import TrainConfig, build_dist_train_step, build_train_step
 from ..train.train_state import (
     ensure_channel_state,
+    gather_grid_state,
     gather_state,
+    global_tree_state,
     init_train_state,
     model_plane_layout,
     reconcile_plane_state,
+    scatter_grid_state,
     scatter_state,
 )
-from .mesh import init_node_group, run_ranks, subgroup
+from .mesh import init_grid, init_node_group, run_ranks, subgroup
 from ..utils import resolve_device, tree_leaves, tree_map
 
 
@@ -133,8 +150,10 @@ def _parse(argv=None):
     p.add_argument("--timeout", type=float, default=0.0,
                    help="with --simulate-nodes: fail the run when a rank outlives this many "
                    "seconds (0 = no deadline)")
-    p.add_argument("--tp", type=int, default=1, help="model-parallel size (only 1 is ported)")
-    p.add_argument("--preset", default="tiny", choices=["tiny"])
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks per node (with --simulate-nodes or under "
+                   "torchrun; the dense decoders)")
+    p.add_argument("--preset", default="tiny", choices=["tiny", "100m"])
     p.add_argument("--arch", default=None, help="use an assigned arch instead")
     p.add_argument("--smoke", action="store_true",
                    help="with --arch: use the reduced smoke config")
@@ -292,44 +311,71 @@ def _quarantined(state: dict):
     return None if res is None else [int(v) for v in res["quarantined"].reshape(-1).cpu()]
 
 
-def _serve_demo(args, cfg, layout, channel, device, runtime, on_serve):
+def _serve_demo(args, cfg, layout, channel, device, runtime, on_serve, lead: bool = True):
     """The serving-while-training demo: a publisher over the plane layout, an
     engine (4 slots, prompts up to 32 tokens, 16 new) over it, and
-    ``--serve-requests`` requests of 4..32 tokens from ``default_rng(7)``.
-    Returns ``(publisher, engine, serve(step, state))``: node 0 offers its
-    weights every ``--publish-every`` steps, then the engine ticks once."""
+    ``--serve-requests`` requests of 4..32 tokens from ``default_rng(7)``,
+    on the ``lead`` process (rank 0 of the one-process-per-node trainer;
+    the others get None for both).  Returns ``(publisher, engine,
+    serve(step, state))``: every ``--publish-every`` steps every process
+    takes part in the fleet's gap gather and the lead offers node 0's
+    weights (its state's node 0: the stacked state's first node, or rank
+    0's own), then its engine ticks once.  ``on_serve(engine, publisher)``,
+    if given, runs on the lead once both exist; what it returns is the
+    demo's stats' ``"on_serve"`` (``serve.hooked``)."""
     import numpy as np
 
     from ..core.gossip import fleet_node_gaps
     from ..serve import Request, ServeEngine, WeightPublisher
 
-    pub = WeightPublisher(layout, gap_threshold=args.publish_gap_threshold)
-    engine = ServeEngine(cfg, slots=4, max_prompt=32, max_new=16, publisher=pub,
-                         runtime=runtime, device=device)
-    if on_serve is not None:
-        on_serve(engine, pub)
-    srng = np.random.default_rng(7)
-    for i in range(args.serve_requests):
-        n = int(srng.integers(4, 33))
-        engine.submit(Request(rid=i, tokens=srng.integers(0, cfg.vocab_size, n)
-                              .astype(np.int32), max_new_tokens=16))
+    pub = engine = hooked = None
+    if lead:
+        pub = WeightPublisher(layout, gap_threshold=args.publish_gap_threshold)
+        engine = ServeEngine(cfg, slots=4, max_prompt=32, max_new=16, publisher=pub,
+                             runtime=runtime, device=device)
+        if on_serve is not None:
+            hooked = on_serve(engine, pub)
+        srng = np.random.default_rng(7)
+        for i in range(args.serve_requests):
+            n = int(srng.integers(4, 33))
+            engine.submit(Request(rid=i, tokens=srng.integers(0, cfg.vocab_size, n)
+                                  .astype(np.int32), max_new_tokens=16))
 
     def serve(step, state):
         """One cooperative slice: maybe publish, then one engine tick."""
         if step % args.publish_every == 0:
-            gaps = fleet_node_gaps(channel, state["channel"])
-            # node 0's iterate: its slice of each plane (one copy per
-            # bucket), or of each leaf on the per-leaf path
-            if "planes" in state:
-                src = {k: p[0] for k, p in state["planes"].items()}
-            else:
-                src = tree_map(lambda x: x[0], state["params"])
-            shipped = pub.offer(src, version=step + 1, gap=int(gaps[0]))
-            print(f"publish v{step + 1} gap={int(gaps[0])} -> "
-                  f"{'shipped' if shipped else 'held (gate)'}", flush=True)
-        engine.tick()
+            gaps = fleet_node_gaps(channel, state["channel"])  # a collective on ranks
+            if lead:
+                # node 0's iterate: its slice of each plane (one copy per
+                # bucket), or of each leaf on the per-leaf path
+                if "planes" in state:
+                    src = {k: p[0] for k, p in state["planes"].items()}
+                else:
+                    src = tree_map(lambda x: x[0], state["params"])
+                shipped = pub.offer(src, version=step + 1, gap=int(gaps[0]))
+                print(f"publish v{step + 1} gap={int(gaps[0])} -> "
+                      f"{'shipped' if shipped else 'held (gate)'}", flush=True)
+        if lead:
+            engine.tick()
 
+    serve.hooked = hooked
     return pub, engine, serve
+
+
+def _drain(args, pub, engine, serve) -> dict:
+    """Drain what the cooperative ticks left in flight (unless the gate
+    never cleared a single version: nothing to serve with); the demo's
+    stats."""
+    done = engine.run_until_drained() if pub.current else engine.completions
+    ps, es = pub.stats(), engine.stats()
+    print(f"serve: {len(done)}/{args.serve_requests} requests done, {es['swaps']} weight "
+          f"swap(s); published {ps['published']}/{ps['offers']} offers (rate "
+          f"{ps['publish_rate']:.2f}, threshold {ps['gap_threshold']}, final "
+          f"v{ps['current_version']})", flush=True)
+    out = {"publisher": ps, "engine": es, "completed": len(done)}
+    if serve.hooked is not None:
+        out["on_serve"] = serve.hooked
+    return out
 
 
 def _channel_layout(host: dict, manifest: dict, layout: str) -> dict:
@@ -343,13 +389,20 @@ def _channel_layout(host: dict, manifest: dict, layout: str) -> dict:
     return {**host, "channel": {k: v for k, v in host["channel"].items() if k != "delay"}}
 
 
+def _stored_layout(cfg, manifest: dict):
+    """The plane layout a checkpoint was written with (the manifest's
+    ``plane_tp``; a manifest without it was written at tp = 1)."""
+    return model_plane_layout(cfg, int(manifest.get("plane_tp") or 1))
+
+
 def resume_state(ckpt_dir: str, cfg, channel, layout, flat_planes: bool, n_nodes: int,
                  device) -> dict:
     """The latest checkpoint under ``ckpt_dir`` as a run's state on
     ``device``: elastically reshaped when it holds another node count,
-    checked against the plane layout, its optimizer buckets (and parameters)
-    in the form the run keeps (``flat_planes``), its channel state kept
-    where it matches ``channel``."""
+    checked against the plane layout it was written with (the manifest's
+    ``plane_tp``: a checkpoint of a tensor-parallel run converts), its
+    optimizer buckets (and parameters) in the form the run keeps
+    (``flat_planes``), its channel state kept where it matches ``channel``."""
     host, manifest = restore_checkpoint(ckpt_dir)
     host = _channel_layout(host, manifest, "stacked")
     stored_n = tree_leaves(host["params"])[0].shape[0]
@@ -357,7 +410,9 @@ def resume_state(ckpt_dir: str, cfg, channel, layout, flat_planes: bool, n_nodes
         print(f"elastic reshape {stored_n} -> {n_nodes}", flush=True)
         host = elastic_reshape(host, n_nodes)
     cur_layout = layout or model_plane_layout(cfg)
-    check_plane_manifest(manifest, cur_layout)
+    stored = _stored_layout(cfg, manifest)
+    check_plane_manifest(manifest, stored)
+    host = global_tree_state(host, stored, cur_layout)
     state = _to_device(host, device)
     del host
     state = reconcile_plane_state(state, cur_layout, flat_planes)
@@ -382,8 +437,16 @@ def _model_metrics(cfg, metrics: dict, lists: dict) -> str:
             f"z {lists['moe_router_z'][-1]:.4f}")
 
 
+def preset_config(name: str):
+    """``--preset``: ``tiny`` or ``100m`` (repro's ``lm-100m``)."""
+    if name == "100m":
+        return tiny_lm("lm-100m", n_layers=12, d_model=768, n_heads=12, n_kv_heads=4,
+                       d_ff=3072, vocab_size=50304)
+    return tiny_lm()
+
+
 def _model_config(args):
-    cfg = get_config(args.arch, smoke=args.smoke) if args.arch else tiny_lm()
+    cfg = get_config(args.arch, smoke=args.smoke) if args.arch else preset_config(args.preset)
     if cfg.arch_kind == "encdec":
         # as repro's CLI: its SyntheticLM yields tokens and targets only
         raise NotImplementedError(
@@ -433,35 +496,50 @@ def main(argv=None, *, on_step=None, serve_runtime=None, on_serve=None,
     ``--serve-while-training`` the engine takes ``serve_runtime`` (default:
     the engine's own, float32 with the plain attention), ``on_serve(engine,
     publisher)`` sees both once they exist, and the result holds the demo's
-    ``"serve"`` stats.  With ``--resume`` the run continues from the latest
+    ``"serve"`` stats (with what ``on_serve`` returned, where not None, as
+    their ``"on_serve"``).  With ``--resume`` the run continues from the latest
     checkpoint's step to ``--steps``, and the result's lists cover the steps
     it ran.
 
     With ``--simulate-nodes`` (or under torchrun) the run is
     :func:`rank_main` on every rank and the result is rank 0's; ``on_step``
-    and ``on_shrink`` then run in every rank's process and must be
-    picklable (module-level functions)."""
+    and ``on_shrink`` then run in every rank's process and ``on_serve`` on
+    rank 0's, and must be picklable (module-level functions), and
+    ``serve_runtime`` goes to rank 0's engine.  ``--tp T`` there runs ``N x T``
+    ranks; the stacked trainer refuses it."""
     args = _parse(argv)
-    if args.tp != 1:
-        raise NotImplementedError(
-            f"--tp {args.tp}: tensor parallelism is not ported yet (ROADMAP queue 1, item 2)")
     cfg = _model_config(args)
     launched = "RANK" in os.environ and "WORLD_SIZE" in os.environ
-    if args.simulate_nodes or launched:
-        if args.serve_while_training:
+    if args.tp < 1:
+        raise ValueError(f"--tp {args.tp}: want 1 or more")
+    if args.tp > 1:
+        T.check_tp(cfg, args.tp)
+        if not (args.simulate_nodes or launched):
             raise NotImplementedError(
-                "--serve-while-training with one process per node is not ported yet "
-                "(ROADMAP.md, queue 1); use the stacked trainer (--nodes)")
+                f"--tp {args.tp}: the stacked trainer (--nodes) runs at tp = 1; tensor "
+                "parallelism runs one process per rank: pass --simulate-nodes N (N x tp ranks) "
+                "or launch under torchrun (ROADMAP.md queue 1, item 2)")
+        if args.serve_while_training:
+            raise ValueError("--serve-while-training requires --tp 1 (as repro's)")
+        if args.failure_drill:
+            raise NotImplementedError(
+                "--failure-drill runs at tp = 1: the elastic shrink of a (nodes x tp) grid is "
+                "not ported (ROADMAP.md queue 1, item 2)")
+    if args.simulate_nodes or launched:
         resolve_device(args.device)  # no CUDA on a CUDA request raises here
         if launched:
-            group = init_node_group(int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]),
-                                    "env://", device=args.device)
+            world = int(os.environ["WORLD_SIZE"])
+            if world % args.tp:
+                raise ValueError(f"WORLD_SIZE {world} is not N x tp for --tp {args.tp}")
+            group = init_node_group(int(os.environ["RANK"]), world, "env://",
+                                    device=args.device)
             try:
-                return rank_main(group, argv, on_step, on_shrink)
+                return rank_main(group, argv, on_step, on_shrink, serve_runtime, on_serve)
             finally:
                 torch.distributed.destroy_process_group()
-        return run_ranks(rank_main, args.simulate_nodes, argv, on_step, on_shrink,
-                         device=args.device, timeout_s=args.timeout or None)[0]
+        return run_ranks(rank_main, args.simulate_nodes * args.tp, argv, on_step, on_shrink,
+                         serve_runtime, on_serve, device=args.device,
+                         timeout_s=args.timeout or None)[0]
     device = resolve_device(args.device)
     n_nodes = args.nodes
     tcfg = _train_config(args)
@@ -578,15 +656,7 @@ def main(argv=None, *, on_step=None, serve_runtime=None, on_serve=None,
     print(f"done: {len(losses)} steps in {total:.1f}s; steady step {step_s:.4f}s, "
           f"{result['tokens_per_s']:.0f} tokens/s", flush=True)
     if serve is not None:
-        # drain what the cooperative ticks left in flight (unless the gate
-        # never cleared a single version: nothing to serve with)
-        done = engine.run_until_drained() if pub.current else engine.completions
-        ps, es = pub.stats(), engine.stats()
-        print(f"serve: {len(done)}/{args.serve_requests} requests done, {es['swaps']} weight "
-              f"swap(s); published {ps['published']}/{ps['offers']} offers (rate "
-              f"{ps['publish_rate']:.2f}, threshold {ps['gap_threshold']}, final "
-              f"v{ps['current_version']})", flush=True)
-        result["serve"] = {"publisher": ps, "engine": es, "completed": len(done)}
+        result["serve"] = _drain(args, pub, engine, serve)
     if args.measure_json:
         with open(args.measure_json, "w") as f:
             json.dump({"measured_step_s": step_s, **result}, f, indent=2)
@@ -596,24 +666,30 @@ def main(argv=None, *, on_step=None, serve_runtime=None, on_serve=None,
     return result
 
 
-def _resume_ranks(group, ckpt_dir: str, cfg, channel, layout, flat_planes: bool) -> dict:
-    """:func:`resume_state` for one rank of the node group: rank 0 restores
-    the latest checkpoint (elastically reshaped to the group's node count,
-    checked against the plane layout) and scatters it; each rank moves its
-    node to its device and brings it into the form the run keeps, its
-    channel state kept where it matches ``channel``."""
-    host = None
-    cur_layout = layout or model_plane_layout(cfg)
-    if group.rank == 0:
+def _resume_ranks(grid, ckpt_dir: str, cfg, channel, layout, flat_planes: bool) -> dict:
+    """:func:`resume_state` for one rank of the grid: rank 0 restores the
+    latest checkpoint (elastically reshaped to the grid's node count,
+    checked against the layout it was written with) and scatters it; each
+    rank moves its part (its node, its model rank's shard) to its device and
+    brings it into the form the run keeps, its channel state kept where it
+    matches ``channel`` (at tp > 1 re-initialized)."""
+    host, stored = None, None
+    cur_layout = layout or model_plane_layout(cfg, grid.tp)
+    if grid.world.rank == 0:
         host, manifest = restore_checkpoint(ckpt_dir)
         host = _channel_layout(host, manifest, "per-node")
         stored_n = tree_leaves(host["params"])[0].shape[0]
-        if stored_n != group.world:
-            print(f"elastic reshape {stored_n} -> {group.world}", flush=True)
-            host = elastic_reshape(host, group.world)
-        check_plane_manifest(manifest, cur_layout)
-        host = {**host, "channel": _per_node_channel(host.get("channel", {}), group.world)}
-    state = _to_device(scatter_state(host, group), group.device)
+        if stored_n != grid.nodes:
+            print(f"elastic reshape {stored_n} -> {grid.nodes}", flush=True)
+            host = elastic_reshape(host, grid.nodes)
+        stored = _stored_layout(cfg, manifest)
+        check_plane_manifest(manifest, stored)
+        host = {**host, "channel": _per_node_channel(host.get("channel", {}), grid.nodes)}
+    tp_of = [None if stored is None else stored.tp]
+    # every rank takes the same branch of the scatter
+    torch.distributed.broadcast_object_list(tp_of, src=0, group=grid.world.pg)
+    stored = stored or model_plane_layout(cfg, tp_of[0])
+    state = _to_device(scatter_grid_state(host, grid, cur_layout, stored), grid.world.device)
     del host
     state = reconcile_plane_state(state, cur_layout, flat_planes)
     state = ensure_channel_state(state, channel, cur_layout if flat_planes else None)
@@ -641,70 +717,88 @@ def _to_device(state: dict, device) -> dict:
             for k, v in state.items()}
 
 
-def rank_main(group, argv, on_step=None, on_shrink=None) -> dict:
-    """The trainer on one rank of the node ``group`` (``repro``'s shard_map
-    trainer at tp = 1): this rank's node of the state, the global batch of
-    every step (the rank trains on its rows), checkpoints gathered to and
-    written by rank 0, and the failure drill.  Returns the run's result
-    (the losses are the mean over nodes, the same on every rank).
+def rank_main(world, argv, on_step=None, on_shrink=None, serve_runtime=None,
+              on_serve=None) -> dict:
+    """The trainer on one rank of the ``world`` group (``repro``'s shard_map
+    trainer): the ranks laid out as ``(nodes x tp)`` (``--tp``), this rank's
+    part of the state (its node, its model rank's shard), the global batch
+    of every step (the rank trains on its node's rows), checkpoints
+    gathered to and written by rank 0, the failure drill (tp = 1) and
+    serving while training (tp = 1: rank 0 publishes its node and serves).
+    Returns the run's result (the losses are the mean over nodes, the same
+    on every rank).
 
     ``on_shrink(group, gathered, state)``, if given, runs on every survivor
     of the drill once its state is rebuilt: ``gathered`` is the global state
     before the shrink on rank 0 (None elsewhere), ``group`` the new group;
-    rank 0's return value is the result's ``"on_shrink"``."""
+    rank 0's return value is the result's ``"on_shrink"``.  ``serve_runtime``
+    and ``on_serve`` are :func:`main`'s, for rank 0's engine."""
     args = _parse(argv)
-    device = group.device
+    device = world.device
     cfg = _model_config(args)
     tcfg = _train_config(args)
     opt = make_optimizer(tcfg.opt_config())
-    layout = model_plane_layout(cfg) if args.flat_planes else None
+    tp = args.tp
+    grid = init_grid(world, tp)
+    group = grid.node
+    layout = model_plane_layout(cfg, tp) if args.flat_planes else None
     cuda = device.type == "cuda"
-    print(group.describe(), flush=True)
-    lead = group.rank == 0
+    print(grid.describe() if tp > 1 else world.describe(), flush=True)
+    lead = world.rank == 0
+    if lead:
+        print(f"mesh: {grid.nodes} nodes x {tp}-way TP ({world.world} ranks)", flush=True)
 
-    def build(group):
-        step_fn, channel = build_dist_train_step(cfg, tcfg, group)
+    def build(g):
+        step_fn, channel = build_dist_train_step(cfg, tcfg, g)
         if args.measure_json:
             channel.timings = []
+            if step_fn.tp is not None:
+                step_fn.tp.timing = True
         return step_fn, channel
 
-    step_fn, channel = build(group)
+    step_fn, channel = build(grid)
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
     save_s, restore_s = [], None
     if args.resume and args.ckpt_dir:
         t = time.perf_counter()
-        state = _resume_ranks(group, args.ckpt_dir, cfg, channel, layout, args.flat_planes)
+        state = _resume_ranks(grid, args.ckpt_dir, cfg, channel, layout, args.flat_planes)
         restore_s = time.perf_counter() - t
         if lead:
             print(f"resumed from step {state['step']} in {restore_s:.1f}s", flush=True)
     else:
         state = init_train_state(cfg, opt, 1, device=device, channel=channel,
-                                 plane_layout=layout)
+                                 plane_layout=layout, tp=tp, tp_index=grid.model.rank)
     start = state["step"]
-    n_params = count_params(state["params"])
+    n_params = count_params(T.init_params(cfg, torch.Generator(), device="meta", tp=tp))
     if lead:
         print(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params:,} "
-              f"params/node x {group.world} nodes, one process each", flush=True)
+              f"params/node x {grid.nodes} nodes, one process each"
+              + (f" per model rank ({tp}-way TP)" if tp > 1 else ""), flush=True)
 
     def data_of(n):
         return SyntheticLM(SyntheticLMConfig(
             vocab_size=cfg.vocab_size, seq_len=args.seq_len,
             per_node_batch=args.per_node_batch, n_nodes=n, heterogeneity=args.heterogeneity))
 
-    def checkpoint(state, group):
+    def checkpoint(state, grid):
         t = time.perf_counter()
-        host = gather_state(state, group)
+        host = gather_grid_state(state, grid, layout or model_plane_layout(cfg, grid.tp))
         if host is not None:
             path = save_checkpoint(args.ckpt_dir, host,
-                                   metadata={"n_nodes": group.world,
+                                   metadata={"n_nodes": grid.nodes,
                                              "algorithm": args.algorithm,
                                              "channel_layout": "per-node"},
                                    plane_layout=layout)
             save_s.append(time.perf_counter() - t)
             print(f"checkpointed -> {path}", flush=True)
 
-    data = data_of(group.world)
+    serve = None
+    if args.serve_while_training:
+        pub, engine, serve = _serve_demo(args, cfg, layout or model_plane_layout(cfg),
+                                         channel, device, serve_runtime, on_serve, lead)
+
+    data = data_of(grid.nodes)
     losses, lrs, gaps, consensus, step_times, card_used = [], [], [], [], [], []
     model_metrics = {k: [] for k in MODEL_METRICS}
     skipped_steps, saved, drill, shrunk = 0, False, None, None
@@ -733,6 +827,8 @@ def rank_main(group, argv, on_step=None, on_shrink=None) -> dict:
                 )
         if health is not None:
             state = health(step, state, channel)
+        if serve is not None:
+            serve(step, state)
         losses.append(loss)
         lrs.append(float(metrics["lr"]))
         gaps.append(metrics["gossip_gap"])
@@ -742,10 +838,10 @@ def rank_main(group, argv, on_step=None, on_shrink=None) -> dict:
             consensus.append(float(metrics["consensus_sq"]))
             msg += f" consensus {consensus[-1]:.3e}"
         if lead and (step % args.log_every == 0 or step == args.steps - 1):
-            print(f"{msg} ({step_times[-1]:.3f}s, {group.world} nodes)", flush=True)
+            print(f"{msg} ({step_times[-1]:.3f}s, {grid.nodes} nodes)", flush=True)
         saved = bool(args.ckpt_dir) and (step + 1) % args.ckpt_every == 0
         if saved:
-            checkpoint(state, group)
+            checkpoint(state, grid)
         if args.failure_drill and drill is None and step == (start + args.steps) // 2:
             new_n = max(1, group.world // 2)
             if lead:
@@ -758,8 +854,9 @@ def rank_main(group, argv, on_step=None, on_shrink=None) -> dict:
             sub = subgroup(group, list(range(new_n)))
             if sub is None:  # this rank leaves the fleet
                 return {"left_at_step": step, "rank": group.rank}
-            group = sub
-            step_fn, channel = build(group)
+            grid = init_grid(sub, 1)
+            world = group = sub
+            step_fn, channel = build(grid)
             state = _to_device(scatter_state(host, group), device)
             del host
             state = reconcile_plane_state(state, layout or model_plane_layout(cfg),
@@ -775,19 +872,22 @@ def rank_main(group, argv, on_step=None, on_shrink=None) -> dict:
 
     warm = step_times[1:] or step_times
     step_s = sum(warm) / len(warm) if warm else float("nan")
-    tokens = group.world * args.per_node_batch * args.seq_len
+    tokens = grid.nodes * args.per_node_batch * args.seq_len
+    ctx = step_fn.tp
     mine = {"device": str(device),
             "peak_mem_bytes": torch.cuda.max_memory_allocated(device) if cuda else None,
             "gossip_s": channel.timings,
-            "staged_bytes": channel.staged_bytes}
-    every = [None] * group.world
-    torch.distributed.all_gather_object(every, mine, group=group.pg)
+            "staged_bytes": channel.staged_bytes,
+            "tp": None if ctx is None else (ctx.seconds, ctx.staged_bytes, ctx.calls)}
+    every = [None] * world.world
+    torch.distributed.all_gather_object(every, mine, group=world.pg)
     rounds = [len(m["gossip_s"] or ()) for m in every]
     result = {
         "arch": args.arch or args.preset,
         "n_layers": cfg.n_layers,
         "params_per_node": n_params,
-        "n_nodes": group.world,
+        "n_nodes": grid.nodes,
+        "tp": tp,
         "processes": True,
         "backend": group.backend,
         "devices": [m["device"] for m in every],
@@ -818,6 +918,13 @@ def rank_main(group, argv, on_step=None, on_shrink=None) -> dict:
                                         for m in every]
         result["staged_bytes_per_round"] = [m["staged_bytes"] / max(r, 1)
                                             for m, r in zip(every, rounds)]
+        if tp > 1:
+            # the model group's collectives per step (each waits for the card
+            # first), by rank: host seconds, staged bytes and count
+            n_steps = max(len(step_times), 1)
+            result["tp_s_per_step"] = [m["tp"][0] / n_steps for m in every]
+            result["tp_staged_bytes_per_step"] = [m["tp"][1] / n_steps for m in every]
+            result["tp_calls_per_step"] = [m["tp"][2] / n_steps for m in every]
     if args.track_consensus:
         result["consensus_sq"] = consensus
     if shrunk is not None:
@@ -834,8 +941,10 @@ def rank_main(group, argv, on_step=None, on_shrink=None) -> dict:
             with open(args.measure_json, "w") as f:
                 json.dump({"measured_step_s": step_s, **result}, f, indent=2)
             print(f"wrote {args.measure_json}", flush=True)
+    if serve is not None and lead:
+        result["serve"] = _drain(args, pub, engine, serve)
     if args.ckpt_dir and not saved:  # the final state, unless the last step saved it
-        checkpoint(state, group)
+        checkpoint(state, grid)
     # host seconds on rank 0: gather + write per checkpoint; restore on rank
     # 0 + scatter + placing this rank's node on its device
     result["save_s"], result["restore_s"] = save_s, restore_s

@@ -1,23 +1,45 @@
-"""Shared layers of the decoder LMs (the port of ``repro.models.layers`` at
-tensor-parallel degree 1).
+"""Shared layers of the decoder LMs (the port of ``repro.models.layers``),
+with manual tensor parallelism.
 
 Parameters are plain nested dicts of tensors with the JAX package's paths
 and layouts: a linear weight is ``(d_in, d_out)`` and is applied as
 ``x @ w``.  Norm scales are stored as offsets from 1 (``x * (1 + scale)``),
 as in the reference.
+
+Tensor parallelism is Megatron's, as in the reference: activations are
+replicated over the model group at block boundaries, a column-sharded
+in-projection makes a sharded hidden, a row-sharded out-projection and one
+all-reduce bring it back.  :class:`TPContext` holds the model group
+(:class:`~repro_torch.launch.mesh.Grid`'s ``model``); with no group, or a
+group of one, every collective is the identity and the code is the tp = 1
+code.  Gradients come from autograd through Megatron's pair of functions:
+:meth:`TPContext.copy_in` (identity forward, all-reduce backward) at the
+entry of each column-sharded projection, and :meth:`TPContext.reduce_out`
+(all-reduce forward, identity backward) after ``wo``/``w_out`` and the
+vocab-sharded lookup and loss sums.  A replicated leaf that a rank uses on
+its own shard only (``q_norm``/``k_norm``, k/v projections that are not
+sharded) enters through ``copy_in`` too, so its gradient is summed over the
+group; every leaf's gradient, gathered over the group, is then its tp = 1
+gradient.  The reference gets the same from shard_map's AD, and patches its
+legacy form by hand (``repro/train/step.py:286-317``); nothing here copies
+those factors.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from typing import Any
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 Tree = Any
 
 __all__ = [
+    "TPContext",
+    "pmax_stopgrad",
     "Initializer",
     "rms_norm",
     "layer_norm",
@@ -33,6 +55,113 @@ __all__ = [
     "lm_head_logits",
     "softmax_xent_sharded",
 ]
+
+
+class TPContext:
+    """The model group of one node (see the module docstring).  ``group`` is
+    a :class:`~repro_torch.launch.mesh.NodeGroup` over the node's ranks
+    (None: tp = 1).  On gloo with tensors on a card (``group.staged``) each
+    collective copies its tensor to the host and back.  The collectives'
+    host seconds, count and staged bytes accumulate in ``seconds``,
+    ``calls`` and ``staged_bytes``; with ``timing`` on, each collective
+    first waits for the card, so ``seconds`` holds the collectives alone."""
+
+    def __init__(self, group=None, *, timing: bool = False):
+        self.group = group
+        self.size = 1 if group is None else group.world
+        self.index = 0 if group is None else group.rank
+        self.timing = timing
+        self.reset()
+
+    def reset(self) -> None:
+        self.seconds, self.calls, self.staged_bytes = 0.0, 0, 0
+
+    @property
+    def enabled(self) -> bool:
+        return self.size > 1
+
+    def _run(self, x: torch.Tensor, fn) -> torch.Tensor:
+        """``fn(t)`` on a contiguous copy of ``x`` (on the host when staged),
+        in place; the result back on ``x``'s device."""
+        g = self.group
+        staged = g.staged and x.device.type == "cuda"
+        if self.timing and x.device.type == "cuda":
+            torch.cuda.synchronize(x.device)
+        t0 = time.perf_counter()
+        t = x.detach().contiguous().to("cpu") if staged else x.detach().clone().contiguous()
+        t = fn(t)
+        if staged:
+            self.staged_bytes += 2 * t.numel() * t.element_size()
+            t = t.to(x.device)
+        if self.timing and x.device.type == "cuda":
+            torch.cuda.synchronize(x.device)
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        return t
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """The sum (or ``op="max"``) over the group; no autograd."""
+        if not self.enabled:
+            return x
+        rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+
+        def fn(t):
+            dist.all_reduce(t, op=rop, group=self.group.pg)
+            return t
+
+        return self._run(x, fn)
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The group's tensors concatenated along ``dim`` by model index."""
+        if not self.enabled:
+            return x
+
+        def fn(t):
+            parts = [torch.empty_like(t) for _ in range(self.size)]
+            dist.all_gather(parts, t, group=self.group.pg)
+            return torch.cat(parts, dim=dim)
+
+        return self._run(x, fn)
+
+    def copy_in(self, x: torch.Tensor) -> torch.Tensor:
+        """Identity forward, all-reduce of the gradient backward."""
+        return _CopyIn.apply(x, self) if self.enabled else x
+
+    def reduce_out(self, x: torch.Tensor) -> torch.Tensor:
+        """All-reduce forward, identity backward."""
+        return _ReduceOut.apply(x, self) if self.enabled else x
+
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.all_reduce(g), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        return tp.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def tp_enabled(tp: TPContext | None) -> bool:
+    return tp is not None and tp.enabled
+
+
+def pmax_stopgrad(x: torch.Tensor, tp: TPContext) -> torch.Tensor:
+    """The max over the model group with no gradient: it feeds
+    numerical-stability shifts only (the reference's ``pmax_stopgrad``)."""
+    return tp.all_reduce(x.detach(), "max")
 
 
 class Initializer:
@@ -154,7 +283,16 @@ def mlp_init(init: Initializer, d: int, f: int, gated: bool) -> Tree:
     return p
 
 
-def mlp_apply(x: torch.Tensor, params: Tree, act: str) -> torch.Tensor:
+def mlp_apply(x: torch.Tensor, params: Tree, act: str,
+              tp: TPContext | None = None) -> torch.Tensor:
+    """Megatron's MLP at tp > 1: ``w_in``/``w_gate`` column-sharded, ``w_out``
+    row-sharded, one all-reduce."""
+    if tp_enabled(tp):
+        return tp.reduce_out(_mlp(tp.copy_in(x), params, act))
+    return _mlp(x, params, act)
+
+
+def _mlp(x: torch.Tensor, params: Tree, act: str) -> torch.Tensor:
     dt = x.dtype
     h = x @ params["w_in"].to(dt)
     if "w_gate" in params:
@@ -174,8 +312,19 @@ def embedding_init(init: Initializer, vocab_padded: int, d: int) -> Tree:
     return {"table": init.normal((vocab_padded, d), 0.02)}
 
 
-def embed_lookup(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    return F.embedding(ids.long(), table)
+def embed_lookup(ids: torch.Tensor, table: torch.Tensor,
+                 tp: TPContext | None = None) -> torch.Tensor:
+    """Rows of ``table`` for ``ids``; at tp > 1 the table is this rank's
+    vocab shard ``(Vp/tp, d)``: the rows it holds, zeros elsewhere, summed
+    over the group."""
+    if not tp_enabled(tp):
+        return F.embedding(ids.long(), table)
+    v_local = table.shape[0]
+    local = ids.long() - tp.index * v_local
+    hit = (local >= 0) & (local < v_local)
+    emb = F.embedding(torch.clamp(local, 0, v_local - 1), table)
+    emb = torch.where(hit[..., None], emb, torch.zeros((), dtype=emb.dtype, device=emb.device))
+    return tp.reduce_out(emb)
 
 
 def lm_head_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -184,12 +333,15 @@ def lm_head_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def softmax_xent_sharded(logits: torch.Tensor, targets: torch.Tensor, *,
-                         vocab_size: int) -> torch.Tensor:
+                         vocab_size: int, tp: TPContext | None = None) -> torch.Tensor:
     """Mean cross entropy of ``logits`` (T, Vp) against ``targets`` (T,).
 
     Padded vocab columns (``>= vocab_size``) are masked to -1e30 and the max
-    shift carries no gradient, as in the reference (there summed over the
-    vocab-sharded model axis; here tp = 1)."""
+    shift carries no gradient, as in the reference.  At tp > 1 ``logits``
+    is this rank's vocab shard (T, Vp/tp): the max, the sum of exponentials
+    and the label's logit combine over the model group."""
+    if tp_enabled(tp):
+        return _xent_sharded(logits, targets, vocab_size, tp)
     lg = logits.to(torch.float32)
     valid = torch.arange(lg.shape[-1], device=lg.device) < vocab_size
     lg = torch.where(valid, lg, torch.full((), -1e30, dtype=lg.dtype, device=lg.device))
@@ -197,5 +349,22 @@ def softmax_xent_sharded(logits: torch.Tensor, targets: torch.Tensor, *,
     lg = lg - mx
     sumexp = torch.sum(torch.exp(lg), dim=-1)
     label_logit = torch.gather(lg, -1, targets.long()[..., None])[..., 0]
+    nll = torch.log(sumexp) - label_logit
+    return torch.sum(nll) / float(nll.numel())
+
+
+def _xent_sharded(logits, targets, vocab_size: int, tp: TPContext) -> torch.Tensor:
+    lg = logits.to(torch.float32)
+    v_local = lg.shape[-1]
+    lo = tp.index * v_local
+    valid = torch.arange(lo, lo + v_local, device=lg.device) < vocab_size
+    lg = torch.where(valid, lg, torch.full((), -1e30, dtype=lg.dtype, device=lg.device))
+    mx = pmax_stopgrad(torch.amax(lg, dim=-1, keepdim=True), tp)
+    lg = lg - mx
+    sumexp = tp.reduce_out(torch.sum(torch.exp(lg), dim=-1))
+    local_t = targets.long() - lo
+    hit = (local_t >= 0) & (local_t < v_local)
+    picked = torch.gather(lg, -1, torch.clamp(local_t, 0, v_local - 1)[..., None])[..., 0]
+    label_logit = tp.reduce_out(torch.where(hit, picked, torch.zeros((), device=lg.device)))
     nll = torch.log(sumexp) - label_logit
     return torch.sum(nll) / float(nll.numel())

@@ -1,6 +1,5 @@
-"""Model assembly (the port of ``repro.models.transformer`` at
-tensor-parallel degree 1): dense, MoE (granite-moe), hybrid attention + SSM
-heads (hymba), the VLM backbone with its patch-embedding stub (internvl2),
+"""Model assembly (the port of ``repro.models.transformer``): dense, MoE
+(granite-moe), hybrid attention + SSM heads (hymba), the VLM backbone with its patch-embedding stub (internvl2),
 the xLSTM stack and the encoder-decoder (whisper); the training forward and
 the serve path (cache, prefill, decode).
 
@@ -26,6 +25,17 @@ runs attention and the SSM on the same normed input and adds their mean;
 a MoE layer's router losses sum over the layers into the training loss
 (``xent + router_aux_weight * load_balance + 1e-3 * z``), as in the
 reference.
+
+Tensor parallelism (a :class:`~repro_torch.models.layers.TPContext` of
+size > 1, passed as ``tp``) covers the dense family, the blocks that are
+attention + MLP (tiny_lm, qwen3, olmo, h2o-danube's windows): the
+parameters are the rank's shards of :func:`init_params` at that tp, cut
+along :func:`param_shard_axes` (:mod:`repro_torch.interop`), the vocab
+sharded over the model group (the embedding by rows, the lm_head by
+columns, the loss and the lookup summed over the group), the serve cache
+sharded by sequence, and prefill's and decode's logits are the rank's
+vocab shard.  MoE, xLSTM, the SSM heads, the encoder-decoder and the VLM's
+patch splice raise at tp > 1 (ROADMAP.md queue 1, item 2).
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ from . import ssm as ssm_mod
 from . import xlstm as xlstm_mod
 from .layers import (
     Initializer,
+    TPContext,
     embed_lookup,
     embedding_init,
     lm_head_logits,
@@ -61,9 +72,12 @@ __all__ = [
     "GroupSpec",
     "block_groups",
     "init_params",
+    "param_shard_axes",
+    "check_tp",
     "count_params",
     "forward_loss",
     "init_cache",
+    "cache_shard_axes",
     "prefill",
     "decode_step",
 ]
@@ -142,13 +156,13 @@ def block_groups(cfg: ModelConfig, *, stack: str = "dec") -> list[GroupSpec]:
     return groups
 
 
-def _layer_init(init: Initializer, cfg: ModelConfig, kind: str) -> Tree:
+def _layer_init(init: Initializer, cfg: ModelConfig, kind: str, tp: int = 1) -> Tree:
     d, nt = cfg.d_model, cfg.norm_type
     if kind == "mlstm":
         return {"norm": norm_init(init, nt, d), "mlstm": xlstm_mod.mlstm_init(init, cfg)}
     if kind == "slstm":
         return {"norm": norm_init(init, nt, d), "slstm": xlstm_mod.slstm_init(init, cfg)}
-    p = {"attn_norm": norm_init(init, nt, d), "attn": attn.attn_init(init, cfg)}
+    p = {"attn_norm": norm_init(init, nt, d), "attn": attn.attn_init(init, cfg, tp)}
     if kind == "hybrid":
         p["ssm"] = ssm_mod.ssm_init(init, cfg)
     if kind == "dec" and cfg.arch_kind == "encdec":
@@ -167,33 +181,84 @@ def _stack(trees: list[Tree]) -> Tree:
     return tree_map(lambda *xs: torch.stack(xs, dim=0), *trees)
 
 
-def _groups_init(init: Initializer, cfg: ModelConfig, stack: str = "dec") -> Tree:
+def _groups_init(init: Initializer, cfg: ModelConfig, stack: str = "dec", tp: int = 1) -> Tree:
     """``{"g<i>": layer-stacked params}`` of one stack's block groups."""
-    return {f"g{gi}": _stack([_layer_init(init, cfg, g.kind) for _ in g.layers])
+    return {f"g{gi}": _stack([_layer_init(init, cfg, g.kind, tp) for _ in g.layers])
             for gi, g in enumerate(block_groups(cfg, stack=stack))}
 
 
+def check_tp(cfg: ModelConfig, tp: int) -> None:
+    """Raise unless ``cfg`` runs at tensor-parallel degree ``tp``: the dense
+    family only at tp > 1."""
+    if tp == 1:
+        return
+    what = ("MoE expert sharding" if cfg.moe else "the xLSTM stack" if cfg.xlstm
+            else "the SSM heads" if cfg.ssm else "the encoder-decoder"
+            if cfg.arch_kind == "encdec" else "the VLM patch splice"
+            if cfg.family == "vlm" else None)
+    if what is not None:
+        raise NotImplementedError(
+            f"{cfg.name} at tp={tp}: {what} is not ported at tp > 1 (ROADMAP.md queue 1, "
+            "item 2); run it at tp = 1")
+    if cfg.d_ff % tp:
+        raise ValueError(f"{cfg.name}: d_ff {cfg.d_ff} is not divisible by tp={tp}")
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device: torch.device | str | None = None) -> Tree:
-    """One node's parameters, on the generator's device (or ``device``:
-    ``"meta"`` gives shapes and dtypes only), in the reference's draw order
-    (embed, the encoder's layers and norm, layers in order, final norm,
-    lm_head)."""
+                device: torch.device | str | None = None, tp: int = 1) -> Tree:
+    """One node's global parameters, on the generator's device (or
+    ``device``: ``"meta"`` gives shapes and dtypes only), in the reference's
+    draw order (embed, the encoder's layers and norm, layers in order, final
+    norm, lm_head), padded for tensor-parallel degree ``tp`` as the
+    reference pads them (q heads and the vocab to a multiple of ``tp``)."""
     init = Initializer(generator)
     if device is not None:
         init.device = torch.device(device)
-    vp = cfg.vocab_padded(1)
+    vp = cfg.vocab_padded(tp)
     params: Tree = {"embed": embedding_init(init, vp, cfg.d_model)}
     if cfg.arch_kind == "encdec":
         params["enc"] = _groups_init(init, cfg, stack="enc")
         params["enc_norm"] = norm_init(init, cfg.norm_type, cfg.d_model)
-    params["groups"] = _groups_init(init, cfg)
+    params["groups"] = _groups_init(init, cfg, tp=tp)
     params["final_norm"] = norm_init(init, cfg.norm_type, cfg.d_model)
     if not cfg.tie_embeddings:
         params["lm_head"] = {
             "w": init.normal((cfg.d_model, vp), 1.0 / math.sqrt(cfg.d_model))
         }
     return params
+
+
+_NORM_LEAVES = {"rmsnorm": ("scale",), "layernorm": ("scale", "bias"), "nonparametric_ln": ()}
+
+
+def param_shard_axes(cfg: ModelConfig, tp: int = 1, serve: bool = False) -> Tree:
+    """The counterpart of the reference's ``param_specs``: for each leaf of
+    :func:`init_params`'s tree, the axis split over the model group (None:
+    replicated; a group's leaves count their layer axis).  ``serve=True``
+    keeps k and v replicated."""
+    check_tp(cfg, tp)
+
+    def norm(tree):
+        return {k: None for k in tree}
+
+    def layer(kind: str):
+        init = Initializer(torch.Generator())
+        init.device = torch.device("meta")
+        p = _layer_init(init, cfg, kind, tp)
+        out = {"attn_norm": norm(p["attn_norm"]),
+               "attn": {k: None if a is None else a + 1
+                        for k, a in attn.attn_shard_axes(cfg, tp, serve).items()}}
+        if "mlp" in p:
+            out["mlp_norm"] = norm(p["mlp_norm"])
+            out["mlp"] = {k: 2 if k in ("w_in", "w_gate") else 1 for k in p["mlp"]}
+        return out
+
+    axes: Tree = {"embed": {"table": 0}}
+    axes["groups"] = {f"g{gi}": layer(g.kind) for gi, g in enumerate(block_groups(cfg))}
+    axes["final_norm"] = {k: None for k in _NORM_LEAVES[cfg.norm_type]}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = {"w": 1}
+    return axes
 
 
 def count_params(params: Tree) -> int:
@@ -210,7 +275,8 @@ def _sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def _block_fwd(x, lp, cfg: ModelConfig, g: GroupSpec, positions, *,
-               rt: RuntimeConfig = RuntimeConfig(), serve: bool = False, enc_out=None):
+               rt: RuntimeConfig = RuntimeConfig(), serve: bool = False, enc_out=None,
+               tp: TPContext | None = None):
     """One layer forward.  Returns ``(x, aux, entry)``: ``aux`` the MoE
     router's terms (empty for other kinds); with ``serve``, ``entry`` the
     layer's serve state — ``{"kv": (k, v)}`` over the whole sequence for an
@@ -231,7 +297,8 @@ def _block_fwd(x, lp, cfg: ModelConfig, g: GroupSpec, positions, *,
         return x + y, {}, ({g.kind: st} if serve else None)
     h = norm_apply(x, lp["attn_norm"], nt)
     a = attn.attn_forward(h, lp["attn"], cfg, positions=positions, causal=g.kind != "enc",
-                          window=g.window, attn_impl=rt.attn_impl, return_kv=serve)
+                          window=g.window, attn_impl=rt.attn_impl, return_kv=serve, tp=tp,
+                          serve=serve)
     entry = None
     if serve:
         a, kv = a
@@ -257,7 +324,7 @@ def _block_fwd(x, lp, cfg: ModelConfig, g: GroupSpec, positions, *,
         if g.kind == "moe":
             y2, aux = moe_mod.moe_forward(h2, lp["moe"], cfg)
         else:
-            y2 = mlp_apply(h2, lp["mlp"], cfg.act)
+            y2 = mlp_apply(h2, lp["mlp"], cfg.act, tp)
         x = x + y2
     return x, aux, entry
 
@@ -268,12 +335,12 @@ def _layers(group_params: Tree, count: int) -> list[Tree]:
     return [tree_map(lambda ts: ts[li], split) for li in range(count)]
 
 
-def _embed(tokens, params, cfg: ModelConfig, dtype, positions, patch_embeds=None):
+def _embed(tokens, params, cfg: ModelConfig, dtype, positions, patch_embeds=None, tp=None):
     """Token embeddings in ``dtype``; a VLM's ``patch_embeds`` (B, P, d), when
     given, replace the first P positions (the vision frontend's stub); with
     ``rope_theta == 0`` plus the absolute sinusoidal embeddings of
     ``positions`` (broadcast to tokens)."""
-    x = embed_lookup(tokens, params["embed"]["table"].to(dtype))
+    x = embed_lookup(tokens, params["embed"]["table"].to(dtype), tp)
     if cfg.family == "vlm" and patch_embeds is not None:
         n = patch_embeds.shape[1]
         x = torch.cat([patch_embeds.to(dtype), x[:, n:]], dim=1)
@@ -286,7 +353,8 @@ _AUX = ("moe_load_balance", "moe_router_z")
 
 
 def _run_groups(x, groups_params, cfg: ModelConfig, positions, rt: RuntimeConfig,
-                serve: bool, *, stack: str = "dec", enc_out=None, collect_rows: bool = False):
+                serve: bool, *, stack: str = "dec", enc_out=None, collect_rows: bool = False,
+                tp: TPContext | None = None):
     """Every block group of ``stack`` in order, over ``groups_params``
     (``params["groups"]``, or the encoder's ``params["enc"]``).  Returns
     ``(x, aux totals, entries)``: the router terms summed over each MoE
@@ -304,7 +372,7 @@ def _run_groups(x, groups_params, cfg: ModelConfig, positions, rt: RuntimeConfig
         layer_entries = []
         for lp in _layers(groups_params[f"g{gi}"], g.count):
             x, aux, entry = _block_fwd(x, lp, cfg, g, positions, rt=rt, serve=serve,
-                                       enc_out=enc_out)
+                                       enc_out=enc_out, tp=tp)
             for k in aux.keys() & group_aux.keys():
                 group_aux[k].append(aux[k])
             if "moe_expert_hits" in aux:
@@ -340,7 +408,7 @@ def _encode(params: Tree, batch: dict, cfg: ModelConfig, rt: RuntimeConfig):
 
 def forward_loss(params: Tree, batch: dict, cfg: ModelConfig,
                  rt: RuntimeConfig = RuntimeConfig(dtype="float32"), *,
-                 collect_rows: bool = False):
+                 collect_rows: bool = False, tp: TPContext | None = None):
     """batch: tokens (B, S), targets (B, S) [, patch_embeds (B, P, d) for a
     VLM, enc_frames (B, T_enc, d) for the encoder-decoder].  Returns
     ``(total, metrics)``: the total is the cross entropy plus the MoE router
@@ -353,22 +421,23 @@ def forward_loss(params: Tree, batch: dict, cfg: ModelConfig,
     version, as the reference trains with ``mlstm_impl="ref"`` (the kernel
     has no backward), and attention its plain path (``attn_impl="jnp"``).
     ``collect_rows`` adds ``metrics["_row_info"]`` (see :func:`_run_groups`)
-    for row-sparse gossip."""
+    for row-sparse gossip.  With ``tp`` the parameters are the rank's
+    shards and the loss is the same on every rank of the group."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     dt = rt.cdtype
+    _check_ctx(cfg, tp)
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    x = _embed(tokens, params, cfg, dt, positions, batch.get("patch_embeds"))
+    x = _embed(tokens, params, cfg, dt, positions, batch.get("patch_embeds"), tp)
     rt = dataclasses.replace(rt, attn_impl="torch", mlstm_impl="torch")
     enc_out = _encode(params, batch, cfg, rt) if cfg.arch_kind == "encdec" else None
     x, aux, _ = _run_groups(x, params["groups"], cfg, positions, rt, serve=False,
-                            enc_out=enc_out, collect_rows=collect_rows)
+                            enc_out=enc_out, collect_rows=collect_rows, tp=tp)
     row_info = aux.pop("_row_info", None)
-    x = norm_apply(x, params["final_norm"], cfg.norm_type)
-    w = params["embed"]["table"].T if cfg.tie_embeddings else params["lm_head"]["w"]
-    logits = lm_head_logits(x, w.to(dt))
+    logits = _head(x, params, cfg, dt, tp)
     loss = softmax_xent_sharded(
-        logits.reshape(B * S, -1), batch["targets"].reshape(-1), vocab_size=cfg.vocab_size
+        logits.reshape(B * S, -1), batch["targets"].reshape(-1), vocab_size=cfg.vocab_size,
+        tp=tp,
     )
     if cfg.moe:
         total = (loss + cfg.router_aux_weight * aux["moe_load_balance"]
@@ -381,28 +450,49 @@ def forward_loss(params: Tree, batch: dict, cfg: ModelConfig,
     return total, metrics
 
 
+def _check_ctx(cfg: ModelConfig, tp: TPContext | None) -> None:
+    if tp is not None and tp.enabled:
+        check_tp(cfg, tp.size)
+
+
+def _head(x, params, cfg: ModelConfig, dtype, tp: TPContext | None, last: bool = False):
+    """The final norm and the lm_head (or tied) logits (of the last position
+    only with ``last``): the rank's vocab shard at tp > 1."""
+    x = norm_apply(x, params["final_norm"], cfg.norm_type)
+    if last:
+        x = x[:, -1]
+    w = params["embed"]["table"].T if cfg.tie_embeddings else params["lm_head"]["w"]
+    if tp is not None:
+        x = tp.copy_in(x)
+    return lm_head_logits(x, w.to(dtype))
+
+
 # ---------------------------------------------------------------------------
 # Serving: cache init / prefill / decode
 # ---------------------------------------------------------------------------
 
 
-def _group_capacity(g: GroupSpec, target_len: int) -> int:
-    return min(g.window, target_len) if g.window > 0 else target_len
+def _group_capacity(g: GroupSpec, target_len: int, tp: int = 1) -> int:
+    """Global slots of a group's cache, rounded up to a multiple of tp."""
+    cap = min(g.window, target_len) if g.window > 0 else target_len
+    return -(-cap // tp) * tp
 
 
 def init_cache(cfg: ModelConfig, batch: int, target_len: int, rt: RuntimeConfig,
-               device=None) -> Tree:
+               device=None, tp: int = 1) -> Tree:
     """Serve cache: per block group (layer-stacked) ``{"kv": ...}`` for an
     attention group, and ``{"ssm": ...}`` beside it for a hybrid group and
     ``{"cross_kv": ...}`` (count, batch, enc_seq, KV, hd) for a decoder group
     of the encoder-decoder; ``{"mlstm": ...}`` or ``{"slstm": ...}`` for an
-    xLSTM group."""
+    xLSTM group.  At tp > 1 the kv cache is the rank's sequence shard."""
+    check_tp(cfg, tp)
     cache: Tree = {}
     for gi, g in enumerate(block_groups(cfg)):
         c: Tree = {}
         if g.has_attn:
-            c["kv"] = attn.init_kv_cache(cfg, g.count, batch, _group_capacity(g, target_len),
-                                         rt.cdtype, device)
+            c["kv"] = attn.init_kv_cache(cfg, g.count, batch,
+                                         _group_capacity(g, target_len, tp), rt.cdtype, device,
+                                         tp)
         if g.has_ssm:
             c["ssm"] = ssm_mod.init_ssm_state(cfg, g.count, batch, device)
         if g.kind == "mlstm":
@@ -417,43 +507,62 @@ def init_cache(cfg: ModelConfig, batch: int, target_len: int, rt: RuntimeConfig,
     return cache
 
 
-def _roll_into_cache(k_full: torch.Tensor, v_full: torch.Tensor, cap: int) -> Tree:
-    """(Lg, B, S, KV, hd) full-sequence kv -> a ``cap``-slot rolling cache.
+def cache_shard_axes(cfg: ModelConfig) -> Tree:
+    """The counterpart of the reference's ``cache_specs``: for each leaf of
+    :func:`init_cache`'s tree the axis sharded over the model group (the kv
+    cache's slots, axis 2 after the layer and batch axes; None elsewhere).
+    The batch axis (1) splits over the nodes where the batch does."""
+    meta = init_cache(cfg, 1, 1, RuntimeConfig(), device="meta")
+    return {gk: {name: tree_map(lambda _: 2 if name == "kv" else None, sub)
+                 for name, sub in c.items()} for gk, c in meta.items()}
+
+
+def _roll_into_cache(k_full: torch.Tensor, v_full: torch.Tensor, cap: int,
+                     tp: TPContext | None = None) -> Tree:
+    """(Lg, B, S, KV, hd) full-sequence kv -> a ``cap``-slot rolling cache
+    (at tp > 1 the rank's ``cap / tp`` contiguous slots of it).
 
     Slot j holds the largest position p < S with p % cap == j, or is empty
     (pos -1; its k/v are position 0's, as in the reference's gather)."""
     Lg, B, S = k_full.shape[:3]
     j = torch.arange(cap, device=k_full.device)
+    if tp is not None and tp.enabled:
+        s_local = cap // tp.size
+        j = j[tp.index * s_local:(tp.index + 1) * s_local]
+        cap_local = s_local
+    else:
+        cap_local = cap
     p = cap * torch.div(S - 1 - j, cap, rounding_mode="floor") + j
     p = torch.where((p >= 0) & (p < S), p, -1)
     idx = torch.clamp(p, min=0)
     return {
         "k": k_full.index_select(2, idx),
         "v": v_full.index_select(2, idx),
-        "pos": p.to(torch.int32)[None, None].expand(Lg, B, cap).contiguous(),
+        "pos": p.to(torch.int32)[None, None].expand(Lg, B, cap_local).contiguous(),
     }
 
 
-def _logits(x, params, cfg: ModelConfig, rt: RuntimeConfig):
-    x = norm_apply(x, params["final_norm"], cfg.norm_type)
-    w = params["embed"]["table"].T if cfg.tie_embeddings else params["lm_head"]["w"]
-    return lm_head_logits(x[:, -1], w.to(rt.cdtype))
+def _logits(x, params, cfg: ModelConfig, rt: RuntimeConfig, tp=None):
+    return _head(x, params, cfg, rt.cdtype, tp, last=True)
 
 
 def prefill(params: Tree, batch: dict, cfg: ModelConfig, rt: RuntimeConfig, *,
-            target_len: int | None = None):
+            target_len: int | None = None, tp: TPContext | None = None):
     """Full-sequence prefill of ``batch["tokens"]`` (B, S) [and a VLM's
     ``patch_embeds``, an encoder-decoder's ``enc_frames``, encoded once]:
     returns the last-token logits (B, Vp) and the serve cache for
-    ``target_len`` positions (default S)."""
+    ``target_len`` positions (default S).  With ``tp`` the logits are the
+    rank's vocab shard (B, Vp/tp) and the cache its sequence shard."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     target_len = target_len or S
+    _check_ctx(cfg, tp)
+    tps = tp.size if tp is not None else 1
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    x = _embed(tokens, params, cfg, rt.cdtype, positions, batch.get("patch_embeds"))
+    x = _embed(tokens, params, cfg, rt.cdtype, positions, batch.get("patch_embeds"), tp)
     enc_out = _encode(params, batch, cfg, rt) if cfg.arch_kind == "encdec" else None
     x, _, entries = _run_groups(x, params["groups"], cfg, positions, rt, serve=True,
-                                enc_out=enc_out)
+                                enc_out=enc_out, tp=tp)
     del enc_out
     cache: Tree = {}
     for gi, g in enumerate(block_groups(cfg)):
@@ -462,7 +571,7 @@ def prefill(params: Tree, batch: dict, cfg: ModelConfig, rt: RuntimeConfig, *,
         if g.has_attn:
             ks, vs = zip(*(e["kv"] for e in layer_entries))
             c["kv"] = _roll_into_cache(torch.stack(ks), torch.stack(vs),
-                                       _group_capacity(g, target_len))
+                                       _group_capacity(g, target_len, tps), tp)
         for name in ("ssm", "mlstm", "slstm"):
             if name in layer_entries[0]:
                 c[name] = _stack([e[name] for e in layer_entries])
@@ -471,26 +580,30 @@ def prefill(params: Tree, batch: dict, cfg: ModelConfig, rt: RuntimeConfig, *,
             c["cross_kv"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
         cache[f"g{gi}"] = c
         del layer_entries
-    return _logits(x, params, cfg, rt), cache
+    return _logits(x, params, cfg, rt, tp), cache
 
 
 def decode_step(params: Tree, tokens: torch.Tensor, cache: Tree, t, cfg: ModelConfig,
-                rt: RuntimeConfig, *, target_len: int):
+                rt: RuntimeConfig, *, target_len: int, tp: TPContext | None = None):
     """One-token decode.  tokens: (B, 1); ``t``: the new token's absolute
     position, an int or a per-slot (B,) tensor (continuous batching serves
     requests whose timelines are independent).  The cache is updated **in
     place** (the reference donates it): the new kv into its slot, the new
     recurrent state over the old; a decoder layer of the encoder-decoder
-    reads its cached cross k/v.  Returns ``(logits (B, Vp), cache)``."""
+    reads its cached cross k/v.  Returns ``(logits (B, Vp), cache)``; with
+    ``tp`` the logits are the rank's vocab shard and the step split-K."""
     B = tokens.shape[0]
+    _check_ctx(cfg, tp)
+    tps = tp.size if tp is not None else 1
     t = torch.as_tensor(t, device=tokens.device).to(torch.long).expand(B)
-    x = _embed(tokens, params, cfg, rt.cdtype, t[:, None])
+    x = _embed(tokens, params, cfg, rt.cdtype, t[:, None], tp=tp)
     nt = cfg.norm_type
     for gi, g in enumerate(block_groups(cfg)):
         cg = cache[f"g{gi}"]
-        if g.has_attn and cg["kv"]["k"].shape[2] != _group_capacity(g, target_len):
+        want = _group_capacity(g, target_len, tps) // tps
+        if g.has_attn and cg["kv"]["k"].shape[2] != want:
             raise ValueError(f"cache group g{gi} holds {cg['kv']['k'].shape[2]} slots; "
-                             f"target_len {target_len} gives {_group_capacity(g, target_len)}")
+                             f"target_len {target_len} gives {want}")
         for li, lp in enumerate(_layers(params["groups"][f"g{gi}"], g.count)):
             if not g.has_attn:
                 step = (xlstm_mod.mlstm_decode_step if g.kind == "mlstm"
@@ -502,7 +615,7 @@ def decode_step(params: Tree, tokens: torch.Tensor, cache: Tree, t, cfg: ModelCo
             h = norm_apply(x, lp["attn_norm"], nt)
             layer_cache = {n: c[li] for n, c in cg["kv"].items()}
             a, _ = attn.attn_decode_step(h, lp["attn"], layer_cache, cfg, t=t,
-                                         window=g.window, grouped=rt.decode_grouped_gqa)
+                                         window=g.window, grouped=rt.decode_grouped_gqa, tp=tp)
             if g.has_ssm:
                 s = _recurrent_step(ssm_mod.ssm_decode_step, h, lp["ssm"], cg["ssm"], li, cfg)
                 x = x + 0.5 * (a + s)
@@ -517,9 +630,9 @@ def decode_step(params: Tree, tokens: torch.Tensor, cache: Tree, t, cfg: ModelCo
                 if g.kind == "moe":
                     y2, _ = moe_mod.moe_forward(h2, lp["moe"], cfg)
                 else:
-                    y2 = mlp_apply(h2, lp["mlp"], cfg.act)
+                    y2 = mlp_apply(h2, lp["mlp"], cfg.act, tp)
                 x = x + y2
-    return _logits(x, params, cfg, rt), cache
+    return _logits(x, params, cfg, rt, tp), cache
 
 
 def _recurrent_step(step, h, lp, group_state: Tree, li: int, cfg: ModelConfig):

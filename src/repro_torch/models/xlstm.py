@@ -15,8 +15,8 @@ time loop, as the reference computes it.  The reference scans it in
 rematerialized chunks of 256 steps; the port's forward loops over the steps
 (the chunking only bounds the reference's backward memory).
 
-The ``*_specs`` functions (the tensor-parallel layout) come with the
-tensor-parallel slice.
+The ``*_specs`` functions (the tensor-parallel layout) are not ported:
+the xLSTM stack runs at tp = 1 (ROADMAP.md queue 1, item 2).
 """
 
 from __future__ import annotations

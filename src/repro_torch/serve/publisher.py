@@ -1,5 +1,5 @@
 """Consensus-gated weight publication from the training fleet (the port of
-``repro.serve.publisher`` at tensor-parallel degree 1).
+``repro.serve.publisher``).
 
 The decentralized average — not any single node's iterate — is the model
 you ship; what makes a *node's* iterate an acceptable stand-in is a tight
@@ -30,6 +30,13 @@ Publication is a double-buffered, versioned plane-snapshot handoff:
 
 On a host with CUDA the buffers are pinned, so the copies to and from the
 card run at the link's rate.
+
+Snapshots are always in the global (rank-free) plane form: with a sharded
+training layout (tp > 1) a plane-form source is the stacked shard planes
+``(tp * rows, LANES)`` (:meth:`PlaneLayout.pack_global`), joined into the
+global tree through the training layout and packed into the snapshot
+layout (the shard row maps differ from the global ones, so a per-bucket
+copy would interleave the shards).
 """
 
 from __future__ import annotations
@@ -94,6 +101,7 @@ class WeightPublisher:
         gap_threshold: int = 0,
         check_consistency: bool = False,
     ):
+        self.train_layout = layout
         self.layout = layout.global_layout()
         self.gap_threshold = int(gap_threshold)
         self.check_consistency = bool(check_consistency)
@@ -158,7 +166,10 @@ class WeightPublisher:
             buf = {key: torch.zeros(shape, dtype=dt, pin_memory=pin)
                    for key, (shape, dt) in layout.plane_shapes().items()}
             self._bufs[self._standby] = buf
-        if self._is_plane_dict(source):
+        if self._is_plane_dict(source) and self.train_layout.tp > 1:
+            layout.host_pack(self.train_layout.unpack_global(
+                {k: v.detach().cpu() for k, v in source.items()}), out=buf)
+        elif self._is_plane_dict(source):
             # the flat-plane training parameters: one copy per dtype bucket
             for key, dst in buf.items():
                 src = source[key]

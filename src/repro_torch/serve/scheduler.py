@@ -1,5 +1,6 @@
 """Continuous-batching request scheduler over the serve step builders (the
-port of ``repro.serve.scheduler`` on one device).
+port of ``repro.serve.scheduler``), on one device or on a ``(nodes x tp)``
+grid of ranks.
 
 A request queue feeds a fixed set of in-flight **decode slots**; each
 engine tick admits waiting requests into free slots (one right-padded
@@ -35,6 +36,18 @@ those device planes; every later prefill and decode runs on them.
 In-flight requests continue on the new weights, the standard
 continuous-batching trade (the KV cache stays valid: the architecture is
 fixed).
+
+On a grid (``grid=``) every rank runs an engine with the same requests
+and the same schedule: each holds its serving shard of the weights and its
+shard of the cache (its node's slots when the node count divides the slot
+count, the reference's batch split), and every decode batch's logits are
+all-gathered (vocab over the model group, rows over the nodes) before the
+greedy pick.  So every rank picks the same tokens from the same bits, and
+admission and retirement, which read only those tokens and the request
+queue, agree on every rank: no rank decides alone.  A publisher's
+snapshots must be offered alike on every rank; they are global, and each
+swap packs the rank's shard of one on the host (its own pinned planes) and
+copies only that to the device.
 """
 
 from __future__ import annotations
@@ -49,9 +62,10 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..core.planes import PlaneLayout
 from ..models import transformer as T
 from ..train import serve as serve_mod
-from ..utils import resolve_device, tree_leaves, tree_map
+from ..utils import resolve_device, shard, tree_leaves, tree_map
 from .publisher import WeightPublisher
 from .sampling import greedy_token
 
@@ -95,6 +109,11 @@ class ServeEngine:
     token its row yields)``; it observes and changes nothing.  Instead of
     ``params`` the engine may take a ``publisher`` and serve its newest
     snapshot, swapped in between decode batches; one of the two is required.
+    With ``grid`` (a :class:`~repro_torch.launch.mesh.Grid`) the engine is
+    one rank's part of the grid's engine (module docstring): ``params`` and
+    the snapshots are global trees, of which it keeps its serving shard;
+    ``timing`` makes the steps' TP counters (``prefill_step.tp``,
+    ``decode_step.tp``) hold the collectives alone.
     """
 
     def __init__(self, cfg: ModelConfig, *, slots: int, max_prompt: int, max_new: int,
@@ -102,7 +121,7 @@ class ServeEngine:
                  runtime: T.RuntimeConfig | None = None,
                  eos_id: int | None = None, device=None,
                  on_logits: Callable[[torch.Tensor, dict[int, tuple[int, int]]], None]
-                 | None = None):
+                 | None = None, grid=None, timing: bool = False):
         if cfg.arch_kind == "encdec":
             # as repro's engine: requests carry token prompts only
             raise NotImplementedError(
@@ -119,17 +138,32 @@ class ServeEngine:
         self.on_logits = on_logits
         target_len = self.max_prompt + self.max_new
         scfg = serve_mod.ServeConfig(runtime=rt, target_len=target_len)
-        self.prefill_step = serve_mod.build_prefill_step(cfg, scfg)
+        self.grid = grid
+        self.prefill_step = serve_mod.build_prefill_step(cfg, scfg, grid,
+                                                         global_batch=self.slots, timing=timing)
         self.decode_step = serve_mod.build_decode_step(
-            cfg, scfg, target_len=target_len, per_slot_t=True
+            cfg, scfg, grid, target_len=target_len, per_slot_t=True, global_batch=self.slots,
+            timing=timing,
         )
+        self._rows = None  # this node's slots, when the slots split over the nodes
+        if grid is not None and grid.nodes > 1 and serve_mod.batch_splits(self.slots,
+                                                                          grid.nodes):
+            b = self.slots // grid.nodes
+            self._rows = (grid.node.rank * b, (grid.node.rank + 1) * b)
         if publisher is None and params is None:
             raise ValueError("pass a publisher or an initial params tree")
         self._publisher = publisher
         self._params: Tree | None = None
         self.version: int | None = None
+        # at tp > 1 this rank's serving shard in plane form: its layout and
+        # pinned host planes, which each swap packs from the snapshot
+        self._shard_layout: PlaneLayout | None = None
+        self._shard_host: dict | None = None
         if params is not None:
-            self._params = tree_map(lambda x: x.to(self.device), params)
+            # at tp > 1 each leaf is copied out of the global tree: the rank
+            # keeps its shard, not views that keep the whole model alive
+            own = grid is not None and grid.tp > 1
+            self._params = tree_map(lambda x: x.to(self.device, copy=own), self._shard(params))
         self._cache: Tree | None = None
 
         # per-slot bookkeeping (host side)
@@ -213,6 +247,13 @@ class ServeEngine:
 
     # -- internals ----------------------------------------------------------
 
+    def _shard(self, params: Tree) -> Tree:
+        """This rank's serving shard of a global tree (itself at tp = 1)."""
+        if self.grid is None or self.grid.tp == 1:
+            return params
+        axes = serve_mod.serve_specs(self.cfg, self.grid, global_batch=self.slots)[0]
+        return shard(params, axes, self.grid.tp, self.grid.model.rank)
+
     def _maybe_swap(self) -> None:
         """Snapshot-swap point (between decode batches, never inside one)."""
         if self._publisher is None:
@@ -223,15 +264,34 @@ class ServeEngine:
         t0 = time.perf_counter()
         # one copy per dtype bucket off the publisher's host buffers (a copy
         # also on the CPU: the writer rewrites them two publishes later),
-        # then the parameters as views of the device planes
-        planes = {k: v.to(self.device, copy=True) for k, v in snap.planes.items()}
+        # then the parameters as views of the device planes; at tp > 1 the
+        # buffers are this rank's shard, packed on the host first, so that
+        # only the shard reaches the device
+        layout, host = self._publisher.layout, snap.planes
+        if self.grid is not None and self.grid.tp > 1:
+            layout, host = self._pack_shard(snap.params)
+        planes = {k: v.to(self.device, copy=True) for k, v in host.items()}
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.swap_stall_s += time.perf_counter() - t0
         if self.version is not None:
             self.swaps += 1
-        self._params = self._publisher.layout.view_unpack(planes)
+        self._params = layout.view_unpack(planes)
         self.version = snap.version
+
+    def _pack_shard(self, params: Tree) -> tuple[PlaneLayout, dict]:
+        """This rank's serving shard of a snapshot's global ``params`` packed
+        into its pinned host planes: ``(its layout, the planes)``."""
+        if self._shard_layout is None:
+            axes = serve_mod.serve_specs(self.cfg, self.grid, global_batch=self.slots)[0]
+            self._shard_layout = PlaneLayout.build(self._publisher.layout.global_template(),
+                                                   tp=self.grid.tp, shardings=axes)
+            pin = self.device.type == "cuda"
+            self._shard_host = {k: torch.zeros(shape, dtype=dt, pin_memory=pin) for k, (shape, dt)
+                                in self._shard_layout.plane_shapes().items()}
+        layout = self._shard_layout
+        layout.host_pack(layout.shard_slice(params, self.grid.model.rank), out=self._shard_host)
+        return layout, self._shard_host
 
     def _admit(self) -> None:
         free = [i for i in range(self.slots) if not self._active[i]]
@@ -261,7 +321,11 @@ class ServeEngine:
         else:
             # keep the old per-slot cache except where admitted; every cache
             # leaf is layer-stacked (Lg, B, ...) with the batch at axis 1
-            idx = torch.from_numpy(np.flatnonzero(admit)).to(self.device)
+            sel = np.flatnonzero(admit)
+            if self._rows is not None:  # this node's slots only
+                lo, hi = self._rows
+                sel = sel[(sel >= lo) & (sel < hi)] - lo
+            idx = torch.from_numpy(sel).to(self.device)
             for old, new in zip(tree_leaves(self._cache), tree_leaves(new_cache)):
                 old[:, idx] = new[:, idx]
         self._active |= admit
@@ -270,6 +334,7 @@ class ServeEngine:
         tokens = torch.from_numpy(self._feed[:, None].copy()).to(self.device)
         t = torch.from_numpy(np.where(self._active, self._t, 0).astype(np.int32))
         logits, self._cache = self.decode_step(self._params, tokens, self._cache, t)
+        logits = serve_mod.gather_logits(logits, self.grid, global_batch=self.slots)
         self.decode_batches += 1
         if self.on_logits is not None:
             self.on_logits(logits, {i: (self._slot_req[i].rid, len(self._slot_gen[i]))

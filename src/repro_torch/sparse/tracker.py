@@ -123,7 +123,8 @@ class RowTracker:
                 kind, name, nu = by_index[seg.index]
                 if getattr(seg, "shard_axis", None) is not None:
                     raise NotImplementedError(
-                        "sharded plane layouts come with tensor parallelism")
+                        "the row tracker on the sharded plane layouts of tensor parallelism "
+                        "(tp > 1) is not ported (ROADMAP.md queue 1, item 2)")
                 units = int(np.prod(seg.shape[:nu])) if seg.shape[:nu] else 1
                 unit_size = max(1, int(np.prod(seg.shape[nu:])))
                 starts, ends1 = _unit_intervals(seg.rows, units, unit_size)
@@ -183,8 +184,8 @@ class RowTracker:
         the result to ``channel.mark``."""
         if shard_rank is not None:
             raise NotImplementedError(
-                "step_masks(shard_rank=...) is for sharded layouts, which come with tensor "
-                "parallelism")
+                "step_masks(shard_rank=...) is for the sharded layouts of tensor parallelism "
+                "(tp > 1), not ported (ROADMAP.md queue 1, item 2)")
         if device is None:
             first = next((v for v in units.values() if isinstance(v, torch.Tensor)), None)
             device = first.device if first is not None else torch.device("cpu")

@@ -44,8 +44,22 @@ or ``allgather``, delayed when asked), means through ``make_psum_mean``
 (pmsgd, slowmo), and reduces its metrics over the ranks: the loss is the
 mean over nodes, ``gossip_gap`` the fleet maximum, the consensus distance
 ``(1/n) sum_i ||x_i - x_bar||^2`` from two ``all_reduce`` sums.  The stage
-kernel launches on the rank's own node (a node axis of 1).  Tensor
-parallelism (tp > 1) raises: it waits for ROADMAP queue 1, item 2.
+kernel launches on the rank's own node (a node axis of 1).
+
+Tensor parallelism: on a ``(nodes x tp)`` grid
+(:class:`~repro_torch.launch.mesh.Grid`) each rank holds its model rank's
+shard of its node, takes the gradient through the model group's
+collectives (:mod:`repro_torch.models.layers`: every leaf's gradient, joined
+over the group, is its tp = 1 gradient, replicated leaves whole on every
+rank), and gossips its shard over its node group, one model column at a
+time.  The node's scalars sum over the model group: the clip and LARS
+norms (a sharded leaf's squared norm summed, a replicated one counted
+once), the finite guard's squared gradient norm, and the loss, which the
+sharded cross entropy already sums; the consensus metric is the mean over
+the model group of each column's, as the reference's.  On flat planes the
+stage kernel runs on the rank's local planes, unchanged: the same launches
+per rank and step as at tp = 1.  Sparse gossip at tp > 1 raises, as the
+reference's does.
 
 Row-sparse gossip (``sparse_gossip``, :mod:`repro_torch.sparse`) runs on the
 distributed step with ``ppermute`` on flat planes, as the reference's: the
@@ -88,6 +102,7 @@ from ..core.topology import build_topology
 from ..core.update_spec import node_grad_scalars, run_update, update_spec
 from ..kernels.fused_update import make_plane_stage, make_stage
 from ..models import transformer as T
+from ..models.layers import TPContext
 from ..utils import tree_leaves, tree_unflatten
 from .train_state import model_plane_layout
 
@@ -222,7 +237,7 @@ def build_dist_channel(tcfg: TrainConfig, topology, group,
 
 def _node_grads(params: Tree, batch: dict, cfg: ModelConfig, n_nodes: int, out=None,
                 rt: T.RuntimeConfig = T.RuntimeConfig(dtype="float32"), accum: int = 1,
-                row_info: list | None = None):
+                row_info: list | None = None, tp: TPContext | None = None):
     """Per-node loss and gradient, one node at a time, into a stacked f32
     gradient tree (``out``'s leaves where given: the views of a gradient
     plane).  With ``accum`` > 1 each node's rows split into ``accum``
@@ -251,7 +266,8 @@ def _node_grads(params: Tree, batch: dict, cfg: ModelConfig, n_nodes: int, out=N
             lo = i * b + j * mb
             batch_j = {k: v[lo:lo + mb] for k, v in batch.items()}
             loss, metrics = T.forward_loss(params_i, batch_j, cfg, rt,
-                                           collect_rows=row_info is not None)
+                                           collect_rows=row_info is not None,
+                                           **({} if tp is None else {"tp": tp}))
             hits = metrics.pop("_row_info", None)
             if hits is not None:
                 hits_i = hits if j == 0 else {k: hits_i[k] + v for k, v in hits.items()}
@@ -292,15 +308,26 @@ def _consensus_sq(x: Tree, n_nodes: int) -> torch.Tensor:
     return total
 
 
-def _node_grad_norms(grads: Tree, n_nodes: int) -> torch.Tensor:
+def _node_grad_norms(grads: Tree, n_nodes: int, tp: TPContext | None = None,
+                     replicated: list | None = None) -> torch.Tensor:
     """(n,) f32 global gradient norm per node (of a stacked tree or of
     stacked planes, whose zero pads add nothing).  Float32 accumulation of
     the squares, so it is non-finite exactly when the reference's sum of
-    squares is."""
+    squares is.  With a model group, the squares sum over it, less the
+    ``replicated`` leaves' (views of the rank's gradient) on every model
+    rank but 0, so that each is counted once and every rank of a node
+    decides alike."""
     per_leaf = [
         torch.linalg.vector_norm(gl.reshape(n_nodes, -1), dim=1) for gl in tree_leaves(grads)
     ]
-    return torch.linalg.vector_norm(torch.stack(per_leaf, dim=1), dim=1)
+    norms = torch.linalg.vector_norm(torch.stack(per_leaf, dim=1), dim=1)
+    if tp is None or not tp.enabled:
+        return norms
+    sq = torch.square(norms)
+    if tp.index and replicated:
+        sq = sq - torch.stack([torch.sum(torch.square(gl.reshape(n_nodes, -1).to(torch.float32)),
+                                         dim=1) for gl in replicated]).sum(0)
+    return torch.sqrt(tp.all_reduce(sq))
 
 
 class _Stacked:
@@ -324,10 +351,11 @@ class _Stacked:
 
 class _Ranks:
     """The fleet of the distributed step: this process is node ``group.rank``
-    of ``group.world``; metrics reduce over the ranks."""
+    of ``group.world``; metrics reduce over the ranks (``tp``: the node's
+    model group, over which the consensus metric is averaged)."""
 
-    def __init__(self, group):
-        self.group, self.n = group, group.world
+    def __init__(self, group, tp: TPContext | None = None):
+        self.group, self.n, self.tp = group, group.world, tp
         self._wire = _Wire(group)
 
     def rows(self, batch: dict) -> dict:
@@ -348,21 +376,30 @@ class _Ranks:
 
     def consensus(self, x: Tree) -> torch.Tensor:
         """``repro``'s ``_consensus_metric``: per leaf the mean over the
-        ranks, then the sum over the ranks of the squared distance, over n."""
-        total = torch.zeros((), dtype=torch.float32)
+        ranks, then the sum over the ranks of the squared distance, over n;
+        at tp > 1 each model rank's sum over its shard (replicated leaves
+        whole), then the mean over the model group (``pmean``).  On the
+        host."""
+        comm = self.group.comm_device
+        total = torch.zeros((), dtype=torch.float32, device=comm)
         for leaf in tree_leaves(x):
             xf = leaf.to(torch.float32)
             xb = self._wire.all_reduce_(xf.clone().view(-1)).view(xf.shape) / self.n
-            sq = torch.sum((xf - xb) ** 2).reshape(1).to(self.group.comm_device)
+            sq = torch.sum((xf - xb) ** 2).reshape(1).to(comm)
             dist.all_reduce(sq, group=self.group.pg)
-            total = total + sq[0].cpu() / self.n
-        return total
+            total = total + sq[0] / self.n
+        if self.tp is not None and self.tp.enabled:
+            # on the model group's own device (NCCL takes no host tensor)
+            total = self.tp.all_reduce(total.to(self.tp.group.comm_device)) / self.tp.size
+        return total.cpu()
 
 
-def _step_fn(cfg: ModelConfig, tcfg: TrainConfig, fleet, channel: GossipChannel, mean):
+def _step_fn(cfg: ModelConfig, tcfg: TrainConfig, fleet, channel: GossipChannel, mean,
+             tp: TPContext | None = None):
     """The step body shared by the stacked and the distributed step; the
     ``fleet`` says which rows this process trains on and how its metrics
-    reduce.  Every leaf here has a node axis of the nodes in this process."""
+    reduce, ``tp`` is the node's model group (None: tp = 1).  Every leaf
+    here has a node axis of the nodes in this process."""
     ocfg = tcfg.opt_config()
     opt = make_optimizer(ocfg)
     spec = update_spec(ocfg)
@@ -371,8 +408,18 @@ def _step_fn(cfg: ModelConfig, tcfg: TrainConfig, fleet, channel: GossipChannel,
         raise ValueError(f"grad_accum must be >= 1, got {tcfg.grad_accum}")
     n_local = 1 if isinstance(fleet, _Ranks) else fleet.n
     rt = tcfg.runtime
+    tps = tp.size if tp is not None else 1
+    layout = model_plane_layout(cfg, tps) if tcfg.flat_planes or tps > 1 else None
+    if tps > 1:
+        if tcfg.sparse_gossip:
+            raise NotImplementedError(
+                "sparse_gossip at tp > 1 is refused, as the reference refuses it: per-rank "
+                "dirty masks make the volume telemetry vary over the model group; use dense "
+                "gossip at tp > 1 (ROADMAP.md queue 1, item 2)")
+        sharded = [a is not None for a in tree_leaves(layout.shard_axes())]
+    else:
+        sharded = None
     if tcfg.flat_planes:
-        layout = model_plane_layout(cfg)
         stage = make_plane_stage(tcfg.fused_impl if tcfg.fused_update else "torch",
                                  inplace=True)
     else:
@@ -409,14 +456,17 @@ def _step_fn(cfg: ModelConfig, tcfg: TrainConfig, fleet, channel: GossipChannel,
             layout.zero_pads(g_planes, leading=1)
             grads, per_node = _node_grads(params, batch, cfg, n_local,
                                           layout.view_unpack(g_planes, leading=1), rt,
-                                          tcfg.grad_accum, row_info)
+                                          tcfg.grad_accum, row_info, tp)
         else:
             grads, per_node = _node_grads(params, batch, cfg, n_local, None, rt,
-                                          tcfg.grad_accum)
+                                          tcfg.grad_accum, None, tp)
 
         bad, saved = None, None
         if tcfg.finite_guard:
-            norms = _node_grad_norms(g_planes if planes is not None else grads, n_local)
+            replicated = (None if sharded is None else
+                          [g for g, sh in zip(tree_leaves(grads), sharded) if not sh])
+            norms = _node_grad_norms(g_planes if planes is not None else grads, n_local, tp,
+                                     replicated)
             bad = torch.nonzero(~torch.isfinite(norms)).reshape(-1)  # one host sync per step
         if bad is not None and bad.numel():
             for gl in tree_leaves(g_planes if planes is not None else grads):
@@ -434,7 +484,7 @@ def _step_fn(cfg: ModelConfig, tcfg: TrainConfig, fleet, channel: GossipChannel,
                 spec, ocfg, x=planes, g=g_planes, state=opt_state, lr=lr,
                 step_idx=step_idx, gossip=channel, mean=mean,
                 comp_state=comp_state, stage=stage,
-                scalars=plane_scalars(ocfg, layout, params, grads, stacked=True),
+                scalars=plane_scalars(ocfg, layout, params, grads, stacked=True, tp=tp),
             )
             for k, p in planes.items():
                 if new_x[k] is not p:
@@ -450,13 +500,13 @@ def _step_fn(cfg: ModelConfig, tcfg: TrainConfig, fleet, channel: GossipChannel,
                 spec, ocfg, x=params, g=grads, state=opt_state, lr=lr,
                 step_idx=step_idx, gossip=channel, mean=mean,
                 comp_state=comp_state, stage=stage,
-                scalars=node_grad_scalars(ocfg, params, grads),
+                scalars=node_grad_scalars(ocfg, params, grads, tp=tp, sharded=sharded),
             )
         else:
             new_params, new_opt, comp = opt.step(
                 params, grads, opt_state, lr=lr, step_idx=step_idx,
                 gossip=channel, mean=mean, comp_state=comp_state,
-                scalars=node_grad_scalars(ocfg, params, grads),
+                scalars=node_grad_scalars(ocfg, params, grads, tp=tp, sharded=sharded),
             )
         del grads, g_planes
         if saved is not None:
@@ -522,20 +572,32 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig, n_nodes: int):
 
 def build_dist_train_step(cfg: ModelConfig, tcfg: TrainConfig, group, *, tp: int = 1):
     """Returns ``(train_step, channel)`` for this rank of the node ``group``
-    (``repro.train.step.build_train_step`` at tp = 1).
+    (``repro.train.step.build_train_step``), or of a ``(nodes x tp)`` grid
+    (``group`` a :class:`~repro_torch.launch.mesh.Grid`, whose tp is used).
 
     ``train_step(state, batch) -> (state, metrics)``: ``state`` is this
     rank's state (:func:`~repro_torch.train.train_state.init_train_state`
     with one node, or a scattered one), updated in place on the fused path;
     ``batch`` is the global batch of ``group.world * b`` rows, of which the
     rank takes ``[rank * b, (rank + 1) * b)``.  Every rank calls it at every
-    step.  The channel is :func:`build_dist_channel`'s."""
-    if tp != 1:
-        raise NotImplementedError(
-            f"tensor parallelism (tp={tp}) is not ported yet (ROADMAP queue 1, item 2)")
+    step (on a grid, the batch is the node's: every model rank of a node
+    takes the same rows).  The channel is :func:`build_dist_channel`'s,
+    over the node group.  The step's ``tp`` attribute is its model group's
+    :class:`~repro_torch.models.layers.TPContext` (None at tp = 1)."""
+    from ..launch.mesh import Grid
+
+    ctx = None
+    if isinstance(group, Grid):
+        grid, tp = group, group.tp
+        group = grid.node
+        T.check_tp(cfg, tp)
+        ctx = TPContext(grid.model) if tp > 1 else None
+    elif tp != 1:
+        raise ValueError(f"tp={tp} needs a Grid (launch.mesh.init_grid), not a NodeGroup")
     n = group.world
     topology = _topology(tcfg, n)
     channel = build_dist_channel(tcfg, topology, group,
                                  make_optimizer(tcfg.opt_config()).gossips_per_step)
-    step = _step_fn(cfg, tcfg, _Ranks(group), channel, make_psum_mean(group, n))
+    step = _step_fn(cfg, tcfg, _Ranks(group, ctx), channel, make_psum_mean(group, n), ctx)
+    step.tp = ctx
     return step, channel

@@ -29,6 +29,19 @@ along that axis on rank 0 — the global state a checkpoint holds, with the
 distributed channels' state in ``repro``'s trainer layout (ring slots
 ``(n, ring, ...)``, a ``count`` and telemetry per node) — and
 :func:`scatter_state` is its inverse.
+
+Tensor parallelism: on a ``(nodes x tp)`` grid each rank holds its model
+rank's shard of its node (:func:`init_train_state` with ``tp_index``, its
+planes the local planes of :func:`model_plane_layout` at that tp).
+:func:`gather_grid_state` joins the shards into the global state a
+checkpoint holds, the reference's: global parameter trees and plane-form
+optimizer buckets as stacked shard planes ``(n, tp * rows, LANES)``;
+:func:`scatter_grid_state` cuts a global state back into each rank's part,
+converting the optimizer buckets from the layout the checkpoint was
+written with (the manifest's ``plane_tp``), so a checkpoint written at one
+tp resumes at another wherever both pad the model alike.  The channel
+state stays behind at tp > 1 (ring buffers of local payloads): a resume
+re-initializes it.
 """
 
 from __future__ import annotations
@@ -43,19 +56,25 @@ from ..core.gossip import GossipChannel
 from ..core.optimizers import Optimizer
 from ..core.planes import PlaneLayout
 from ..models import transformer as T
-from ..utils import tree_leaves, tree_map, tree_paths, tree_unflatten
+from ..utils import shard, tree_leaves, tree_map, tree_paths, tree_unflatten, unshard
 
 Tree = Any
 
 __all__ = ["init_train_state", "model_plane_layout", "ensure_channel_state",
-           "reconcile_plane_state", "gather_state", "scatter_state"]
+           "reconcile_plane_state", "global_tree_state", "gather_state", "scatter_state",
+           "gather_grid_state", "scatter_grid_state"]
 
 
-def model_plane_layout(cfg: ModelConfig) -> PlaneLayout:
-    """The flat-plane layout of this model's per-node parameter tree (tp = 1;
-    from meta tensors, no allocation).  The step, the state initializer and
-    the publisher must all derive it from the same template."""
-    return PlaneLayout.build(T.init_params(cfg, torch.Generator(), device="meta"))
+def model_plane_layout(cfg: ModelConfig, tp: int = 1) -> PlaneLayout:
+    """The flat-plane layout of this model's per-node parameter tree (from
+    meta tensors, no allocation); at ``tp > 1`` one model rank's local
+    layout, sharded along :func:`~repro_torch.models.transformer.
+    param_shard_axes`.  The step, the state initializer and the publisher
+    must all derive it from the same template."""
+    template = T.init_params(cfg, torch.Generator(), device="meta", tp=tp)
+    if tp == 1:
+        return PlaneLayout.build(template)
+    return PlaneLayout.build(template, tp=tp, shardings=T.param_shard_axes(cfg, tp))
 
 
 def init_train_state(
@@ -67,6 +86,8 @@ def init_train_state(
     seed: int = 0,
     channel: GossipChannel | None = None,
     plane_layout: PlaneLayout | None = None,
+    tp: int = 1,
+    tp_index: int = 0,
 ) -> Tree:
     """One init, copied to every node (as ``repro``'s ``make_train_state_fn``
     broadcasts it).  The copies are real (``repeat``), not an ``expand``:
@@ -74,9 +95,14 @@ def init_train_state(
     place.  With ``plane_layout`` the state is in plane form (module
     docstring): ``opt.init`` and ``channel.init`` of the f32 planes give the
     reference's packed optimizer and channel state, since every initial
-    bucket is zeros or a copy of the parameters and pads stay zero."""
+    bucket is zeros or a copy of the parameters and pads stay zero.  At
+    ``tp > 1`` the state is model rank ``tp_index``'s shard of the global
+    init (a sharded ``plane_layout`` must have the same tp)."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    params = T.init_params(cfg, gen)
+    params = T.init_params(cfg, gen, tp=tp)
+    if tp > 1:
+        params = tree_map(lambda x: x.clone(memory_format=torch.contiguous_format),
+                          shard(params, T.param_shard_axes(cfg, tp), tp, tp_index))
     if plane_layout is not None:
         one = plane_layout.pack(params)
         del params
@@ -208,8 +234,36 @@ def _ensure(abstract: dict, old: dict, device) -> dict:
     return merged
 
 
+def global_tree_state(host: Tree, stored_layout: PlaneLayout,
+                      current_layout: PlaneLayout) -> Tree:
+    """A restored global state whose plane-form optimizer buckets were
+    written at another tp (``stored_layout``, rebuilt from the manifest's
+    ``plane_tp``) with those buckets in global tree form (``unpack_global``),
+    so that any layout can take them; the state itself where the tp agree.
+    The global parameters must have the current layout's global shapes:
+    tp-dependent padding (``vocab_padded``, ``n_heads_padded``) that differs
+    between the two tp raises."""
+    if stored_layout.tp == current_layout.tp:
+        return host
+    want = [tuple(t.shape) for t in tree_leaves(current_layout.global_template())]
+    have = [tuple(t.shape[1:]) for t in tree_leaves(host["params"])]
+    if want != have:
+        raise ValueError(
+            f"the checkpoint was written at tp={stored_layout.tp} and its global leaves "
+            f"differ from tp={current_layout.tp}'s: tp-dependent padding (vocab_padded / "
+            "n_heads_padded) differs between the two tp, so the state is not convertible")
+    buckets = set(stored_layout.segments)
+    opt = {k: stored_layout.unpack_global(v, dtype=torch.float32, leading=1)
+           if isinstance(v, dict) and set(v) == buckets else v
+           for k, v in host.get("opt", {}).items()}
+    return {**host, "opt": opt}
+
+
 def reconcile_plane_state(state: Tree, plane_layout: PlaneLayout, flat_planes: bool) -> Tree:
-    """Bring a restored state into the form this run keeps (tp = 1).
+    """Bring a restored state into the form this run keeps (its parameters
+    and optimizer buckets in ``plane_layout``'s local form: one rank's shard
+    at tp > 1; a checkpoint written at another tp goes through
+    :func:`global_tree_state` first).
 
     Each optimizer bucket converts between tree and plane form
     (``repro.train.train_state.reconcile_plane_state``): a plane-form bucket
@@ -313,4 +367,69 @@ def scatter_state(host: Tree | None, group) -> Tree:
         _set_path(out, path, mine.cpu())
     out.setdefault("opt", {})
     out.setdefault("channel", {})
+    return out
+
+
+def _model_shards(tree: Tree, n: int, tp: int) -> list:
+    """A tree of ``(n * tp, ...)`` rank slices -> ``tp`` trees of ``(n,
+    ...)`` nodes, one per model index."""
+    return [tree_map(lambda x: x.reshape((n, tp) + tuple(x.shape[1:]))[:, m], tree)
+            for m in range(tp)]
+
+
+def gather_grid_state(state: Tree, grid, layout: PlaneLayout) -> Tree | None:
+    """The global state on rank 0 of the grid (None elsewhere): at tp = 1
+    :func:`gather_state` over the node group; at tp > 1 the global parameter
+    trees and optimizer buckets (plane-form ones as stacked shard planes,
+    ``(n, tp * rows, LANES)``), without the channel state (module
+    docstring).  ``layout`` is the run's (local) plane layout, whose shard
+    axes say how each leaf joins.  Every rank calls it."""
+    if grid.tp == 1:
+        return gather_state(state, grid.node)
+    host = gather_state({k: v for k, v in state.items() if k != "channel"}, grid.world)
+    if host is None:
+        return None
+    n, tp, axes = grid.nodes, grid.tp, layout.shard_axes()
+    buckets = set(layout.segments)
+
+    def join(tree, ax):
+        return tree_map(torch.Tensor.contiguous,
+                        unshard(_model_shards(tree, n, tp), ax, leading=1))
+
+    out = {"step": host["step"], "params": join(host["params"], axes), "opt": {}}
+    for k, v in host.get("opt", {}).items():
+        out["opt"][k] = join(v, {b: 0 for b in v} if set(v) == buckets else axes)
+    return out
+
+
+def scatter_grid_state(host: Tree | None, grid, layout: PlaneLayout,
+                       stored_layout: PlaneLayout | None = None) -> Tree:
+    """This rank's part of a global state held on rank 0 of the grid (None
+    elsewhere; its node axis must be the grid's node count), on the host:
+    at tp = 1 :func:`scatter_state` over the node group; at tp > 1 its
+    node's shard of the parameters and of the optimizer buckets, these in
+    tree form (``reconcile_plane_state`` then packs them), and no channel
+    state.  ``stored_layout`` is the layout the checkpoint was written with
+    (default: ``layout``'s tp).  Every rank calls it."""
+    if grid.tp == 1 and (stored_layout is None or stored_layout.tp == 1):
+        return scatter_state(host, grid.node)
+    world = None
+    if grid.world.rank == 0:
+        host = global_tree_state(host, stored_layout or layout, layout)
+        glob = layout.global_layout()
+        buckets = set(layout.segments)
+
+        def per_rank(tree):
+            tree = _as_template(glob.template, tree)
+            parts = [layout.shard_slice(tree_map(lambda x: x[i:i + 1], tree), m, leading=1)
+                     for i in range(grid.nodes) for m in range(grid.tp)]
+            return tree_map(lambda *xs: torch.cat(xs), *parts)
+
+        # plane-form buckets left are in the current layout's stacked form
+        opt = {k: per_rank(layout.unpack_global(v, dtype=torch.float32, leading=1)
+                           if isinstance(v, dict) and set(v) == buckets else v)
+               for k, v in host.get("opt", {}).items()}
+        world = {"step": host["step"], "params": per_rank(host["params"]), "opt": opt}
+    out = scatter_state(world, grid.world)
+    out["channel"] = {}
     return out

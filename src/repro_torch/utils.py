@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
 Tree = Any
@@ -19,6 +20,8 @@ __all__ = [
     "tree_paths",
     "tree_map",
     "tree_unflatten",
+    "shard",
+    "unshard",
     "resolve_device",
 ]
 
@@ -65,6 +68,36 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
     if not _is_node(tree):
         return fn(tree, *rest)
     return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+
+
+def _cut(x, axis: int, tp: int, index: int):
+    n = x.shape[axis]
+    if n % tp:
+        raise ValueError(f"axis {axis} of {tuple(x.shape)} is not divisible by tp={tp}")
+    size = n // tp
+    return x[(slice(None),) * axis + (slice(index * size, (index + 1) * size),)]
+
+
+def shard(tree: Tree, axes: Tree, tp: int, index: int, *, leading: int = 0) -> Tree:
+    """Model rank ``index``'s shard of the global ``tree`` (numpy arrays or
+    tensors; views): each leaf whose entry in ``axes`` is an int is cut
+    along that axis (counted after ``leading`` axes), the others pass whole."""
+    return tree_map(lambda x, ax: x if ax is None else _cut(x, ax + leading, tp, index),
+                    tree, axes)
+
+
+def unshard(shards: list, axes: Tree, *, leading: int = 0) -> Tree:
+    """The global tree of the model ranks' ``shards`` (by index): sharded
+    leaves concatenated along their axis, replicated ones rank 0's."""
+
+    def join(ax, *xs):
+        if ax is None:
+            return xs[0]
+        if isinstance(xs[0], np.ndarray):
+            return np.concatenate(xs, axis=ax + leading)
+        return torch.cat(xs, dim=ax + leading)
+
+    return tree_map(join, axes, *shards)
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
