@@ -116,7 +116,7 @@ result line):
     and optimizer state: --gossip-delay 0 == no delay, decentlam-sa at gap 0
     == decentlam, flat planes == per leaf at delay 1;
 20. checkpoint and resume at full width with the vocabulary cut to
-    ``CHECK_VOCAB`` (as in phases 22, 23's checkpoint half and 32), 2
+    ``CHECK_VOCAB`` (as in phases 22, 23 and 32), 2
     layers, 2 nodes, delay 1 and
     int8-row-ef on planes: a resumed run == an unbroken one bit for bit,
     channel state included; the step-2 checkpoint resumed without
@@ -141,8 +141,9 @@ result line):
 23. checkpoint, resume and the drill, 2 layers, decentlam-sa at delay 1 on
     planes: on 2 ranks (the vocabulary cut) a resumed run == an unbroken one bit
     for bit on every rank, the ring included; GB, save and restore seconds;
-    on 4 ranks at full width through the CLI ``--failure-drill`` 4 -> 2 with finite losses, the survivors' state ==
-    ``elastic_reshape`` of the gathered state bit for bit (files under
+    on 4 ranks at full width (the vocabulary cut too) through the CLI's rank
+    body with ``--failure-drill`` 4 -> 2: finite losses, the survivors'
+    state == ``elastic_reshape`` of the gathered state bit for bit (files under
     ``build/dist_smoke``, removed after).  Every spawned group has a
     deadline: a hung rank fails the phase;
 24. the MoE training main path: one MoE layer's forward and backward with
@@ -237,7 +238,17 @@ result line):
     and staged bytes per step, peak memory;
 35. ``--simulate-nodes 2 --serve-while-training`` at 4 layers (the
     vocabulary cut): every shipped snapshot == node 0's parameters bit for
-    bit, every request served.
+    bit, every request served;
+36. the cost stack (``repro_torch.launch``, ``repro_torch.sim.wallclock``):
+    the cost model over one of phase 15's steps (product FLOPs within 2 % of
+    the shapes' formula, stage units == the launch counter's 2, the roofline
+    terms at the f32 peak, MODEL_FLOPS' share of it in phase 15's step) and
+    over one prefill wave of phase 7's engine (28 flash units == 28
+    launches, their FLOPs == ``work``'s); the meta dry run of qwen3-0.6b
+    train_4k on pod1 and decode_32k on pod2; a 1 x 1 grid at phase 15's
+    per-node shape, its tracked peak within [0.5, 2] of one real step's
+    ``max_memory_allocated``; phase 29's straggler run on the wall clock,
+    calibrated by phase 15's step (exactly sim_time x the step).
 
 Phases 6 and 9 also run flash at whisper-tiny's two non-causal shapes
 (the encoder's 1500 x 1500, the cross-attention's 224 x 1500).  The line
@@ -264,18 +275,11 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
-F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores (same sheet)
-# H100 SXM dense tensor-core rates (same sheet): TF32, and bf16 with f32
-# accumulation.  The flash and mLSTM kernels take an f32 product as three
-# TF32 products (3xTF32); a bf16 product, exact in TF32, as one, though the
-# card could take it at the bf16 rate, which therefore bounds it
-TF32_FLOP_PER_S = 494.7e12
-BF16_FLOP_PER_S = 989e12
-# f32 operations per element of each timed stage (a multiply-add counts 2,
-# a division 1): grad_step is x - lr*g; decentlam_post is (x - mix) / lr,
-# then beta*m + g~, then x - lr*m
-STAGE_FLOPS = {"grad_step": 2, "decentlam_post": 6}
+# The H100's rates (repro_torch.launch.roofline), the kernels' work (each
+# kernel module's ``work``, the stage kernel's ``STAGE_FLOPS``) and their
+# bounds (``roofline.kernel_bound``) come from the package.  The main path's
+# update tail runs two stages, grad_step and decentlam_post
+TAIL_OPS = ("grad_step", "decentlam_post")
 # kernel vs plain version, same inputs: float32 outputs differ by FMA
 # contraction (about one ulp); a bfloat16 x output may then round one bf16
 # ulp (2**-8) apart
@@ -328,11 +332,15 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def _smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+
+
 def phase_device(torch):
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = _smi()
     log(f"gpu: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
@@ -457,9 +465,9 @@ def phase_main_path(torch):
     steps = len(res["losses"])
     if not all(math.isfinite(v) for v in res["losses"]):
         raise RuntimeError(f"non-finite loss on the main path: {res['losses']}")
-    if total != 28 * steps or launches != {op: 14 * steps for op in STAGE_FLOPS}:
+    if total != 28 * steps or launches != {op: 14 * steps for op in TAIL_OPS}:
         raise RuntimeError(f"fused_update launched {total} times ({launches}), "
-                           f"want 28 x {steps}: 14 x {steps} of each of {list(STAGE_FLOPS)}")
+                           f"want 28 x {steps}: 14 x {steps} of each of {list(TAIL_OPS)}")
     log(f"phase 3: qwen3-0.6b full width ({res['params_per_node']:,} params/node, "
         f"{res['n_layers']} layers) x {res['n_nodes']} nodes, {steps} steps: "
         f"losses {[round(v, 4) for v in res['losses']]}, fused_update launches {total} "
@@ -650,10 +658,12 @@ def phase_timing(torch):
     from repro_torch.configs import get_config
     from repro_torch.core.update_spec import MathCtx
     from repro_torch.kernels.fused_update.kernel import (
+        STAGE_FLOPS,
         fused_stage_launch,
         stage_bytes,
         stage_plain,
     )
+    from repro_torch.launch.roofline import F32_FLOP_PER_S, kernel_bound
     from repro_torch.models import transformer as T
     from repro_torch.utils import tree_leaves, tree_paths
 
@@ -667,7 +677,7 @@ def phase_timing(torch):
     gen = torch.Generator(device="cuda").manual_seed(1)
     per_stage = {op: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0, "err": 0.0,
                       "library_ms": 0.0 if _library(torch, op) else None}
-                 for op in STAGE_FLOPS}
+                 for op in TAIL_OPS}
     largest = {}
     big = max(range(len(shapes)), key=lambda i: torch.Size(shapes[i]).numel())
     for i, shape in enumerate(shapes):
@@ -719,45 +729,24 @@ def phase_timing(torch):
             torch.cuda.empty_cache()
     fmt = lambda v: "null" if v is None else f"{v:.3f} ms"
     for op, (ms, plain_ms, lib_ms, nbytes, flops) in largest.items():
-        bound_ms, by = _bound(nbytes, flops)
+        bound_ms, by = kernel_bound(nbytes, flops)
         log(f"largest leaf {paths[big]} {shapes[big]} f32, {op}: kernel {ms:.3f} ms, "
             f"bound {bound_ms:.3f} ms by {by} ({nbytes / 1e9:.2f} GB / 3.35 TB/s; "
             f"{flops / 1e9:.2f} GFLOP / 67 TFLOP/s = {flops / F32_FLOP_PER_S * 1e3:.3f} ms; "
             f"{bound_ms / ms:.1%} of bound), plain version {plain_ms:.3f} ms, "
             f"library {fmt(lib_ms)}")
     for op, rec in per_stage.items():
-        rec["bound_ms"], rec["bound_by"] = _bound(rec["bytes"], rec["flops"])
+        rec["bound_ms"], rec["bound_by"] = kernel_bound(rec["bytes"], rec["flops"])
         log(f"per step, {op} over 14 leaves x 4 nodes: kernel {rec['ms']:.3f} ms, bound "
             f"{rec['bound_ms']:.3f} ms by {rec['bound_by']} ({rec['bytes'] / 1e9:.2f} GB, "
             f"{rec['flops'] / 1e9:.2f} GFLOP), plain version {rec['plain_ms']:.3f} ms, "
             f"library {fmt(rec['library_ms'])}, max |kernel - plain| {rec['err']:.3g}")
     total = {k: sum(r[k] for r in per_stage.values())
              for k in ("ms", "plain_ms", "bytes", "flops")}
-    bound_ms, by = _bound(total["bytes"], total["flops"])
+    bound_ms, by = kernel_bound(total["bytes"], total["flops"])
     log(f"per step, update tail (28 launches): kernel {total['ms']:.3f} ms, bound "
         f"{bound_ms:.3f} ms by {by}, plain version {total['plain_ms']:.3f} ms")
     return per_stage
-
-
-def _tc_bound(nbytes: int, flops: int, dtype) -> tuple[float, str]:
-    """The least time (ms) of a kernel whose products run on the tensor
-    cores: the larger of bytes over the memory rate and, for f32 inputs,
-    3 x flops over the dense TF32 rate (3xTF32), for bf16 inputs flops over
-    the bf16 rate; and which one it is."""
-    import torch
-
-    rate = TF32_FLOP_PER_S / 3 if dtype == torch.float32 else BF16_FLOP_PER_S
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / rate * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
-
-
-def _bound(nbytes: int, flops: int) -> tuple[float, str]:
-    """The least time the card could take (ms): the larger of bytes over the
-    memory rate and f32 operations over the f32 peak, and which one it is."""
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / F32_FLOP_PER_S * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -787,27 +776,18 @@ def _fa_compare(torch, q, k, v, causal, window, what):
     return err
 
 
-def _fa_live_pairs(b, sq, sk, h, causal, window) -> int:
-    """Live (q, k) pairs of the mask, counted row by row."""
-    import numpy as np
-
-    i = np.arange(sq)
-    hi = np.minimum(i + 1, sk) if causal else np.full(sq, sk)
-    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(sq, np.int64)
-    return int(np.maximum(hi - lo, 0).sum()) * b * h
-
-
 def _fa_bound(q, k, causal, window):
-    """The work of one call and its bounds: each of q, k, v read once and o
-    written once; 4 * hd operations per live pair.  "tc" is the tensor-core
-    bound the kernel is held to (3xTF32 in f32), "ffma" the f32 FFMA bound of
-    the SIMT kernel it replaced."""
-    b, sq, h, hd = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
-    flops = 4 * hd * _fa_live_pairs(b, sq, sk, h, causal, window)
-    nbytes = q.element_size() * (2 * b * sq * h * hd + 2 * b * sk * hkv * hd)
-    return {"flops": flops, "bytes": nbytes, "tc": _tc_bound(nbytes, flops, q.dtype),
-            "ffma": _bound(nbytes, flops)}
+    """The work of one call (:func:`~repro_torch.kernels.flash_attention.kernel.work`)
+    and its bounds: "tc" the tensor-core bound the kernel is held to
+    (3xTF32 in f32), "ffma" the f32 FFMA bound of the SIMT kernel it
+    replaced."""
+    from repro_torch.kernels.flash_attention.kernel import work
+    from repro_torch.launch.roofline import kernel_bound
+
+    flops, nbytes = work(q.shape, k.shape, q.dtype, causal, window)
+    return {"flops": flops, "bytes": nbytes,
+            "tc": kernel_bound(nbytes, flops, q.dtype, tensor_cores=True),
+            "ffma": kernel_bound(nbytes, flops)}
 
 
 def phase_flash_vs_plain(torch, built):
@@ -1080,11 +1060,10 @@ def phase_flash_timing(torch):
 
     from repro_torch.kernels.flash_attention.kernel import flash_attention_launch
     from repro_torch.kernels.flash_attention.ref import reference_attention
+    from repro_torch.launch.roofline import HBM_BYTES_PER_S
 
     gen = torch.Generator(device="cuda").manual_seed(4)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60,
-                         check=True).stdout.strip().splitlines()[0]
+    smi = _smi()
     recs = {}
     for name, (b, sq, sk, h, hkv, hd, window, causal) in FA_MAIN_SHAPES.items():
         q, k, v = _fa_inputs(torch, b, sq, sk, h, hkv, hd, torch.float32, gen)
@@ -1553,23 +1532,18 @@ def phase_xlstm_kernel_vs_plain(torch):
 
 
 def _ml_bound(q, v, chunk):
-    """The work of one call and its bounds.  Multiply-adds per (batch, head)
-    and chunk of L rows: the causal lower triangle of the scores and of w.v,
-    L(L+1)/2 * (dk + dv), + 2*L*dk*dv (q.C and the state update) + L*dk
-    (q.n); each of q, k, v, h and the gates moved once, the final C, n and m
-    written once.  "tc" is the tensor-core bound the kernel is held to
-    (3xTF32 in f32), "ffma" the f32 FFMA bound of the SIMT kernel it
-    replaced; beside them, the recurrent form's 2*S*dk*dv multiply-adds per
-    (batch, head) (C updated and read once per token), the least work the
-    cell can be done in."""
-    B, H, S, dk = q.shape
-    dv = v.shape[-1]
-    L = chunk
-    macs = B * H * (S // L) * (L * (L + 1) // 2 * (dk + dv) + 2 * L * dk * dv + L * dk)
-    nbytes = (q.element_size() * B * H * S * (2 * dk + 2 * dv) + 4 * 2 * B * H * S
-              + 4 * B * H * (dk * dv + dk + 1))
-    return {"flops": 2 * macs, "bytes": nbytes, "rec_flops": 2 * 2 * B * H * S * dk * dv,
-            "tc": _tc_bound(nbytes, 2 * macs, q.dtype), "ffma": _bound(nbytes, 2 * macs)}
+    """The work of one call (:func:`~repro_torch.kernels.mlstm_chunk.kernel.work`:
+    the causal triangle of the scores and of w.v per chunk) and its bounds:
+    "tc" the tensor-core bound the kernel is held to (3xTF32 in f32), "ffma"
+    the f32 FFMA bound of the SIMT kernel it replaced; beside them the
+    recurrent form's operations, the least work the cell can be done in."""
+    from repro_torch.kernels.mlstm_chunk.kernel import recurrent_flops, work
+    from repro_torch.launch.roofline import kernel_bound
+
+    flops, nbytes = work(q.shape, v.shape, q.dtype, chunk)
+    return {"flops": flops, "bytes": nbytes, "rec_flops": recurrent_flops(q.shape, v.shape),
+            "tc": kernel_bound(nbytes, flops, q.dtype, tensor_cores=True),
+            "ffma": kernel_bound(nbytes, flops)}
 
 
 def phase_mlstm_timing(torch):
@@ -1579,6 +1553,7 @@ def phase_mlstm_timing(torch):
     chunked mLSTM, so there is no library time."""
     from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunk_launch
     from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunked
+    from repro_torch.launch.roofline import HBM_BYTES_PER_S, TF32_FLOP_PER_S
 
     m = ML_MAIN
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -1598,9 +1573,7 @@ def phase_mlstm_timing(torch):
     b = _ml_bound(args[0], args[2], m["chunk"])
     (tc_ms, by), (ffma_ms, _) = b["tc"], b["ffma"]
     flops = b["flops"]
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60,
-                         check=True).stdout.strip().splitlines()[0]
+    smi = _smi()
     log(f"phase 13: mlstm_chunk at the main-path shape q/k/v {tuple(args[0].shape)}, chunk "
         f"{m['chunk']}, f32 ({smi}): kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s); "
         f"tensor-core bound {tc_ms:.3f} ms by {by} (3 x {flops / 1e9:.2f} GFLOP, the causal "
@@ -1803,11 +1776,13 @@ def phase_plane_timing(torch, nodes=MAIN["nodes"], cfg=None, tp=1):
     from repro_torch.configs import get_config
     from repro_torch.core.update_spec import MathCtx
     from repro_torch.kernels.fused_update.kernel import (
+        STAGE_FLOPS,
         fused_stage_launch,
         stage_bytes,
         stage_io,
         stage_plain,
     )
+    from repro_torch.launch.roofline import kernel_bound
     from repro_torch.train.train_state import model_plane_layout
 
     full = model_plane_layout(cfg if cfg is not None else get_config(MAIN["arch"]), tp)
@@ -1845,7 +1820,7 @@ def phase_plane_timing(torch, nodes=MAIN["nodes"], cfg=None, tp=1):
         lib_ms = _time_ms(torch, lambda: lib(svec, ins, outs), 5) if lib else None
         numel = outs[names_out[0]].numel()
         nbytes = stage_bytes(ins, outs)
-        bound_ms, by = _bound(nbytes, numel * STAGE_FLOPS[op])
+        bound_ms, by = kernel_bound(nbytes, numel * STAGE_FLOPS[op])
         out[op] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
                    "bound_by": by, "err": err, "bytes": nbytes, "shape": shape}
         del ins, outs
@@ -1876,7 +1851,7 @@ def phase_flat_planes_main_path(torch, leaf, per_stage):
     steps = len(res["losses"])
     if not all(math.isfinite(v) for v in res["losses"]):
         raise RuntimeError(f"non-finite loss on the flat-plane path: {res['losses']}")
-    if total != 2 * steps or launches != {op: steps for op in STAGE_FLOPS}:
+    if total != 2 * steps or launches != {op: steps for op in TAIL_OPS}:
         raise RuntimeError(f"flat planes: fused_update launched {total} times ({launches}), "
                            f"want 2 x {steps}: one per bucket and stage")
     plane = phase_plane_timing(torch)
@@ -2086,9 +2061,6 @@ STALE = ["--flat-planes", "--algorithm", "decentlam-sa", "--gossip-delay", "1",
          "--track-consensus"]
 # phase 18: compressed gossip at full width and depth
 COMPRESSED = ["--flat-planes", "--compression", "int8-row-ef"]
-# f32 operations per element of decentlam_sa_post: (x - mix) / lr (2), the
-# momentum beta*m + (sg*drift + (1 - sg)*g) (5), x - lr*(sg*(beta*m) + drift) (4)
-SA_FLOPS = 11
 # reckoned peaks (GiB; one f32 plane copy is 9.89 GiB): x, m, g, the two
 # ring slots (the payload written into one of them) and the mix; x, m, g,
 # the payload, the residual, the decoded payload and the mix
@@ -2121,11 +2093,13 @@ def _sa_post_timing(torch):
     from repro_torch.configs import get_config
     from repro_torch.core.update_spec import MathCtx
     from repro_torch.kernels.fused_update.kernel import (
+        STAGE_FLOPS,
         fused_stage_launch,
         stage_bytes,
         stage_io,
         stage_plain,
     )
+    from repro_torch.launch.roofline import kernel_bound
     from repro_torch.train.train_state import model_plane_layout
 
     full = model_plane_layout(get_config(MAIN["arch"]))
@@ -2164,7 +2138,7 @@ def _sa_post_timing(torch):
     plain_ms = _time_ms(torch, plain, 2)
     numel = outs["x"].numel()
     nbytes = stage_bytes(ins, outs)
-    bound_ms, by = _bound(nbytes, numel * SA_FLOPS)
+    bound_ms, by = kernel_bound(nbytes, numel * STAGE_FLOPS[op])
     del ins, outs
     torch.cuda.empty_cache()
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
@@ -2185,6 +2159,7 @@ def _gossip_timing(torch):
     from repro_torch.configs import get_config
     from repro_torch.core.gossip import DelayedStackedChannel, StackedChannel
     from repro_torch.core.topology import build_topology
+    from repro_torch.launch.roofline import HBM_BYTES_PER_S
     from repro_torch.train.train_state import model_plane_layout
 
     full = model_plane_layout(get_config(MAIN["arch"]))
@@ -2667,7 +2642,7 @@ def phase_dist_main_path(torch, flat):
     counts = [[r["launches"] for r in rank] for rank in recs]
     want = [[2 * (k + 1) for k in range(steps)]] * MAIN["nodes"]
     by_op = [rank[-1]["by_op"] for rank in recs]
-    if counts != want or any(b != {op: steps for op in STAGE_FLOPS} for b in by_op):
+    if counts != want or any(b != {op: steps for op in TAIL_OPS} for b in by_op):
         raise RuntimeError(f"stage launches per rank after each step {counts} ({by_op}), "
                            f"want {want[0]}: one per stage and step")
     loss0, ref0 = res["losses"][0], flat["losses"][0]
@@ -2983,13 +2958,25 @@ def phase_dist_vs_stacked(torch):
 # phase 23: checkpoint and resume at full width with the vocabulary cut, 2
 # layers, on 2 ranks (4 before: the script's time limit; the checkpoint's
 # I/O and the loopback gossip scale with the ranks), and the drill at full
-# width on 4 ranks (4 -> 2)
+# width on 4 ranks (4 -> 2), the vocabulary cut too (PR 22: the full
+# vocabulary's embedding and head, 91 % of a 2-layer node, took the drill to
+# 102.4 s of the script's time)
 DIST_CKPT_RANKS = 2
 DIST_CKPT = ["--simulate-nodes", str(MAIN["nodes"]), "--arch", MAIN["arch"], "--depth", "2",
              "--seq-len", str(MAIN["seq_len"]), "--per-node-batch", str(MAIN["per_node_batch"]),
              "--algorithm", "decentlam-sa", "--gossip-delay", "1", "--flat-planes",
              "--fused-update", "--fused-impl", "triton", "--log-every", "1", "--timeout",
              str(DIST_TIMEOUT_S)]
+
+
+def _drill_rank(world, argv):
+    """Phase 23's drill on one rank: the CLI's rank body with the vocabulary
+    cut and the shrink checked by :func:`_check_shrink`."""
+    from repro_torch.launch import train
+
+    model_config = train._model_config
+    train._model_config = lambda args: _check_config(model_config(args))
+    return train.rank_main(world, argv, None, _check_shrink)
 
 
 def _check_shrink(group, gathered, state):
@@ -3107,12 +3094,12 @@ def phase_dist_checkpoint_resume(torch):
     (gathered to rank 0 and written), the trainer's resume (read on rank 0
     and scattered) and 2 more: losses, and every rank's parameters,
     optimizer and channel state (the ring and its count included) bit for
-    bit; GB, save and restore seconds.  Then, on 4 processes at full width,
-    --failure-drill 4 -> 2 over 3 steps: finite losses, and the survivors' state after the shrink ==
-    elastic_reshape of the gathered state bit for bit."""
+    bit; GB, save and restore seconds.  Then, on 4 processes at full width
+    (the vocabulary cut), the CLI's rank body with --failure-drill 4 -> 2
+    over 3 steps: finite losses, and the survivors' state after the shrink
+    == elastic_reshape of the gathered state bit for bit."""
     import shutil
 
-    import repro_torch.launch.train as train
     from repro_torch.launch.mesh import run_ranks
 
     root = os.path.join(DIST_DIR, "ckpt")
@@ -3139,13 +3126,15 @@ def phase_dist_checkpoint_resume(torch):
         f"to the device) {rep['restore_s']:.1f} s")
 
     t = time.perf_counter()
-    rc = train.main(DIST_CKPT + ["--steps", "3", "--failure-drill"], on_shrink=_check_shrink)
+    rc = run_ranks(_drill_rank, MAIN["nodes"], DIST_CKPT + ["--steps", "3", "--failure-drill"],
+                   timeout_s=DIST_TIMEOUT_S)[0]
     n_tensors, differ, fresh = rc["on_shrink"]
     if (not all(map(math.isfinite, rc["losses"])) or rc["n_nodes"] != MAIN["nodes"] // 2
             or differ or not fresh):
         raise RuntimeError(f"drill: losses {rc['losses']} on {rc['n_nodes']} nodes, "
                            f"{differ[:5]} differ from elastic_reshape, channel fresh {fresh}")
-    log(f"  --failure-drill {rc['drill']}: losses {rc['losses']} (finite), the survivors' "
+    log(f"  --failure-drill {rc['drill']} (vocabulary {CHECK_VOCAB:,}): losses {rc['losses']} "
+        f"(finite), the survivors' "
         f"state == elastic_reshape of the gathered state bit for bit in {n_tensors} tensors, "
         f"the channel state re-initialized; {time.perf_counter() - t:.1f} s")
     shutil.rmtree(DIST_DIR, ignore_errors=True)
@@ -3243,7 +3232,7 @@ def phase_moe_main_path(torch):
         torch, ["--flat-planes"], arch=MOE["arch"], depth=MOE["depth"])
     steps = len(res["losses"])
     _finite_run(res, "the MoE main path", moe=True)
-    if total != 2 * steps or launches != {op: steps for op in STAGE_FLOPS}:
+    if total != 2 * steps or launches != {op: steps for op in TAIL_OPS}:
         raise RuntimeError(f"MoE main path: fused_update launched {total} times ({launches}), "
                            f"want 2 x {steps}: one per bucket and stage")
     peak = res["peak_mem_bytes"] / 2**30
@@ -3514,7 +3503,7 @@ def phase_whisper(torch):
     steps = WHISPER["steps"]
     if not all(math.isfinite(v) for v in kern["losses"]):
         raise RuntimeError(f"whisper-tiny train: non-finite losses {kern['losses']}")
-    if kern["total"] != 2 * steps or kern["launches"] != {op: steps for op in STAGE_FLOPS}:
+    if kern["total"] != 2 * steps or kern["launches"] != {op: steps for op in TAIL_OPS}:
         raise RuntimeError(f"whisper-tiny train: fused_update launched {kern['total']} times "
                            f"({kern['launches']}), want 2 x {steps}")
     if plain["total"] != 0:
@@ -3772,6 +3761,9 @@ def phase_bias_and_sim(torch):
             torch.cuda.synchronize()
             stats[(algo, engine)] = time.perf_counter() - te
         a, b = res["pernode"], res["vectorized"]
+        if algo == "decentlam":  # phase 36 projects this run onto the wall clock
+            straggler = {"result": a, "opt": opt, "grad": grad,
+                         "topology": build_topology("ring", SIM["n"])}
         equal = (same_tree(a.params, b.params) and same_tree(a.opt_state, b.opt_state)
                  and (a.steps == b.steps).all() and (a.stall_time == b.stall_time).all()
                  and a.sim_time == b.sim_time and a.trace == b.trace
@@ -3823,6 +3815,7 @@ def phase_bias_and_sim(torch):
                     f"mailbox {c['mailbox_bytes']:.0f} of {c['mailbox_dense_bytes']:.0f} B"
                     for m, c in comm.items())
         + f" ({time.perf_counter() - t2:.1f}s)")
+    return straggler
 
 
 # ---------------------------------------------------------------------------
@@ -4005,7 +3998,7 @@ def _sparse_rank(group, depth):
         launches[op] = launches.get(op, 0) + k
     # the stage kernel's launches in the two sparse runs, summed over the ranks
     report["launches"] = {op: sum(r.get(op, 0) for r in every(launches))
-                          for op in STAGE_FLOPS}
+                          for op in TAIL_OPS}
     del state
     torch.cuda.empty_cache()
     return report if lead else None
@@ -4087,7 +4080,7 @@ def phase_sparse_main_path(torch):
             f"{p['bound_ms']:.3f} ms ({p['bound_ms'] / p['ms']:.1%} of it), plain version "
             f"{p['plain_ms']:.3f} ms, library {lib}, max |kernel - plain| {p['err']:.3g}")
     want = 2 * MAIN["nodes"] * SPARSE["steps"]  # exact and delta, every rank, every step
-    if launches != {op: want for op in STAGE_FLOPS}:
+    if launches != {op: want for op in TAIL_OPS}:
         raise RuntimeError(f"stage launches in the sparse runs over the ranks {launches}, "
                            f"want {want} of each stage")
     log(f"  stage launches in the exact and delta runs, over the ranks: {launches}")
@@ -4725,13 +4718,13 @@ def phase_tp_train(torch):
         raise RuntimeError(f"losses {res['losses']}, tp = 1 {one['losses']}")
     # each op once per rank and step, in both runs (the tp = 1 run on ranks
     # 0 and 1 only)
-    want = [{op: k + 1 for op in STAGE_FLOPS} for k in range(steps)]
+    want = [{op: k + 1 for op in TAIL_OPS} for k in range(steps)]
     for r, o in enumerate(out):
         if o["launches"][0] != want or (o["launches"][1] not in (None, want)):
             raise RuntimeError(f"rank {r}: stage launches by op after each step "
                                f"{o['launches']}, want {want}")
     # the tp run's launches of each op, summed over the ranks
-    launches = {op: sum(o["launches"][0][-1][op] for o in out) for op in STAGE_FLOPS}
+    launches = {op: sum(o["launches"][0][-1][op] for o in out) for op in TAIL_OPS}
     rel = max(abs(a - b) / abs(b) for a, b in zip(res["losses"], one["losses"]))
     err = max(o["err"] for o in out)
     if not (rel <= 1e-5 and err <= TP_TRAIN_RTOL):
@@ -4836,6 +4829,200 @@ def phase_dist_serve_while_training(torch):
     return serve
 
 
+# ---------------------------------------------------------------------------
+# The cost stack on the card (phase 36)
+# ---------------------------------------------------------------------------
+
+# the product FLOPs the cost model counts in phase 15's step, against the
+# shape formula (_matmul_flops_per_step); the dry run's peak memory against
+# the allocator's peak of one real step at that shape
+COST_FLOPS_RTOL = 0.02
+COST_MEM_RATIO = (0.5, 2.0)
+
+
+def _plane_step(torch, cfg, nodes):
+    """Phase 15's step (decentlam on exp, planes, the stage kernel, f32) for
+    ``nodes`` stacked nodes of ``cfg``, its state on the card and one batch
+    of 4 x 256 tokens per node."""
+    from repro_torch.core.optimizers import make_optimizer
+    from repro_torch.data.synthetic import SyntheticLM, SyntheticLMConfig
+    from repro_torch.train.step import TrainConfig, build_train_step
+    from repro_torch.train.train_state import init_train_state, model_plane_layout
+
+    tcfg = TrainConfig(fused_update=True, fused_impl="triton", flat_planes=True)
+    step, channel = build_train_step(cfg, tcfg, nodes)
+    state = init_train_state(cfg, make_optimizer(tcfg.opt_config()), nodes,
+                             device=torch.device("cuda"), channel=channel,
+                             plane_layout=model_plane_layout(cfg))
+    data = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=MAIN["seq_len"],
+                                         per_node_batch=MAIN["per_node_batch"], n_nodes=nodes))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch(0).items()}
+    return step, state, batch
+
+
+def phase_cost_model(torch, flat, straggler):
+    """The cost stack (``repro_torch.launch``: roofline, costmodel, dryrun;
+    ``repro_torch.sim.wallclock``) on the card: (a) the cost model over one
+    of phase 15's steps (product FLOPs against the shape formula within
+    COST_FLOPS_RTOL, stage units == the launch counter's 2, the roofline
+    terms at the f32 peak, MODEL_FLOPS' share of the f32 peak in phase 15's
+    step time); (b) over one prefill wave of phase 7's engine (flash units
+    == the flash counter == 28, their FLOPs == ``work``'s); (c) the meta dry
+    run of qwen3-0.6b train_4k on pod1 and decode_32k on pod2, and a 1 x 1
+    grid at phase 15's per-node shape, whose tracked peak is held against
+    the allocator's peak of one real step (a ratio in COST_MEM_RATIO); (d)
+    phase 29's straggler run projected onto the wall clock, calibrated by
+    phase 15's measured step (wallclock_s == sim_time x the step, exactly)."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.fused_update.kernel import fused_stage_launch, reset_launches
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.costmodel import CostRecorder
+    from repro_torch.launch.roofline import F32_FLOP_PER_S, HW, model_flops, roofline_terms
+    from repro_torch.models import transformer as T
+    from repro_torch.sim import calibrate_from_dryrun, project_wallclock
+
+    smi = _smi()
+    cfg = get_config(MAIN["arch"])
+    nodes = MAIN["nodes"]
+
+    # (a) one flat-plane train step of phase 15
+    step, state, batch = _plane_step(torch, cfg, nodes)
+    n_params = T.count_params(state["params"]) // nodes  # one node's
+    reset_launches()
+    rec = CostRecorder()
+    t = time.perf_counter()
+    with rec:
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    counted_s = time.perf_counter() - t
+    c = rec.costs
+    launched = fused_stage_launch.launches
+    del state, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    formula = _matmul_flops_per_step(cfg, nodes)
+    rel = abs(c.product_flops - formula) / formula
+    units = c.kernel_launches.get("fused_update", 0)
+    if not rel <= COST_FLOPS_RTOL:
+        raise RuntimeError(f"cost model: {c.product_flops:.6g} product FLOPs in phase 15's step, "
+                           f"the shape formula {formula:.6g} ({rel:.2%} apart, tol "
+                           f"{COST_FLOPS_RTOL:.0%})")
+    if not units == launched == 2:
+        raise RuntimeError(f"cost model: {units} stage units, the launcher counted {launched}; "
+                           "want 2 on planes")
+    hw = HW(peak_flops=F32_FLOP_PER_S)
+    terms = roofline_terms(flops_per_device=c.flops, bytes_per_device=c.materialized_bytes,
+                           collective_egress=c.collective_bytes, hw=hw)
+    tokens = nodes * MAIN["per_node_batch"] * MAIN["seq_len"]
+    mf = model_flops(n_params, tokens, training=True)
+    step_s = flat["step_ms"] / 1e3
+    log(f"phase 36: the cost model over one of phase 15's steps (qwen3-0.6b, {nodes} nodes, "
+        f"{MAIN['per_node_batch']} x {MAIN['seq_len']} tokens per node, planes; {smi}): "
+        f"{c.flops / 1e12:.4f} TFLOP, of it products {c.product_flops / 1e12:.4f} against "
+        f"{formula / 1e12:.4f} from the shapes ({rel:.3%} apart, tol {COST_FLOPS_RTOL:.0%}); "
+        f"stage units {units} == launches {launched}; materialized {c.materialized_bytes / 1e9:.2f} "
+        f"GB (naive {c.naive_bytes / 1e9:.2f} GB); roofline at the f32 peak: compute "
+        f"{terms['compute_s'] * 1e3:.1f} ms, memory {terms['memory_s'] * 1e3:.1f} ms, collective "
+        f"{terms['collective_s'] * 1e3:.1f} ms, {terms['dominant']}-bound, lower bound "
+        f"{terms['step_time_lower_bound_s'] * 1e3:.1f} ms against phase 15's {flat['step_ms']:.1f} "
+        f"ms step; MODEL_FLOPS 6 N D = 6 x {n_params:,} x {tokens} = {mf / 1e12:.3f} TFLOP, "
+        f"{mf / step_s / 1e12:.2f} TFLOP/s in phase 15's step: {mf / step_s / F32_FLOP_PER_S:.1%} "
+        f"of the 67 TFLOP/s f32 peak (the counted step took {counted_s:.2f} s under the "
+        "recorder)")
+
+    # (b) one prefill wave of phase 7's engine
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    eng = _engine(torch, cfg, params, attn_impl="cuda")
+    wave = {"tokens": torch.randint(0, cfg.vocab_size, (SERVE["slots"], SERVE["max_prompt"]),
+                                    device="cuda", generator=torch.Generator(device="cuda")
+                                    .manual_seed(3))}
+    fa_kernel.reset_launches()
+    rec = CostRecorder()
+    with rec:
+        eng.prefill_step(params, wave)
+    torch.cuda.synchronize()
+    fa = rec.costs
+    flash = fa_kernel.flash_attention_launch.launches
+    per_call = fa_kernel.work((SERVE["slots"], SERVE["max_prompt"], cfg.n_heads, cfg.hd),
+                              (SERVE["slots"], SERVE["max_prompt"], cfg.n_kv_heads, cfg.hd),
+                              torch.float32, True, 0)
+    units = fa.kernel_launches.get("flash_attention", 0)
+    if not units == flash == cfg.n_layers:
+        raise RuntimeError(f"cost model: {units} flash units in a prefill wave, the launcher "
+                           f"counted {flash}; want {cfg.n_layers}")
+    if fa.kernel_flops["flash_attention"] != units * per_call[0]:
+        raise RuntimeError(f"cost model: flash units' {fa.kernel_flops['flash_attention']} "
+                           f"FLOPs != {units} x work()'s {per_call[0]}")
+    log(f"phase 36: one qwen3-0.6b prefill wave of phase 7's engine ({SERVE['slots']} x "
+        f"{SERVE['max_prompt']} tokens, f32): flash units {units} == launches {flash} == "
+        f"{cfg.n_layers} layers, {fa.kernel_flops['flash_attention'] / 1e12:.4f} TFLOP == "
+        f"{units} x work() {per_call[0] / 1e9:.2f} GFLOP; the wave {fa.flops / 1e12:.4f} TFLOP "
+        f"(products {fa.product_flops / 1e12:.4f}), {fa.materialized_bytes / 1e9:.2f} GB "
+        "materialized")
+    del eng, params, wave
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the meta dry run, and its memory against one real step
+    for arch, shape, mesh in ((MAIN["arch"], "train_4k", "pod1"),
+                              (MAIN["arch"], "decode_32k", "pod2")):
+        r = dryrun.run_cell(arch, shape, mesh)
+        t_, m = r["roofline"], r["memory"]
+        log(f"phase 36: dry run {arch} {shape} on {mesh} ({r['grid'][0]} nodes x tp "
+            f"{r['grid'][1]}, one rank, bf16, meta; the H100's constants): compute "
+            f"{t_['compute_s'] * 1e3:.3f} ms, memory {t_['memory_s'] * 1e3:.3f} ms, collective "
+            f"{t_['collective_s'] * 1e3:.3f} ms, {t_['dominant']}-bound; arguments "
+            f"{m['argument_bytes'] / 2**30:.3f} GiB, temp {m['temp_bytes'] / 2**30:.3f} GiB, "
+            f"outputs {m['output_bytes'] / 2**30:.3f} GiB; units {r['raw']['kernel_launches']}, "
+            f"collectives {r['collectives']['counts']} ({r['collectives']['egress_bytes'] / 1e9:.3f}"
+            f" GB egress); MF-util {r['model_flops_utilization']:.1%}; {r['seconds']['run']:.1f} s")
+    one = ShapeSpec("phase 15 per node", "train", MAIN["seq_len"], MAIN["per_node_batch"])
+    args = dryrun.parser().parse_args(["--dtype", "float32"])
+    r = dryrun.run_cell(MAIN["arch"], one, (1, 1), args)
+    tracked = r["memory"]["argument_bytes"] + r["memory"]["temp_bytes"]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step, state, batch = _plane_step(torch, cfg, 1)
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    real = torch.cuda.max_memory_allocated() - base
+    del state, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    ratio = tracked / real
+    lo, hi = COST_MEM_RATIO
+    log(f"phase 36: a 1 x 1 grid at phase 15's per-node shape ({MAIN['per_node_batch']} x "
+        f"{MAIN['seq_len']} tokens, f32, planes): the dry run's arguments + temp "
+        f"{tracked / 2**30:.3f} GiB ({r['memory']['argument_bytes'] / 2**30:.3f} + "
+        f"{r['memory']['temp_bytes'] / 2**30:.3f}) against one real step's "
+        f"max_memory_allocated {real / 2**30:.3f} GiB (state and batch included): ratio "
+        f"{ratio:.3f} (gate [{lo}, {hi}])")
+    if not lo <= ratio <= hi:
+        raise RuntimeError(f"dry run memory {tracked} B vs the real step's {real} B: ratio "
+                           f"{ratio:.3f} outside [{lo}, {hi}]")
+
+    # (d) phase 29's straggler run on the wall clock
+    sim = straggler["result"]
+    measured = calibrate_from_dryrun({"measured_step_s": step_s})
+    roof = project_wallclock(sim, straggler["topology"], opt=straggler["opt"],
+                             grad_fn=straggler["grad"])
+    cal = project_wallclock(sim, straggler["topology"], opt=straggler["opt"],
+                            grad_fn=straggler["grad"], measured_step_s=measured)
+    if cal["wallclock_s"] != sim.sim_time * measured or cal["dominant"] != "measured":
+        raise RuntimeError(f"calibrated wall clock {cal['wallclock_s']!r} != sim_time "
+                           f"{sim.sim_time!r} x {measured!r}")
+    log(f"phase 36: phase 29's straggler_1slow run (decentlam, ring, n {SIM['n']}; sim time "
+        f"{sim.sim_time:.6g}) on the wall clock: roofline price {roof['step_time_s'] * 1e3:.3f} "
+        f"ms a step ({roof['dominant']}; the 30-dim toy's roofline "
+        f"{roof['roofline_s'] * 1e9:.3f} ns), {roof['wallclock_s']:.6g} s; calibrated by phase "
+        f"15's measured {step_s * 1e3:.1f} ms step: {cal['wallclock_s']:.6g} s == sim_time x "
+        f"step exactly, {cal['steps_per_s']:.4g} steps/s, {cal['device_hours']:.4g} "
+        "device-hours")
+    return {"flops": c.flops, "product_flops": c.product_flops, "mem_ratio": ratio}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -4911,13 +5098,14 @@ def main() -> int:
     timed("26 the rest of the zoo", phase_zoo)
     whisper = timed("27 whisper-tiny train and serve", phase_whisper)
     timed("28 ResNet-20 through run_stacked", phase_resnet)
-    timed("29 bias experiments and the simulator", phase_bias_and_sim)
+    straggler = timed("29 bias experiments and the simulator", phase_bias_and_sim)
     sparse = timed("30 + 32 row-sparse gossip; chaos and the resilient layer on 4 ranks",
                    phase_sparse_main_path)
     timed("31 resilience on the stacked trainer", phase_resilience_main_path, flat)
     tp_serve = timed("33 tensor-parallel serve", phase_tp_serve)
     tp_train = timed("34 tensor-parallel train", phase_tp_train)
     timed("35 serve while training on ranks", phase_dist_serve_while_training)
+    timed("36 cost model on the card", phase_cost_model, flat, straggler)
     log(f"phase times (s): {phases}; total {time.perf_counter() - t0:.1f}s")
     log(f"device memory allocated after each phase (GiB): {held}")
     # one record per specialization of the Triton kernel on the training main

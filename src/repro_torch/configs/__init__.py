@@ -18,7 +18,7 @@ from . import (
     whisper_tiny,
     xlstm_350m,
 )
-from .base import ModelConfig, pad_to
+from .base import SHAPES, ModelConfig, ShapeSpec, pad_to, shape_applicable
 
 _MODULES = {
     "xlstm-350m": xlstm_350m,
@@ -62,4 +62,5 @@ def tiny_lm(name: str = "tiny-lm", **overrides) -> ModelConfig:
     return ModelConfig(**base)
 
 
-__all__ = ["ARCHS", "SMOKES", "ModelConfig", "get_config", "pad_to", "tiny_lm"]
+__all__ = ["ARCHS", "SHAPES", "SMOKES", "ModelConfig", "ShapeSpec", "get_config", "pad_to",
+           "shape_applicable", "tiny_lm"]

@@ -2,15 +2,15 @@
 
 Every architecture file (``configs/<id>.py``) exports a ``CONFIG`` (exact
 published dims) and a ``SMOKE`` (reduced same-family config for CPU tests).
-The input-shape registry of ``repro.configs.base`` comes with the slices
-that run those shapes.
+The input-shape registry (``ShapeSpec``, ``SHAPES``, ``shape_applicable``)
+is a copy of ``repro.configs.base``'s: the dry run's cells.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["ModelConfig", "pad_to"]
+__all__ = ["ModelConfig", "SHAPES", "ShapeSpec", "pad_to", "shape_applicable"]
 
 
 def pad_to(x: int, m: int) -> int:
@@ -135,3 +135,26 @@ class ModelConfig:
         all_experts = self.n_layers * self.n_experts * mlp_mult * d * self.d_ff
         active = self.n_layers * self.top_k * mlp_mult * d * self.d_ff
         return full - all_experts + active
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    """(runnable?, reason).  long_500k only for sub-quadratic archs."""
+    if shape.name == "long_500k" and not cfg.long_context_ok:
+        return False, "pure full-attention arch: long_500k skipped"
+    return True, ""

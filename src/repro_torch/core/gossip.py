@@ -82,6 +82,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..launch.costmodel import record_collective
 from ..utils import tree_leaves, tree_map, tree_unflatten
 from .compression import get_compressor, wire_bytes
 from .topology import Topology
@@ -527,7 +528,14 @@ class _Wire:
     buffer.  The buffers are allocated at first use and kept; each is the
     size of the largest chunk it took.  Every rank makes the same calls in
     the same order with the same sizes: that pairs each send with its
-    receive."""
+    receive.
+
+    Each call is one collective of the cost model
+    (:func:`~repro_torch.launch.costmodel.record_collective`): a
+    :meth:`stream` one permute of its message, :meth:`gather_stream` one
+    all-gather, :meth:`all_reduce_` and :meth:`reduce` one all-reduce.  On a
+    dry group (:func:`~repro_torch.launch.mesh.dry_grid`) nothing moves: the
+    tensors must be on the meta device, and a receive is a meta tensor."""
 
     def __init__(self, group, chunk_bytes: int = STAGE_CHUNK_BYTES):
         if chunk_bytes % 8:
@@ -567,6 +575,14 @@ class _Wire:
             return
         staged, pg = self.group.staged, self.group.pg
         itemsize = torch.empty((), dtype=dtype).element_size()
+        nbytes = send.numel() * send.element_size() if send is not None else numel * itemsize
+        record_collective("collective-permute", self.group,
+                          send.shape if send is not None else (numel,), nbytes, nbytes)
+        if self.group.dry:
+            _check_meta(send, device)
+            if src is not None:
+                consume(0, numel, torch.empty(numel, dtype=dtype, device="meta"))
+            return
         outs = ([] if dst is None else
                 [(lo, hi) for lo, hi in self._chunks(send.numel(), send.element_size())])
         ins = [] if src is None else self._chunks(numel, itemsize)
@@ -596,6 +612,12 @@ class _Wire:
         """All-gather the flat f32 ``x`` chunk by chunk; ``consume(lo, hi,
         pieces)`` sees every rank's elements ``[lo, hi)``, by rank."""
         staged, pg, world = self.group.staged, self.group.pg, self.group.world
+        nbytes = x.numel() * 4
+        record_collective("all-gather", self.group, x.shape, nbytes, world * nbytes)
+        if self.group.dry:
+            _check_meta(x)
+            consume(0, x.numel(), [torch.empty_like(x) for _ in range(world)])
+            return
         for lo, hi in self._chunks(x.numel(), 4):
             nb = (hi - lo) * 4
             mine = x[lo:hi].view(torch.uint8)
@@ -612,6 +634,11 @@ class _Wire:
     def all_reduce_(self, x: torch.Tensor) -> torch.Tensor:
         """Sum the flat f32 ``x`` over the ranks, in place, chunk by chunk."""
         staged, pg = self.group.staged, self.group.pg
+        nbytes = x.numel() * x.element_size()
+        record_collective("all-reduce", self.group, x.shape, nbytes, nbytes)
+        if self.group.dry:
+            _check_meta(x)
+            return x
         for lo, hi in self._chunks(x.numel(), 4):
             part = x[lo:hi]
             if staged:
@@ -623,6 +650,26 @@ class _Wire:
             else:
                 dist.all_reduce(part, group=pg)
         return x
+
+    def reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """The sum (or ``op="max"``) of the small ``x`` on the group's
+        ``comm_device`` over the ranks, in place, in one call."""
+        nbytes = x.numel() * x.element_size()
+        record_collective("all-reduce", self.group, x.shape, nbytes, nbytes)
+        if self.group.dry:
+            _check_meta(x)
+            return x
+        rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        dist.all_reduce(x, op=rop, group=self.group.pg)
+        return x
+
+
+def _check_meta(*tensors) -> None:
+    """A dry group moves nothing: it takes meta tensors only."""
+    for t in tensors:
+        dev = t if isinstance(t, torch.device) or t is None else t.device
+        if dev is not None and torch.device(dev).type != "meta":
+            raise ValueError(f"a dry group takes meta tensors only, got one on {dev}")
 
 
 class PpermuteChannel(GossipChannel):

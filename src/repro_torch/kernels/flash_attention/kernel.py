@@ -15,12 +15,14 @@ import math
 import threading
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from .. import cuda_build
 
 __all__ = [
-    "HEAD_DIMS", "SOURCES", "build", "flash_attention_launch", "reset_launches",
+    "HEAD_DIMS", "SOURCES", "build", "flash_attention_launch", "live_pairs", "reset_launches",
+    "work",
 ]
 
 HEAD_DIMS = (64, 80, 128)
@@ -112,6 +114,29 @@ def flash_attention_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash-attention kernel launch failed: CUDA error {err} ({msg})")
     flash_attention_launch.launches += 1
     return out
+
+
+def live_pairs(b: int, sq: int, sk: int, h: int, causal: bool, window: int) -> int:
+    """Live (q, k) pairs of the mask over the batch and heads, counted row
+    by row: query ``i`` sees keys ``[max(i - window + 1, 0), min(i + 1, Sk))``
+    when causal (``[0, Sk)`` otherwise, cut by the window the same way)."""
+    i = np.arange(sq)
+    hi = np.minimum(i + 1, sk) if causal else np.full(sq, sk)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo, 0).sum()) * b * h
+
+
+def work(q_shape, k_shape, dtype: torch.dtype, causal: bool, window: int) -> tuple[int, int]:
+    """``(flops, bytes)`` of one call on q ``(B, Sq, H, hd)`` and k = v
+    ``(B, Sk, Hkv, hd)``: 4 * hd operations per live pair (the scores and
+    p.v, a multiply-add each), and q, k, v read once and the output written
+    once.  The cost model counts a launch with this work; ``chip_smoke.py``
+    bounds the kernel by it (:func:`~repro_torch.launch.roofline.kernel_bound`)."""
+    b, sq, h, hd = q_shape
+    sk, hkv = k_shape[1], k_shape[2]
+    flops = 4 * hd * live_pairs(b, sq, sk, h, causal, window)
+    nbytes = dtype.itemsize * (2 * b * sq * h * hd + 2 * b * sk * hkv * hd)
+    return flops, nbytes
 
 
 def reset_launches() -> None:

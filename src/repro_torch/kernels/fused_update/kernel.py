@@ -66,8 +66,8 @@ import torch
 from ...core.update_spec import MathCtx, post_io, post_math, pre_io, pre_math
 
 __all__ = [
-    "OPS", "BLOCK", "stage_io", "stage_plain", "fused_stage_launch", "reset_launches",
-    "stage_bytes",
+    "OPS", "BLOCK", "STAGE_FLOPS", "stage_io", "stage_plain", "fused_stage_launch",
+    "reset_launches", "stage_bytes", "stage_work",
 ]
 
 BLOCK = 1024  # = planes.LANES: a per-row column's program covers one plane row
@@ -135,6 +135,31 @@ def stage_plain(kind, op, ctx: MathCtx, svec: torch.Tensor, ins: dict, out_dtype
 def stage_bytes(ins: dict, outs: dict) -> int:
     """Bytes a stage must move: each input read once, each output written once."""
     return sum(t.numel() * t.element_size() for t in (*ins.values(), *outs.values()))
+
+
+# f32 operations per element of each op's math at the plain context (a
+# multiply-add counts 2, a division 1; clip, LARS and weight decay add a few
+# more): grad_step is x - lr*g; decentlam_post (x - mix) / lr, then beta*m +
+# g~, then x - lr*m; decentlam_sa_post (x - mix) / lr (2), the momentum
+# beta*m + (sg*drift + (1 - sg)*g) (5), x - lr*(sg*(beta*m) + drift) (4)
+STAGE_FLOPS = {
+    "grad_step": 2, "identity_g": 0, "momentum_payload": 4, "momentum_accum": 2,
+    "x_minus_lr_m": 2, "momentum_keep_x": 2, "qg_payload": 4, "d2_payload": 7,
+    "assign_x": 0, "assign_m": 0, "mix_minus_lr_m": 2, "momentum_step": 4, "qg_post": 5,
+    "decentlam_post": 6, "decentlam_sa_post": 11,
+}
+
+
+def stage_work(op: str, ins: dict, out_dtypes: dict) -> tuple[int, int]:
+    """``(flops, bytes)`` of one launch on ``ins`` writing outputs of
+    ``out_dtypes`` (``{name: dtype}``) of the same shape: :data:`STAGE_FLOPS`
+    per element, each input read once and each output written once (as
+    :func:`stage_bytes`).  The cost model counts a launch with this work."""
+    first = next(iter(ins.values()))
+    numel = first.numel()
+    nbytes = sum(t.numel() * t.element_size() for t in ins.values())
+    nbytes += sum(numel * dt.itemsize for dt in out_dtypes.values())
+    return numel * STAGE_FLOPS[op], nbytes
 
 
 def fused_stage_launch(kind, op, ctx: MathCtx, svec: torch.Tensor, ins: dict, outs: dict,

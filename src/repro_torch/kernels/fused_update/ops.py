@@ -50,8 +50,9 @@ import torch
 
 from ...core.planes import LANES
 from ...core.update_spec import MathCtx, leaf_scalars, reference_stage
+from ...launch.costmodel import kernel_unit
 from ...utils import tree_leaves, tree_unflatten
-from .kernel import BLOCK, fused_stage_launch, stage_io, stage_plain
+from .kernel import BLOCK, fused_stage_launch, stage_io, stage_plain, stage_work
 
 __all__ = ["make_stage", "fused_stage", "make_plane_stage", "fused_plane_stage",
            "decentlam_update", "IMPLS"]
@@ -84,7 +85,10 @@ def _split_scalars(s: dict, dev) -> tuple[torch.Tensor, dict]:
 def _run(kind, op, ctx, ins, out_dtypes, svec, *, per_node, per_row, nodes, impl, inplace,
          out=None):
     """One stage on one leaf or bucket: the plain version for CPU tensors or
-    ``impl="torch"``, else the kernel (which raises on what it cannot take).
+    ``impl="torch"``, else the kernel (which raises on what it cannot take);
+    on meta tensors (the dry run) the kernel's outputs, unwritten.  Under a
+    cost recorder each call but ``impl="torch"``'s is one ``fused_update``
+    unit (:func:`~repro_torch.launch.costmodel.kernel_unit`).
     ``per_node`` holds ``(n,)`` values, ``per_row`` row columns; the kernel
     runs its 2-D grid over ``nodes`` when there are any.  ``out`` names
     buffers to write outputs into."""
@@ -95,20 +99,29 @@ def _run(kind, op, ctx, ins, out_dtypes, svec, *, per_node, per_row, nodes, impl
         if inplace and n in ins and ins[n].dtype == out_dtypes[n]
     }
     reuse.update(out or {})
-    if first.device.type == "cpu" or impl == "torch":
-        res = stage_plain(kind, op, ctx, svec, ins, out_dtypes, {**per_node, **per_row})
-        for n, buf in reuse.items():
-            res[n] = buf.copy_(res[n])
-        return res
-    res = {
-        n: reuse[n] if n in reuse else torch.empty(first.shape, dtype=dt, device=first.device)
-        for n, dt in out_dtypes.items()
-    }
-    fused_stage_launch(
-        kind, op, ctx, svec, ins, res, nodes=nodes if per_node or per_row else 0,
-        per_node={n: c.reshape(-1) for n, c in per_node.items()},
-        per_row={n: c.reshape(-1) for n, c in per_row.items()},
-    )
+    if impl == "torch":
+        return _plain(kind, op, ctx, ins, out_dtypes, svec, {**per_node, **per_row}, reuse)
+    with kernel_unit("fused_update", lambda: stage_work(op, ins, out_dtypes)):
+        if first.device.type == "cpu":
+            return _plain(kind, op, ctx, ins, out_dtypes, svec, {**per_node, **per_row}, reuse)
+        res = {
+            n: reuse[n] if n in reuse else torch.empty(first.shape, dtype=dt, device=first.device)
+            for n, dt in out_dtypes.items()
+        }
+        if first.device.type == "meta":  # the dry run: the kernel's outputs, unwritten
+            return res
+        fused_stage_launch(
+            kind, op, ctx, svec, ins, res, nodes=nodes if per_node or per_row else 0,
+            per_node={n: c.reshape(-1) for n, c in per_node.items()},
+            per_row={n: c.reshape(-1) for n, c in per_row.items()},
+        )
+    return res
+
+
+def _plain(kind, op, ctx, ins, out_dtypes, svec, cols, reuse):
+    res = stage_plain(kind, op, ctx, svec, ins, out_dtypes, cols)
+    for n, buf in reuse.items():
+        res[n] = buf.copy_(res[n])
     return res
 
 

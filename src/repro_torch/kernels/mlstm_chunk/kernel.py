@@ -19,7 +19,8 @@ import torch
 
 from .. import cuda_build
 
-__all__ = ["MAX_CHUNK", "SOURCES", "build", "mlstm_chunk_launch", "reset_launches"]
+__all__ = ["MAX_CHUNK", "SOURCES", "build", "mlstm_chunk_launch", "recurrent_flops",
+           "reset_launches", "work"]
 
 MAX_CHUNK = 128  # rows per chunk the kernel's shared-memory tiles hold
 MAX_DK = 576  # the largest dk whose carried n the outputs pass holds in shared memory
@@ -153,6 +154,31 @@ def mlstm_chunk_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if passes:
         return h, state, views
     return h, state
+
+
+def work(q_shape, v_shape, dtype: torch.dtype, chunk: int) -> tuple[int, int]:
+    """``(flops, bytes)`` of one call on q, k ``(B, H, S, dk)`` and v
+    ``(B, H, S, dv)``.  Multiply-adds per (batch, head) and chunk of L rows:
+    the causal lower triangle of the scores and of w.v, L(L+1)/2 * (dk +
+    dv), + 2*L*dk*dv (q.C and the state update) + L*dk (q.n); each of q, k,
+    v, h and the two f32 gates moved once, the final f32 C, n and m written
+    once.  The cost model counts a launch with this work; ``chip_smoke.py``
+    bounds the kernel by it."""
+    B, H, S, dk = q_shape
+    dv = v_shape[-1]
+    L = chunk
+    macs = B * H * (S // L) * (L * (L + 1) // 2 * (dk + dv) + 2 * L * dk * dv + L * dk)
+    nbytes = (dtype.itemsize * B * H * S * (2 * dk + 2 * dv) + 4 * 2 * B * H * S
+              + 4 * B * H * (dk * dv + dk + 1))
+    return 2 * macs, nbytes
+
+
+def recurrent_flops(q_shape, v_shape) -> int:
+    """The recurrent form's operations: 2*S*dk*dv multiply-adds per (batch,
+    head), C updated and read once per token: the least work the cell can
+    be done in."""
+    B, H, S, dk = q_shape
+    return 2 * 2 * B * H * S * dk * v_shape[-1]
 
 
 def reset_launches() -> None:

@@ -3,14 +3,19 @@
 
 A tensor on the CPU takes the plain version (:func:`.ref.mlstm_chunked`); a
 CUDA tensor launches the CUDA kernel (:func:`.kernel.mlstm_chunk_launch`) or
-raises.  Both start from a zero state, as the reference's kernel does.
+raises; a meta tensor (the dry run) gets the kernel's outputs, unwritten.
+Both start from a zero state, as the reference's kernel does.  Under a cost
+recorder every call is one ``mlstm_chunk`` unit
+(:func:`~repro_torch.launch.costmodel.kernel_unit`) with
+:func:`.kernel.work`'s FLOPs and bytes.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .kernel import mlstm_chunk_launch
+from ...launch.costmodel import kernel_unit
+from .kernel import mlstm_chunk_launch, work
 from .ref import mlstm_chunked
 
 __all__ = ["mlstm"]
@@ -31,8 +36,15 @@ def mlstm(
     chunk = min(chunk, S)
     if chunk < 1 or S % chunk:
         raise ValueError(f"sequence length {S} is not a multiple of the chunk {chunk}")
-    if q.device.type == "cpu":
-        return mlstm_chunked(q, k, v, i_raw, f_raw, chunk=chunk)
-    if q.device.type == "cuda":
+    if q.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"mlstm runs on CPU or CUDA tensors, got {q.device}")
+    with kernel_unit("mlstm_chunk", lambda: work(q.shape, v.shape, q.dtype, chunk)):
+        if q.device.type == "cpu":
+            return mlstm_chunked(q, k, v, i_raw, f_raw, chunk=chunk)
+        if q.device.type == "meta":
+            B, H, _, dk = q.shape
+            f32 = dict(dtype=torch.float32, device="meta")
+            return (torch.empty(v.shape, dtype=v.dtype, device="meta"),
+                    {"C": torch.empty((B, H, dk, v.shape[3]), **f32),
+                     "n": torch.empty((B, H, dk), **f32), "m": torch.empty((B, H), **f32)})
         return mlstm_chunk_launch(q, k, v, i_raw, f_raw, chunk=chunk)
-    raise ValueError(f"mlstm runs on CPU or CUDA tensors, got {q.device}")

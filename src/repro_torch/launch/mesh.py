@@ -27,6 +27,13 @@ over gloo, its messages staged through pinned host memory.
 
 :func:`run_ranks` spawns a group on this host (the ``spawn`` start method,
 never ``fork``), gives every rank a deadline and raises if any rank fails.
+
+:func:`dry_grid` gives one rank's place on a grid of any size with no
+process group (backend ``"dry"``, device ``meta``): the dry run
+(:mod:`repro_torch.launch.dryrun`) builds a rank's program on it.  The
+collective seams (``core.gossip._Wire``, ``models.layers.TPContext``)
+record each collective and return a meta tensor of its result's shape, and
+raise on a tensor that is not on the meta device.
 """
 
 from __future__ import annotations
@@ -44,21 +51,24 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["NodeGroup", "Grid", "pick_backend", "init_node_group", "init_grid", "subgroup",
-           "n_nodes_of", "node_index", "run_ranks"]
+           "dry_grid", "n_nodes_of", "node_index", "run_ranks"]
 
 
 @dataclasses.dataclass(frozen=True)
 class NodeGroup:
     """This process's place in the node group.  ``pg`` is the process group
-    the channels and means talk over (None: the default group)."""
+    the channels and means talk over (None: the default group).  ``axis``
+    names the group in the cost model's records: ``"node"`` (gossip, the
+    psum mean, metrics) or ``"model"`` (a node's tensor-parallel group)."""
 
     rank: int
     world: int
-    backend: str  # "nccl" | "gloo"
+    backend: str  # "nccl" | "gloo" | "dry" (no process group: meta tensors only)
     device: torch.device
     pg: Any = None
     # the global rank of each group rank (None: the group rank itself)
     members: tuple[int, ...] | None = None
+    axis: str = "node"
 
     def peer(self, r: int) -> int:
         """The global rank of group rank ``r`` (point-to-point ops and a
@@ -71,12 +81,17 @@ class NodeGroup:
         return self.backend == "gloo" and self.device.type == "cuda"
 
     @property
+    def dry(self) -> bool:
+        """Whether this is a :func:`dry_grid` group (no process group)."""
+        return self.backend == "dry"
+
+    @property
     def comm_device(self) -> torch.device:
         """Where small collectives (metrics, gaps) put their tensors."""
-        return self.device if self.backend == "nccl" else torch.device("cpu")
+        return self.device if self.backend in ("nccl", "dry") else torch.device("cpu")
 
     def describe(self) -> str:
-        how = {"nccl": "NCCL, one card per rank",
+        how = {"nccl": "NCCL, one card per rank", "dry": "dry: no process group, meta tensors",
                "gloo": ("gloo, the ranks share the card, messages staged through pinned "
                         "host memory" if self.staged else "gloo on the host CPU")}[self.backend]
         return f"rank {self.rank}/{self.world} on {self.device} ({how})"
@@ -163,19 +178,36 @@ def init_grid(world: NodeGroup, tp: int) -> Grid:
     if tp == 1:
         return Grid(world=world, node=world,
                     model=dataclasses.replace(world, rank=0, world=1, pg=None,
-                                              members=(world.rank,)), tp=1)
+                                              members=(world.rank,), axis="model"), tp=1)
     model = node = None
     for j in range(n):
         ranks = tuple(range(j * tp, (j + 1) * tp))
         pg = dist.new_group(ranks=list(ranks), backend=world.backend)
         if j == i:
-            model = dataclasses.replace(world, rank=m, world=tp, pg=pg, members=ranks)
+            model = dataclasses.replace(world, rank=m, world=tp, pg=pg, members=ranks,
+                                        axis="model")
     for k in range(tp):
         ranks = tuple(range(k, n * tp, tp))
         pg = dist.new_group(ranks=list(ranks), backend=world.backend)
         if k == m:
             node = dataclasses.replace(world, rank=i, world=n, pg=pg, members=ranks)
     return Grid(world=world, node=node, model=model, tp=tp)
+
+
+def dry_grid(nodes: int, tp: int, *, node: int = 0, index: int = 0) -> Grid:
+    """Rank ``(node, index)`` of a ``(nodes x tp)`` grid with no process
+    group: every group is ``"dry"`` on the meta device (module docstring)."""
+    if not (0 <= node < nodes and 0 <= index < tp):
+        raise ValueError(f"rank ({node}, {index}) is not on a ({nodes} x {tp}) grid")
+    meta = torch.device("meta")
+    world = NodeGroup(rank=node * tp + index, world=nodes * tp, backend="dry", device=meta)
+    return Grid(world=world,
+                node=NodeGroup(rank=node, world=nodes, backend="dry", device=meta,
+                               members=tuple(range(index, nodes * tp, tp))),
+                model=NodeGroup(rank=index, world=tp, backend="dry", device=meta,
+                                members=tuple(range(node * tp, (node + 1) * tp)),
+                                axis="model"),
+                tp=tp)
 
 
 def n_nodes_of(group: NodeGroup) -> int:

@@ -518,13 +518,13 @@ def main(argv=None, *, on_step=None, serve_runtime=None, on_serve=None,
             raise NotImplementedError(
                 f"--tp {args.tp}: the stacked trainer (--nodes) runs at tp = 1; tensor "
                 "parallelism runs one process per rank: pass --simulate-nodes N (N x tp ranks) "
-                "or launch under torchrun (ROADMAP.md queue 1, item 2)")
+                "or launch under torchrun (ROADMAP.md §1, queue 2)")
         if args.serve_while_training:
             raise ValueError("--serve-while-training requires --tp 1 (as repro's)")
         if args.failure_drill:
             raise NotImplementedError(
                 "--failure-drill runs at tp = 1: the elastic shrink of a (nodes x tp) grid is "
-                "not ported (ROADMAP.md queue 1, item 2)")
+                "not ported (ROADMAP.md §1, queue 2)")
     if args.simulate_nodes or launched:
         resolve_device(args.device)  # no CUDA on a CUDA request raises here
         if launched:

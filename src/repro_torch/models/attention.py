@@ -255,7 +255,7 @@ def attn_forward(
     if tp_enabled(tp):
         if kv_source is not None:
             raise NotImplementedError(
-                "cross-attention at tp > 1 is not ported (ROADMAP.md queue 1, item 2)")
+                "cross-attention at tp > 1 is not ported (ROADMAP.md §1, queue 2)")
         return _attn_forward_tp(x, params, cfg, tp, positions=positions, causal=causal,
                                 window=window, attn_impl=attn_impl, return_kv=return_kv,
                                 serve=serve)

@@ -35,6 +35,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..launch.costmodel import record_collective
+
 Tree = Any
 
 __all__ = [
@@ -80,10 +82,21 @@ class TPContext:
     def enabled(self) -> bool:
         return self.size > 1
 
-    def _run(self, x: torch.Tensor, fn) -> torch.Tensor:
+    def _run(self, x: torch.Tensor, fn, op: str, dim: int = 0) -> torch.Tensor:
         """``fn(t)`` on a contiguous copy of ``x`` (on the host when staged),
-        in place; the result back on ``x``'s device."""
+        in place; the result back on ``x``'s device.  ``op`` (``all-reduce``
+        or ``all-gather`` along ``dim``) is what the cost model records
+        (:func:`~repro_torch.launch.costmodel.record_collective`); on a dry
+        group (:func:`~repro_torch.launch.mesh.dry_grid`) the result is a
+        meta tensor of its shape, and ``fn`` does not run."""
         g = self.group
+        nbytes = x.numel() * x.element_size()
+        record_collective(op, g, x.shape, nbytes, nbytes * (g.world if op == "all-gather" else 1))
+        if g.dry:
+            if x.device.type != "meta":
+                raise ValueError(f"a dry group takes meta tensors only, got one on {x.device}")
+            t = x.detach().clone()
+            return torch.cat([t] * g.world, dim=dim) if op == "all-gather" else t
         staged = g.staged and x.device.type == "cuda"
         if self.timing and x.device.type == "cuda":
             torch.cuda.synchronize(x.device)
@@ -109,7 +122,7 @@ class TPContext:
             dist.all_reduce(t, op=rop, group=self.group.pg)
             return t
 
-        return self._run(x, fn)
+        return self._run(x, fn, "all-reduce")
 
     def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """The group's tensors concatenated along ``dim`` by model index."""
@@ -121,7 +134,7 @@ class TPContext:
             dist.all_gather(parts, t, group=self.group.pg)
             return torch.cat(parts, dim=dim)
 
-        return self._run(x, fn)
+        return self._run(x, fn, "all-gather", dim)
 
     def copy_in(self, x: torch.Tensor) -> torch.Tensor:
         """Identity forward, all-reduce of the gradient backward."""

@@ -35,7 +35,7 @@ sharded over the model group (the embedding by rows, the lm_head by
 columns, the loss and the lookup summed over the group), the serve cache
 sharded by sequence, and prefill's and decode's logits are the rank's
 vocab shard.  MoE, xLSTM, the SSM heads, the encoder-decoder and the VLM's
-patch splice raise at tp > 1 (ROADMAP.md queue 1, item 2).
+patch splice raise at tp > 1 (ROADMAP.md §1, queue 2).
 """
 
 from __future__ import annotations
@@ -198,8 +198,8 @@ def check_tp(cfg: ModelConfig, tp: int) -> None:
             if cfg.family == "vlm" else None)
     if what is not None:
         raise NotImplementedError(
-            f"{cfg.name} at tp={tp}: {what} is not ported at tp > 1 (ROADMAP.md queue 1, "
-            "item 2); run it at tp = 1")
+            f"{cfg.name} at tp={tp}: {what} is not ported at tp > 1 (ROADMAP.md §1, "
+            "queue 2); run it at tp = 1")
     if cfg.d_ff % tp:
         raise ValueError(f"{cfg.name}: d_ff {cfg.d_ff} is not divisible by tp={tp}")
 

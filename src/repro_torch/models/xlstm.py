@@ -16,7 +16,7 @@ rematerialized chunks of 256 steps; the port's forward loops over the steps
 (the chunking only bounds the reference's backward memory).
 
 The ``*_specs`` functions (the tensor-parallel layout) are not ported:
-the xLSTM stack runs at tp = 1 (ROADMAP.md queue 1, item 2).
+the xLSTM stack runs at tp = 1 (ROADMAP.md §1, queue 2).
 """
 
 from __future__ import annotations

@@ -124,7 +124,7 @@ class RowTracker:
                 if getattr(seg, "shard_axis", None) is not None:
                     raise NotImplementedError(
                         "the row tracker on the sharded plane layouts of tensor parallelism "
-                        "(tp > 1) is not ported (ROADMAP.md queue 1, item 2)")
+                        "(tp > 1) is not ported (ROADMAP.md §1, queue 2)")
                 units = int(np.prod(seg.shape[:nu])) if seg.shape[:nu] else 1
                 unit_size = max(1, int(np.prod(seg.shape[nu:])))
                 starts, ends1 = _unit_intervals(seg.rows, units, unit_size)
@@ -185,7 +185,7 @@ class RowTracker:
         if shard_rank is not None:
             raise NotImplementedError(
                 "step_masks(shard_rank=...) is for the sharded layouts of tensor parallelism "
-                "(tp > 1), not ported (ROADMAP.md queue 1, item 2)")
+                "(tp > 1), not ported (ROADMAP.md §1, queue 2)")
         if device is None:
             first = next((v for v in units.values() if isinstance(v, torch.Tensor)), None)
             device = first.device if first is not None else torch.device("cpu")

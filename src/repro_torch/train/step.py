@@ -364,15 +364,17 @@ class _Ranks:
         return {k: v[lo:lo + b] for k, v in batch.items()}
 
     def reduce(self, per_node: dict, skipped: int, gaps):
-        dev, pg = self.group.comm_device, self.group.pg
+        dev = self.group.comm_device
         names = sorted(per_node)
         sums = torch.stack([per_node[k].sum().to(device=dev, dtype=torch.float32)
                             for k in names] + [torch.tensor(float(skipped), device=dev)])
         gap = torch.as_tensor(gaps, dtype=torch.float32).max().reshape(1).to(dev)
-        dist.all_reduce(sums, group=pg)
-        dist.all_reduce(gap, op=dist.ReduceOp.MAX, group=pg)
-        return ({k: sums[j] / self.n for j, k in enumerate(names)}, float(sums[-1]),
-                float(gap[0]))
+        self._wire.reduce(sums)
+        self._wire.reduce(gap, "max")
+        means = {k: sums[j] / self.n for j, k in enumerate(names)}
+        if self.group.dry:  # the dry run: no values to read
+            return means, 0.0, 0.0
+        return means, float(sums[-1]), float(gap[0])
 
     def consensus(self, x: Tree) -> torch.Tensor:
         """``repro``'s ``_consensus_metric``: per leaf the mean over the
@@ -415,7 +417,7 @@ def _step_fn(cfg: ModelConfig, tcfg: TrainConfig, fleet, channel: GossipChannel,
             raise NotImplementedError(
                 "sparse_gossip at tp > 1 is refused, as the reference refuses it: per-rank "
                 "dirty masks make the volume telemetry vary over the model group; use dense "
-                "gossip at tp > 1 (ROADMAP.md queue 1, item 2)")
+                "gossip at tp > 1 (ROADMAP.md §1, queue 2)")
         sharded = [a is not None for a in tree_leaves(layout.shard_axes())]
     else:
         sharded = None
@@ -467,7 +469,10 @@ def _step_fn(cfg: ModelConfig, tcfg: TrainConfig, fleet, channel: GossipChannel,
                           [g for g, sh in zip(tree_leaves(grads), sharded) if not sh])
             norms = _node_grad_norms(g_planes if planes is not None else grads, n_local, tp,
                                      replicated)
-            bad = torch.nonzero(~torch.isfinite(norms)).reshape(-1)  # one host sync per step
+            if norms.device.type == "meta":  # the dry run: no node is bad
+                bad = torch.zeros(0, dtype=torch.int64)
+            else:
+                bad = torch.nonzero(~torch.isfinite(norms)).reshape(-1)  # one host sync a step
         if bad is not None and bad.numel():
             for gl in tree_leaves(g_planes if planes is not None else grads):
                 gl[bad] = 0.0

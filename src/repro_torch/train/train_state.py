@@ -98,8 +98,11 @@ def init_train_state(
     bucket is zeros or a copy of the parameters and pads stay zero.  At
     ``tp > 1`` the state is model rank ``tp_index``'s shard of the global
     init (a sharded ``plane_layout`` must have the same tp)."""
-    gen = torch.Generator(device=device).manual_seed(seed)
-    params = T.init_params(cfg, gen, tp=tp)
+    device = torch.device(device)
+    if device.type == "meta":  # shapes and dtypes only (the dry run): no generator there
+        params = T.init_params(cfg, torch.Generator(), device=device, tp=tp)
+    else:
+        params = T.init_params(cfg, torch.Generator(device=device).manual_seed(seed), tp=tp)
     if tp > 1:
         params = tree_map(lambda x: x.clone(memory_format=torch.contiguous_format),
                           shard(params, T.param_shard_axes(cfg, tp), tp, tp_index))

@@ -241,6 +241,6 @@ def test_preset_100m_is_repros():
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "xlstm-350m", "hymba-1.5b",
                                   "whisper-tiny", "internvl2-2b"])
 def test_other_families_refuse_tp(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 2"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, queue 2"):
         T.check_tp(get_config(arch, smoke=True), 2)
     T.check_tp(get_config(arch, smoke=True), 1)

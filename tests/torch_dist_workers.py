@@ -376,3 +376,40 @@ def check_shrink(group, gathered, state):
     differ = [k for k in pb if k not in pa or not torch.equal(pa[k], pb[k])]
     fresh = all(not bool(t.any()) for t in tree_leaves(now.get("channel", {})))
     return len(pb), differ, fresh
+
+
+def cost_ranks(group) -> dict:
+    """One distributed train step of a small dense model per algorithm
+    (decentlam: the ppermute gossip; pmsgd: the psum mean) under the cost
+    model's recorder: this rank's collective bytes and counts, the f32
+    payload's bytes, each leaf's bytes and the number of per-node sums the
+    step's metrics all-reduce (test_torch_costmodel.py)."""
+    import torch
+
+    from repro_torch.configs import tiny_lm
+    from repro_torch.core.optimizers import make_optimizer
+    from repro_torch.launch.costmodel import CostRecorder
+    from repro_torch.train.step import TrainConfig, build_dist_train_step
+    from repro_torch.train.train_state import init_train_state
+    from repro_torch.utils import tree_leaves
+
+    cfg = tiny_lm(n_layers=1, d_model=32, n_heads=2, n_kv_heads=1, d_ff=64, vocab_size=128)
+    out = {}
+    for algo in ("decentlam", "pmsgd"):
+        tcfg = TrainConfig(algorithm=algo, fused_update=True)
+        step, channel = build_dist_train_step(cfg, tcfg, group)
+        state = init_train_state(cfg, make_optimizer(tcfg.opt_config()), 1,
+                                 device=torch.device("cpu"), channel=channel)
+        gen = torch.Generator().manual_seed(0)
+        batch = {k: torch.randint(0, cfg.vocab_size, (group.world * 2, 8), generator=gen)
+                 for k in ("tokens", "targets")}
+        rec = CostRecorder()
+        with rec:
+            _, metrics = step(state, batch)
+        leaves = [4 * p.numel() for p in tree_leaves(state["params"])]
+        reduced = set(metrics) - {"lr", "skipped_nonfinite", "gossip_gap"}
+        out[algo] = {"bytes": rec.costs.collective_bytes,
+                     "counts": rec.costs.collective_counts,
+                     "payload_bytes": float(sum(leaves)), "leaf_bytes": leaves,
+                     "n_sums": len(reduced) + 1}
+    return out
