@@ -171,9 +171,9 @@ result line):
     xlstm-350m; qwen3-8b serving with the flash kernel at hd 128 against
     the plain path as in phase 8;
 27. whisper-tiny (the encoder-decoder) at full width and depth (4 + 4
-    layers, d 384, 1500 encoder frames; its CLI and engine refuse it, as the
-    reference's do, so it runs through the train-step API and prefill +
-    decode_step): 3 training steps of 4 stacked nodes on flat planes with
+    layers, d 384, 1500 encoder frames; its engine refuses it, as the
+    reference's does, so it runs through the train-step API and prefill +
+    decode_step; phase 40 trains it through the CLI): 3 training steps of 4 stacked nodes on flat planes with
     seeded ``enc_frames``, exactly 2 stage launches per step, the plain
     stage == the kernel bit for bit; 8 requests of 224 prompt tokens and 32
     new with the flash kernel, exactly 12 launches per prefill wave (the
@@ -248,13 +248,31 @@ result line):
     train_4k on pod1 and decode_32k on pod2; a 1 x 1 grid at phase 15's
     per-node shape, its tracked peak within [0.5, 2] of one real step's
     ``max_memory_allocated``; phase 29's straggler run on the wall clock,
-    calibrated by phase 15's step (exactly sim_time x the step).
+    calibrated by phase 15's step (exactly sim_time x the step);
+37. tensor-parallel MoE training: one granite-moe-1b-a400m MoE layer at a
+    tp 2 rank's shard (16 of 32 experts) forward and backward with no host
+    sync between its collectives; then 2 nodes x tp 2 at full width, 12 of
+    24 layers, through the CLI's rank body with phase 34's gates against
+    the tp 1 run on 2 ranks;
+38-40. tensor parallelism for the rest of the zoo, on 2 ranks sharing the
+    card over gloo, each against tp 1 on the same weights: xlstm-350m (38)
+    and hymba-1.5b (39) at full width and depth behind the engine at tp 2
+    (the first wave's logits and 4 decode steps at 5e-4 relative, the same
+    tokens on both ranks, 20 mlstm_chunk / 32 flash launches a wave and
+    rank; the mLSTM kernel at a rank's dv 256 against its plain version and
+    timed); internvl2-2b's prefill with 256 patch embeddings and 4 decode
+    steps at tp 2 (5e-4; one flash launch a layer) and whisper-tiny trained
+    at 1 node x tp 2 through the CLI with phase 34's gates (40).
 
 Phases 6 and 9 also run flash at whisper-tiny's two non-causal shapes
-(the encoder's 1500 x 1500, the cross-attention's 224 x 1500).  The line
-before the last is the per-kernel JSON record (the stage kernel on the
-per-leaf, plane, staleness, MoE, whisper and row-sparse paths; flash on the qwen3-0.6b, hymba-1.5b and whisper-tiny serve paths and at tp 2;
-mLSTM on xlstm-350m's); the last
+(the encoder's 1500 x 1500, the cross-attention's 224 x 1500), and phase 9
+at the tp 2 rank shapes of phases 33, 39 and 40.  The line before the last
+is the per-kernel JSON record (the stage kernel on the per-leaf, plane,
+staleness, MoE, whisper and row-sparse paths and on tp 2 rank planes of
+qwen3-0.6b, granite-moe and whisper; flash on the qwen3-0.6b, hymba-1.5b
+and whisper-tiny serve paths and at tp 2 ranks of qwen3-0.6b, hymba-1.5b
+and internvl2-2b; mLSTM on xlstm-350m's, whole and at a tp 2 rank's dv);
+the last
 line is
 ``{"ok": true, "device": {...}}``.  Triton kernels compile at first use into
 ``build/triton`` inside the checkout; the two CUDA kernels are built by nvcc
@@ -303,7 +321,13 @@ FA_MAIN_SHAPES = {"qwen3-0.6b prefill": (8, 2048, 2048, 16, 8, 64, 0, True),
                   "whisper-tiny encoder": (8, 1500, 1500, 6, 6, 64, 0, False),
                   "whisper-tiny cross": (8, WHISPER["prompt"], 1500, 6, 6, 64, 0, False),
                   # one rank of phase 33's tp 2: its 8 q heads over its 4 kv heads
-                  "qwen3-0.6b prefill, a tp 2 rank": (8, 2048, 2048, 8, 4, 64, 0, True)}
+                  "qwen3-0.6b prefill, a tp 2 rank": (8, 2048, 2048, 8, 4, 64, 0, True),
+                  # a rank of phase 39: 13 of hymba's 26 padded q heads, the
+                  # replicated kv expanded per head (local_kv), window 1024
+                  "hymba-1.5b prefill, a tp 2 rank": (8, 2048, 2048, 13, 13, 64, 1024, True),
+                  # a rank of phase 40: 8 of internvl2's 16 q heads over 4 kv
+                  # heads, hd 128, the 512-token prompt
+                  "internvl2-2b prefill, a tp 2 rank": (8, 512, 512, 8, 4, 128, 0, True)}
 # the head layouts of this slice's models beyond phase 6's product, (H, Hkv,
 # hd): hymba's GQA group of 5 and olmo-1b's MHA at hd 128
 FA_ZOO_HEADS = ((25, 5, 64), (16, 16, 128))
@@ -1546,20 +1570,20 @@ def _ml_bound(q, v, chunk):
             "ffma": kernel_bound(nbytes, flops)}
 
 
-def phase_mlstm_timing(torch):
-    """The kernel at the serve main path's shape: its time, both bounds, the
-    memory one call takes above its inputs, and its plain version (phase 11
-    splits its device time by pass).  No single PyTorch call computes
-    chunked mLSTM, so there is no library time."""
+def phase_mlstm_timing(torch, m=None, what="the main-path shape", phase=13):
+    """The kernel at the serve main path's shape (or ``m``): its time, both
+    bounds, the memory one call takes above its inputs, and its plain
+    version (phase 11 splits its device time by pass).  No single PyTorch
+    call computes chunked mLSTM, so there is no library time."""
     from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunk_launch
     from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunked
     from repro_torch.launch.roofline import HBM_BYTES_PER_S, TF32_FLOP_PER_S
 
-    m = ML_MAIN
+    m = m or ML_MAIN
     gen = torch.Generator(device="cuda").manual_seed(6)
     args = _ml_inputs(torch, m["B"], m["H"], m["S"], m["dk"], m["dv"], torch.float32,
                       "reference", gen)
-    _, err, _ = _ml_compare(torch, args, m["chunk"], "timing inputs")
+    _, err, _ = _ml_compare(torch, args, m["chunk"], f"timing inputs, {what}")
     run = lambda: mlstm_chunk_launch(*args, chunk=m["chunk"])
     ms = _time_ms(torch, run, 10)
     plain_ms = _time_ms(torch, lambda: mlstm_chunked(*args, chunk=m["chunk"]), 3)
@@ -1574,7 +1598,8 @@ def phase_mlstm_timing(torch):
     (tc_ms, by), (ffma_ms, _) = b["tc"], b["ffma"]
     flops = b["flops"]
     smi = _smi()
-    log(f"phase 13: mlstm_chunk at the main-path shape q/k/v {tuple(args[0].shape)}, chunk "
+    log(f"phase {phase}: mlstm_chunk at {what}, q/k {tuple(args[0].shape)}, v "
+        f"{tuple(args[2].shape)}, chunk "
         f"{m['chunk']}, f32 ({smi}): kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s); "
         f"tensor-core bound {tc_ms:.3f} ms by {by} (3 x {flops / 1e9:.2f} GFLOP, the causal "
         f"triangle, / 494.7 TFLOP/s TF32; {b['bytes'] / 1e9:.3f} GB / 3.35 TB/s = "
@@ -4412,48 +4437,88 @@ TP_TRAIN_RTOL = 1e-5  # the final parameters, relative to each leaf's scale
 TP_DIR = os.path.join(HERE, "build", "tp_smoke")
 # phase 35: --serve-while-training on 2 ranks, 4 layers, the vocabulary cut
 SWT_DIST = dict(nodes=2, depth=4, steps=4, publish_every=2, requests=8)
+# phases 37-40: tensor parallelism for the rest of the zoo, at published
+# width, each path's ranks sharing the card over gloo as phases 33-35's.
+# Phase 37: granite-moe-1b-a400m trained at 2 nodes x tp 2 in expert mode
+# (16 of 32 experts a rank), cut to phase 24's 12 of 24 layers: the tp 1
+# run's two full-depth nodes (~30 GB each with momentum, gradient and
+# gossip planes) beside the tp ranks' kept planes would not fit the card
+TP_MOE = dict(arch="granite-moe-1b-a400m", depth=12, nodes=2, tp=2, steps=2,
+              per_node_batch=MAIN["per_node_batch"], seq_len=MAIN["seq_len"])
+# phases 38-39: xlstm-350m and hymba-1.5b at full depth behind the engine at
+# tp 2 (phase 33's requests), beside the tp 1 engine; the launches a wave
+# and rank of each one's kernel
+# phases 38-39 hold tp 2 against tp 1 at TP_RTOL, or, where it is larger, at
+# ZOO_FLOOR_X times the spread of two tp 1 runs that differ only in their f32
+# summation order (the kernels and their plain versions): xlstm-350m's 24
+# random-init layers amplify f32 rounding ~1e3-fold (tp 1 kernel vs plain
+# 4.8e-3 of the logits' scale at 64 tokens, 1.0e-2 at 2048; 3e-6 at 6
+# layers, on an H100 80GB HBM3), so xlstm-350m is also held at TP_RTOL at 6
+# layers (phase 12's depth); (kernel, launches a wave at full depth, the
+# depth of that tight check or 0)
+TP_ZOO_SERVE = dict(TP_SERVE, max_new=8)  # phase 33's with 8 new tokens (the script's time)
+TP_ZOO_ARCHS = {"xlstm-350m": ("mlstm", 20, 6), "hymba-1.5b": ("flash", 32, 0)}
+ZOO_FLOOR_X = 10
+# phase 40: internvl2-2b at full depth with its 256 patch embeddings spliced
+# over a 512-token prompt, 8 rows, then 4 teacher-forced decode steps, at
+# tp 2 beside tp 1; whisper-tiny trained at 1 node x tp 2, full depth, 1500
+# seeded frames a row, beside the tp 1 run
+TP_VLM = dict(arch="internvl2-2b", batch=8, prompt=512, decode=4)
+TP_WHISPER = dict(arch="whisper-tiny", depth=0, nodes=1, tp=2, steps=2, per_node_batch=4,
+                  seq_len=256)
+# the mlstm_chunk kernel at a tp 2 rank of phase 38: each rank's dv = 256 of 512
+ML_TP = dict(B=8, H=4, S=2048, dk=512, dv=256, chunk=128)
 
 
-def _tp_requests(vocab):
+def _tp_requests(vocab, spec=None):
     import numpy as np
 
     from repro_torch.serve import Request
 
+    spec = spec or TP_SERVE
     rng = np.random.default_rng(0)
-    lens = rng.integers(TP_SERVE["min_prompt"], TP_SERVE["max_prompt"] + 1,
-                        TP_SERVE["requests"])
+    lens = rng.integers(spec["min_prompt"], spec["max_prompt"] + 1, spec["requests"])
     return [Request(rid=i, tokens=rng.integers(0, vocab, int(n)).astype(np.int32),
-                    max_new_tokens=TP_SERVE["max_new"]) for i, n in enumerate(lens)]
+                    max_new_tokens=spec["max_new"]) for i, n in enumerate(lens)]
 
 
-def _tp_engine_run(torch, cfg, make_params, grid):
-    """The phase-33 engine over ``make_params()`` (the global tree, freed
-    once the engine holds its shard) on ``grid`` (None: one process,
-    tp = 1): the first wave's prefill logits and the first
+def _tp_engine_run(torch, cfg, make_params, grid, spec=None, floor=False):
+    """The phase-33 engine (``spec``: TP_SERVE's fields) over
+    ``make_params()`` (the global tree, freed once the engine holds its
+    shard) on ``grid`` (None: one process, tp = 1), with the flash and
+    mLSTM kernels: the first wave's prefill logits and the first
     ``checked`` decode batches' logits (gathered, on the host), prefill and
-    decode wall ms, flash launches, tokens, peak memory (the rank's and the
-    card's in use), and the steps' model-group collectives."""
+    decode wall ms, flash and mLSTM launches, tokens, peak memory (the
+    rank's and the card's in use), and the steps' model-group collectives.
+    With ``floor`` (tp = 1) also the first wave's prefill logits on the
+    plain attention and mLSTM paths (``plain_prefill``): two tp = 1 runs that
+    differ only in their f32 summation order, the spread a tp run's sums in
+    another order can be held to."""
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_launch,
         reset_launches,
     )
+    from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunk_launch
+    from repro_torch.kernels.mlstm_chunk.kernel import reset_launches as reset_mlstm
     from repro_torch.models.transformer import RuntimeConfig
     from repro_torch.serve import ServeEngine
     from repro_torch.train.serve import gather_logits
 
-    slots = TP_SERVE["slots"]
+    spec = spec or TP_SERVE
+    slots = spec["slots"]
     rec = {"decode": [], "prefill_ms": [], "decode_ms": [], "card": 0, "active": []}
 
     def on_logits(lg, active):
-        if len(rec["decode"]) < TP_SERVE["checked"]:  # numpy: it leaves the rank
+        if len(rec["decode"]) < spec["checked"]:  # numpy: it leaves the rank
             rec["decode"].append(lg.float().cpu().numpy())
             rec["active"].append(dict(active))
 
     params = make_params()
-    engine = ServeEngine(cfg, slots=slots, max_prompt=TP_SERVE["max_prompt"],
-                         max_new=TP_SERVE["max_new"], params=params, device="cuda", grid=grid,
+    engine = ServeEngine(cfg, slots=slots, max_prompt=spec["max_prompt"],
+                         max_new=spec["max_new"], params=params, device="cuda", grid=grid,
                          timing=grid is not None, on_logits=on_logits,
-                         runtime=RuntimeConfig(dtype="float32", attn_impl="cuda"))
+                         runtime=RuntimeConfig(dtype="float32", attn_impl="cuda",
+                                               mlstm_impl="cuda"))
     del params
     torch.cuda.empty_cache()
     pre, dec = engine.prefill_step, engine.decode_step
@@ -4470,8 +4535,9 @@ def _tp_engine_run(torch, cfg, make_params, grid):
         rec["prefill_ms"].append(1e3 * (time.perf_counter() - t))
         card()
         if "prefill" not in rec:
-            lg = gather_logits(lg, grid, global_batch=slots)
-            rec["prefill"] = lg.float().cpu().numpy()
+            rec["prefill"] = gather_logits(lg, grid, global_batch=slots).float().cpu().numpy()
+            if floor:
+                rec["wave"] = b["tokens"]
         return lg, cache
 
     def decode(*args):
@@ -4483,14 +4549,25 @@ def _tp_engine_run(torch, cfg, make_params, grid):
         return out
 
     engine.prefill_step, engine.decode_step = prefill, decode
-    for r in _tp_requests(cfg.vocab_size):
+    for r in _tp_requests(cfg.vocab_size, spec):
         engine.submit(r)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    reset_mlstm()
     done = engine.run_until_drained()
     card()
-    rec.update(flash=flash_attention_launch.launches, waves=engine.prefills,
+    if floor:
+        from repro_torch.train.serve import ServeConfig, build_prefill_step
+
+        plain = build_prefill_step(cfg, ServeConfig(runtime=RuntimeConfig(dtype="float32"),
+                                                    target_len=spec["max_prompt"]
+                                                    + spec["max_new"]))
+        lg, _ = plain(engine._params, {"tokens": rec.pop("wave")})
+        rec["plain_prefill"] = lg.float().cpu().numpy()
+        del lg
+    rec.update(flash=flash_attention_launch.launches, mlstm=mlstm_chunk_launch.launches,
+               waves=engine.prefills,
                tokens={c.rid: c.tokens.tolist() for c in done},
                peak=torch.cuda.max_memory_allocated(),
                tp={k: None if f.tp is None else (f.tp.seconds, f.tp.calls, f.tp.staged_bytes)
@@ -4522,32 +4599,35 @@ def _tp_serve_rank(world):
     return mine, _tp_engine_run(torch, cfg, make, None)
 
 
-def _tp_compare(tp, ref):
+def _tp_compare(tp, ref, rtol=TP_RTOL):
     """Phase 33's gates on rank 0's two records: the first wave's logits,
     then each slot's decode logits while its tokens agree (where they part,
-    the tp = 1 run's own top-two gap there must be under the tolerance: a
-    near tie).  Returns the largest relative differences."""
+    the tp = 1 run's own top-two gap there must be under the tolerance
+    ``rtol``: a near tie).  Returns the largest relative differences."""
     import numpy as np
 
     def rel(a, b):
-        return float(np.abs(a - b).max() / np.abs(b).max())
+        return float(np.abs(a[..., :b.shape[-1]] - b).max() / np.abs(b).max())
 
+    # a tp run's logits carry the vocabulary's padding for tp past the tp = 1
+    # run's columns
     errs = {"prefill": rel(tp["prefill"], ref["prefill"])}
-    if not errs["prefill"] <= TP_RTOL:
+    if not errs["prefill"] <= rtol:
         raise RuntimeError(f"TP prefill logits off the tp = 1 engine's by {errs['prefill']:.3g}"
-                           f" (rtol {TP_RTOL})")
+                           f" (rtol {rtol:.3g})")
     parted, dec = {}, []
     for s, (a, b) in enumerate(zip(tp["decode"], ref["decode"])):
         scale = float(np.abs(b).max())
         for j in sorted(ref["active"][s]):
             if j in parted:
                 continue
-            dec.append(float(np.abs(a[j] - b[j]).max()) / scale)
-            if dec[-1] > TP_RTOL:
+            a_j = a[j][:b.shape[-1]]
+            dec.append(float(np.abs(a_j - b[j]).max()) / scale)
+            if dec[-1] > rtol:
                 raise RuntimeError(f"decode step {s}, slot {j}: logits off by {dec[-1]:.3g}")
-            if int(a[j].argmax()) != int(b[j].argmax()):
+            if int(a_j.argmax()) != int(b[j].argmax()):
                 top = np.sort(b[j])[::-1][:2]
-                if float(top[0] - top[1]) > TP_RTOL * scale:
+                if float(top[0] - top[1]) > rtol * scale:
                     raise RuntimeError(f"decode step {s}, slot {j}: the tokens part at a gap "
                                        f"{float(top[0] - top[1]):.3g} (no near tie)")
                 parted[j] = s
@@ -4623,12 +4703,16 @@ def _tp_keep(store, steps, step, state, metrics):
         store["planes"] = state["planes"]
 
 
-def _tp_train_rank(world, argv_tp, argv_one):
+def _tp_train_rank(world, argv_tp, argv_one, spec=None):
     """Phase 34 on one of 4 ranks: the CLI's rank body at (2 x 2); then on
     ranks 0 and 1 the tp = 1 run of the same flags (2 nodes, one each), and
     each tp rank holds its shard of its node's final parameters against the
     tp = 1 node's (read through a CUDA IPC handle: the ranks share the
-    card).  Returns each run's result and the comparison."""
+    card).  ``spec`` (default TP_TRAIN with TP_SERVE's arch) sets the arch,
+    its depth (0: the published one), the nodes, tp and steps.  Returns
+    each run's result and the comparison."""
+    import dataclasses
+
     import functools
     import io
     import pickle
@@ -4643,15 +4727,16 @@ def _tp_train_rank(world, argv_tp, argv_one):
     from repro_torch.launch import train
     from repro_torch.launch.mesh import subgroup
     from repro_torch.train.train_state import model_plane_layout
-    from repro_torch.utils import tree_leaves, tree_paths
+    from repro_torch.utils import tree_leaves, tree_map, tree_paths
 
-    steps, tp = TP_TRAIN["steps"], TP_TRAIN["tp"]
+    spec = spec or {**TP_TRAIN, "arch": TP_SERVE["arch"], "depth": 0}
+    steps, tp = spec["steps"], spec["tp"]
     keep_tp, keep_one = {}, {}
     reset_launches()
     res_tp = train.rank_main(world, argv_tp, functools.partial(_tp_keep, keep_tp, steps))
     torch.cuda.empty_cache()
     node, m = divmod(world.rank, tp)
-    sub = subgroup(world, list(range(TP_TRAIN["nodes"])))
+    sub = subgroup(world, list(range(spec["nodes"])))
     res_one = None
     if sub is not None:
         reset_launches()
@@ -4664,16 +4749,31 @@ def _tp_train_rank(world, argv_tp, argv_one):
     blobs = [None] * world.world
     dist.all_gather_object(blobs, blob)
     theirs = keep_one["planes"] if node == world.rank else pickle.loads(blobs[node])
-    cfg = get_config(TP_SERVE["arch"])
+    cfg = get_config(spec["arch"])
+    if spec["depth"]:
+        cfg = dataclasses.replace(cfg, n_layers=spec["depth"])
     one, lay = model_plane_layout(cfg), model_plane_layout(cfg, tp)
-    want = lay.shard_slice(one.view_unpack(theirs, leading=1), m, leading=1)
+    # the tp = 1 node's leaves padded to tp's global shapes (the vocabulary
+    # and the q heads pad at their ends), cut to this rank's shard; the
+    # padding, which tp = 1 has not, is masked out of the comparison
+    glob = lay.global_template()
+
+    def padded(x, like, fill):
+        pads = [p for n, full in zip(reversed(x.shape[1:]), reversed(like.shape))
+                for p in (0, full - n)]
+        return torch.nn.functional.pad(x, pads, value=fill)
+
+    tree1 = one.view_unpack(theirs, leading=1)
+    want = lay.shard_slice(tree_map(lambda x, g: padded(x, g, 0.0), tree1, glob), m, leading=1)
+    mask = lay.shard_slice(tree_map(lambda x, g: padded(torch.ones_like(x), g, 0.0), tree1,
+                                    glob), m, leading=1)
     got = lay.view_unpack(keep_tp["planes"], leading=1)
-    err = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
-              for a, b in zip(tree_leaves(got), tree_leaves(want)))
-    worst = max(zip((float((a - b).abs().max()) for a, b in zip(tree_leaves(got),
-                                                               tree_leaves(want))),
-                    tree_paths(got)))
-    del theirs, want, got
+    diffs = [float(((a - b) * k).abs().max()) for a, b, k in
+             zip(tree_leaves(got), tree_leaves(want), tree_leaves(mask))]
+    err = max(d / float(b.abs().max().clamp(min=1e-30))
+              for d, b in zip(diffs, tree_leaves(want)))
+    worst = max(zip(diffs, tree_paths(got)))
+    del theirs, want, got, mask, tree1
     torch.cuda.synchronize()
     dist.barrier()
     torch.cuda.ipc_collect()
@@ -4681,7 +4781,85 @@ def _tp_train_rank(world, argv_tp, argv_one):
             "launches": (keep_tp["launches"], keep_one.get("launches"))}
 
 
-def phase_tp_train(torch):
+def _tp_train_argv(spec, tag):
+    """The CLI flags of a TP train phase's two runs (``spec``: arch, depth,
+    nodes, tp, steps, per_node_batch, seq_len), its measurements under
+    TP_DIR/``tag``-*.json: ``(argv at tp, argv at tp = 1)``."""
+    flags = ["--simulate-nodes", str(spec["nodes"]), "--arch", spec["arch"],
+             "--steps", str(spec["steps"]), "--seq-len", str(spec["seq_len"]),
+             "--per-node-batch", str(spec["per_node_batch"]), "--algorithm", "decentlam",
+             "--topology", "exp", "--flat-planes", "--fused-update", "--fused-impl", "triton",
+             "--log-every", "1"] + (["--depth", str(spec["depth"])] if spec["depth"] else [])
+    return (flags + ["--tp", str(spec["tp"]), "--measure-json",
+                     os.path.join(TP_DIR, f"{tag}-tp.json")],
+            flags + ["--measure-json", os.path.join(TP_DIR, f"{tag}-one.json")])
+
+
+def _tp_train_check(torch, out, spec, phase):
+    """A TP train phase's gates on its ranks' results (see
+    :func:`phase_tp_train`), its log lines and the rank plane's stage
+    timing.  Returns the phase's record."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    res, one = out[0]["tp"], out[0]["one"]
+    steps, world = spec["steps"], spec["nodes"] * spec["tp"]
+    if not all(math.isfinite(v) for v in res["losses"] + one["losses"]):
+        raise RuntimeError(f"losses {res['losses']}, tp = 1 {one['losses']}")
+    # each op once per rank and step, in both runs (the tp = 1 run on the
+    # first `nodes` ranks only)
+    want = [{op: k + 1 for op in TAIL_OPS} for k in range(steps)]
+    for r, o in enumerate(out):
+        if o["launches"][0] != want or (o["launches"][1] not in (None, want)):
+            raise RuntimeError(f"rank {r}: stage launches by op after each step "
+                               f"{o['launches']}, want {want}")
+    # the tp run's launches of each op, summed over the ranks
+    launches = {op: sum(o["launches"][0][-1][op] for o in out) for op in TAIL_OPS}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(res["losses"], one["losses"]))
+    err = max(o["err"] for o in out)
+    if not (rel <= 1e-5 and err <= TP_TRAIN_RTOL):
+        raise RuntimeError(f"tp {spec['tp']} against tp 1: losses rel {rel:.3g}, parameters "
+                           f"{err:.3g} of scale (worst {[o['worst'] for o in out]})")
+    cfg = get_config(spec["arch"])
+    if spec["depth"]:
+        cfg = dataclasses.replace(cfg, n_layers=spec["depth"])
+    depth = f"{spec['depth']} of {get_config(spec['arch']).n_layers} layers" if spec[
+        "depth"] else "full depth"
+    log(f"phase {phase}: {spec['arch']} full width, {depth}, {spec['nodes']} nodes x "
+        f"{spec['tp']}-way TP = {world} ranks sharing the card ({res['backend']}), planes, "
+        f"decentlam on exp, {spec['per_node_batch']} x {spec['seq_len']} tokens a node, "
+        f"{steps} steps: losses {res['losses']} (tp = 1 on {spec['nodes']} rank(s): "
+        f"{one['losses']}, max rel {rel:.3g}); each rank's shard of its node's final "
+        f"parameters within {err:.3g} of scale of the tp = 1 run's (tol {TP_TRAIN_RTOL}); "
+        f"stage launches by op after each step, rank 0's {out[0]['launches'][0]}, summed over "
+        f"the {world} ranks {launches}")
+    times = [round(t, 3) for t in res["step_times_s"]]
+    log(f"  step {1e3 * res['step_s']:.1f} ms (step times {times}; tp = 1: "
+        f"{1e3 * one['step_s']:.1f} ms); gossip per rank and round "
+        f"{[round(t, 3) for t in res['gossip_s_per_round']]} s, staged "
+        f"{[round(b / 1e9, 3) for b in res['staged_bytes_per_round']]} GB (tp = 1: "
+        f"{[round(t, 3) for t in one['gossip_s_per_round']]} s, "
+        f"{[round(b / 1e9, 3) for b in one['staged_bytes_per_round']]} GB)")
+    log(f"  the model group's collectives per rank and step (each after a device sync): "
+        f"{[round(t, 3) for t in res['tp_s_per_step']]} s, "
+        f"{[round(c) for c in res['tp_calls_per_step']]} calls, "
+        f"{[round(b / 1e9, 3) for b in res['tp_staged_bytes_per_step']]} GB staged")
+    log(f"  peak memory per rank {[round(p / 2**30, 2) for p in res['peak_mem_bytes_by_rank']]} "
+        f"GiB (tp = 1: {[round(p / 2**30, 2) for p in one['peak_mem_bytes_by_rank']]}); the "
+        f"card in use at most {res['card_used_bytes'] / 2**30:.2f} GiB (tp = 1 run: "
+        f"{one['card_used_bytes'] / 2**30:.2f}, the tp planes kept beside it)")
+    plane = phase_plane_timing(torch, nodes=1, cfg=cfg, tp=spec["tp"])
+    fmt = lambda v: "null" if v is None else f"{v:.3f} ms"  # noqa: E731
+    for op, p in plane.items():
+        log(f"  a tp rank's plane {op} on {p['shape']} f32: kernel {p['ms']:.3f} ms, bound "
+            f"{p['bound_ms']:.3f} ms by {p['bound_by']} ({p['bound_ms'] / p['ms']:.1%} of it), "
+            f"plain version {p['plain_ms']:.3f} ms, library {fmt(p['library_ms'])}, max "
+            f"|kernel - plain| {p['err']:.3g}")
+    return {"res": res, "one": one, "plane": plane, "launches": launches}
+
+
+def phase_tp_train(torch, spec=None, phase=34):
     """Phase 34: tensor-parallel training.  qwen3-0.6b at full width and
     depth, 2 nodes x tp 2 = 4 ranks sharing the card over gloo, flat planes,
     the fused update, decentlam on exp, 4 x 256 tokens per node, 2 steps,
@@ -4697,70 +4875,16 @@ def phase_tp_train(torch):
 
     from repro_torch.launch.mesh import run_ranks
 
+    spec = spec or {**TP_TRAIN, "arch": TP_SERVE["arch"], "depth": 0,
+                    "per_node_batch": MAIN["per_node_batch"], "seq_len": MAIN["seq_len"]}
     shutil.rmtree(TP_DIR, ignore_errors=True)
     os.makedirs(TP_DIR)
     torch.cuda.empty_cache()
-    flags = ["--simulate-nodes", str(TP_TRAIN["nodes"]), "--arch", TP_SERVE["arch"],
-             "--steps", str(TP_TRAIN["steps"]), "--seq-len", str(MAIN["seq_len"]),
-             "--per-node-batch", str(MAIN["per_node_batch"]), "--algorithm", "decentlam",
-             "--topology", "exp", "--flat-planes", "--fused-update", "--fused-impl", "triton",
-             "--log-every", "1"]
-    argv_tp = flags + ["--tp", str(TP_TRAIN["tp"]), "--measure-json",
-                       os.path.join(TP_DIR, "tp.json")]
-    argv_one = flags + ["--measure-json", os.path.join(TP_DIR, "one.json")]
-    world = TP_TRAIN["nodes"] * TP_TRAIN["tp"]
-    out = run_ranks(_tp_train_rank, world, argv_tp, argv_one, device="cuda",
-                    timeout_s=DIST_TIMEOUT_S)
+    argv_tp, argv_one = _tp_train_argv(spec, "train")
+    out = run_ranks(_tp_train_rank, spec["nodes"] * spec["tp"], argv_tp, argv_one, spec,
+                    device="cuda", timeout_s=DIST_TIMEOUT_S)
     shutil.rmtree(TP_DIR, ignore_errors=True)
-    res, one = out[0]["tp"], out[0]["one"]
-    steps = TP_TRAIN["steps"]
-    if not all(math.isfinite(v) for v in res["losses"] + one["losses"]):
-        raise RuntimeError(f"losses {res['losses']}, tp = 1 {one['losses']}")
-    # each op once per rank and step, in both runs (the tp = 1 run on ranks
-    # 0 and 1 only)
-    want = [{op: k + 1 for op in TAIL_OPS} for k in range(steps)]
-    for r, o in enumerate(out):
-        if o["launches"][0] != want or (o["launches"][1] not in (None, want)):
-            raise RuntimeError(f"rank {r}: stage launches by op after each step "
-                               f"{o['launches']}, want {want}")
-    # the tp run's launches of each op, summed over the ranks
-    launches = {op: sum(o["launches"][0][-1][op] for o in out) for op in TAIL_OPS}
-    rel = max(abs(a - b) / abs(b) for a, b in zip(res["losses"], one["losses"]))
-    err = max(o["err"] for o in out)
-    if not (rel <= 1e-5 and err <= TP_TRAIN_RTOL):
-        raise RuntimeError(f"tp 2 against tp 1: losses rel {rel:.3g}, parameters {err:.3g} "
-                           f"of scale (worst {[o['worst'] for o in out]})")
-    mean = lambda v: sum(v) / len(v)  # noqa: E731
-    log(f"phase 34: {TP_SERVE['arch']} full width and depth, {TP_TRAIN['nodes']} nodes x "
-        f"{TP_TRAIN['tp']}-way TP = {world} ranks sharing the card ({res['backend']}), planes, "
-        f"decentlam on exp, {steps} steps: losses {res['losses']} (tp = 1 on 2 ranks: "
-        f"{one['losses']}, max rel {rel:.3g}); each rank's shard of its node's final "
-        f"parameters within {err:.3g} of scale of the tp = 1 run's (tol {TP_TRAIN_RTOL}); "
-        f"stage launches by op after each step, rank 0's {out[0]['launches'][0]}, summed over "
-        f"the {world} ranks {launches}")
-    times = [round(t, 3) for t in res["step_times_s"]]
-    log(f"  step {1e3 * res['step_s']:.1f} ms (step times {times}; tp = 1 on 2 ranks: "
-        f"{1e3 * one['step_s']:.1f} ms); gossip per rank and round "
-        f"{[round(t, 3) for t in res['gossip_s_per_round']]} s, staged "
-        f"{[round(b / 1e9, 3) for b in res['staged_bytes_per_round']]} GB (tp = 1: "
-        f"{[round(t, 3) for t in one['gossip_s_per_round']]} s, "
-        f"{[round(b / 1e9, 3) for b in one['staged_bytes_per_round']]} GB)")
-    log(f"  the model group's collectives per rank and step (each after a device sync): "
-        f"{[round(t, 3) for t in res['tp_s_per_step']]} s, "
-        f"{[round(c) for c in res['tp_calls_per_step']]} calls, "
-        f"{[round(b / 1e9, 3) for b in res['tp_staged_bytes_per_step']]} GB staged")
-    log(f"  peak memory per rank {[round(p / 2**30, 2) for p in res['peak_mem_bytes_by_rank']]} "
-        f"GiB (tp = 1: {[round(p / 2**30, 2) for p in one['peak_mem_bytes_by_rank']]}); the "
-        f"card in use at most {res['card_used_bytes'] / 2**30:.2f} GiB (tp = 1 run: "
-        f"{one['card_used_bytes'] / 2**30:.2f}, the tp planes kept beside it)")
-    plane = phase_plane_timing(torch, nodes=1, tp=TP_TRAIN["tp"])
-    fmt = lambda v: "null" if v is None else f"{v:.3f} ms"  # noqa: E731
-    for op, p in plane.items():
-        log(f"  a tp rank's plane {op} on {p['shape']} f32: kernel {p['ms']:.3f} ms, bound "
-            f"{p['bound_ms']:.3f} ms by {p['bound_by']} ({p['bound_ms'] / p['ms']:.1%} of it), "
-            f"plain version {p['plain_ms']:.3f} ms, library {fmt(p['library_ms'])}, max "
-            f"|kernel - plain| {p['err']:.3g}")
-    return {"res": res, "one": one, "plane": plane, "launches": launches}
+    return _tp_train_check(torch, out, spec, phase)
 
 
 def _swt_check(engine, pub):
@@ -5023,6 +5147,327 @@ def phase_cost_model(torch, flat, straggler):
     return {"flops": c.flops, "product_flops": c.product_flops, "mem_ratio": ratio}
 
 
+# ---------------------------------------------------------------------------
+# Tensor parallelism for the rest of the zoo (phases 37-40)
+# ---------------------------------------------------------------------------
+
+
+def _on_device_tp(size, index):
+    """A model group of ``size`` whose collectives are on-device identities
+    (a copy of the rank's own tensor), for checking that the sharded code
+    between the collectives waits on no host: each real gloo collective
+    stages its tensor through host memory, a sync by design."""
+    from repro_torch.models.layers import TPContext
+
+    class OnDevice(TPContext):
+        def all_reduce(self, x, op="sum"):
+            self.calls += 1
+            return x.clone()
+
+    tp = OnDevice(None)
+    tp.size, tp.index = size, index
+    return tp
+
+
+def _moe_tp_layer_no_sync(torch, cfg, tp_size):
+    """One MoE layer in expert mode at a tp rank's shard (its ``E / tp``
+    experts and its block of the dispatch tables) at the main path's shape
+    (4 x 256 tokens), forward and backward, with CUDA's sync debug mode at
+    "error": the routing, the rank's slots, its experts and its combine
+    never wait on the host (the model group's collectives are on-device
+    identities here, :func:`_on_device_tp`)."""
+    from repro_torch.models.layers import Initializer
+    from repro_torch.models.moe import _expert_sharding, moe_forward, moe_init, moe_shard_axes
+    from repro_torch.utils import shard
+
+    if _expert_sharding(cfg, tp_size) != "expert":
+        raise RuntimeError(f"{cfg.name} at tp {tp_size} is not expert-sharded")
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    full = moe_init(Initializer(gen), cfg)
+    tp = _on_device_tp(tp_size, 1)
+    params = {k: v.clone().requires_grad_()
+              for k, v in shard(full, moe_shard_axes(cfg, tp_size), tp_size, tp.index).items()}
+    del full
+    x = torch.randn(MAIN["per_node_batch"], MAIN["seq_len"], cfg.d_model, device="cuda",
+                    generator=gen, requires_grad=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, aux = moe_forward(x, params, cfg, tp)
+        loss = out.square().mean() + aux["moe_load_balance"] + aux["moe_router_z"]
+        torch.autograd.grad(loss, [x, *params.values()])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    if tp.calls != 3:  # the combine forward; the input's and the gates' gradients
+        raise RuntimeError(f"the sharded MoE layer made {tp.calls} model-group all-reduces, "
+                           "want 3")
+    log(f"phase 37: one {cfg.name} MoE layer at tp {tp_size} rank {tp.index} "
+        f"({params['w_in'].shape[0]} of {cfg.n_experts} experts) forward + backward at "
+        f"{tuple(x.shape)} ran with no host sync (CUDA sync debug mode \"error\"; its "
+        f"{tp.calls} model-group all-reduces on-device identities here)")
+
+
+def phase_tp_moe_train(torch):
+    """Phase 37: granite-moe-1b-a400m trained at 2 nodes x tp 2 in expert
+    mode (TP_MOE; the CLI's rank body, phase 34's run and gates): first one
+    sharded MoE layer with no host sync (:func:`_moe_tp_layer_no_sync`),
+    then 2 steps on planes beside the tp 1 run on 2 ranks: a rank's shard
+    of the final parameters within 1e-5 of scale of tp 1's, each stage op
+    once per rank and step; a rank plane's stage timing."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(TP_MOE["arch"]), n_layers=TP_MOE["depth"])
+    _moe_tp_layer_no_sync(torch, cfg, TP_MOE["tp"])
+    return phase_tp_train(torch, TP_MOE, 37)
+
+
+def _unpadded(cfg, tp, params):
+    """A global tree padded for ``tp`` cut to tp = 1's shapes (the padded q
+    heads and vocabulary rows dropped): the same model at tp = 1."""
+    from repro_torch.utils import tree_map
+
+    hd, h, v = cfg.hd, cfg.n_heads, cfg.vocab_size
+    p = tree_map(lambda x: x, params)  # new dicts, the same tensors
+    p["embed"]["table"] = p["embed"]["table"][:v]
+    if "lm_head" in p:
+        p["lm_head"]["w"] = p["lm_head"]["w"][:, :v]
+    for g in p["groups"].values():
+        if "attn" in g:
+            g["attn"]["wq"] = g["attn"]["wq"][..., :h * hd]
+            g["attn"]["wo"] = g["attn"]["wo"][:, :h * hd]
+    return p
+
+
+def _tp_vlm_run(torch, cfg, make_params, grid):
+    """Phase 40's VLM run on ``grid`` (None: one process, tp = 1): the
+    rank's serving shard of ``make_params()``, one prefill of TP_VLM's
+    seeded 8 x 512 tokens with 256 seeded patch embeddings spliced over
+    the first positions, then 4 decode steps fed the prompt's next seeded
+    tokens; the gathered logits (on the host), wall ms, flash launches,
+    peak memory and the model group's collectives."""
+    from repro_torch.interop import shard
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_launch,
+        reset_launches,
+    )
+    from repro_torch.models.transformer import RuntimeConfig
+    from repro_torch.train import serve as S
+    from repro_torch.utils import tree_map
+
+    b, n, k = TP_VLM["batch"], TP_VLM["prompt"], TP_VLM["decode"]
+    scfg = S.ServeConfig(runtime=RuntimeConfig(dtype="float32", attn_impl="cuda"),
+                         target_len=n + k)
+    params = make_params()
+    if grid is not None:
+        axes = S.serve_specs(cfg, grid, global_batch=b)[0]
+        params = tree_map(lambda x: x.clone(), shard(params, axes, grid.tp, grid.model.rank))
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    toks = torch.randint(0, cfg.vocab_size, (b, n + k), device="cuda", generator=gen)
+    patches = torch.randn(b, cfg.num_patches, cfg.d_model, device="cuda", generator=gen)
+    pre = S.build_prefill_step(cfg, scfg, grid, global_batch=b, timing=grid is not None)
+    dec = S.build_decode_step(cfg, scfg, grid, target_len=n + k, global_batch=b,
+                              timing=grid is not None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t = time.perf_counter()
+    lg, cache = pre(params, {"tokens": toks[:, :n], "patch_embeds": patches})
+    torch.cuda.synchronize()
+    rec = {"prefill_ms": 1e3 * (time.perf_counter() - t), "flash": flash_attention_launch.launches,
+           "prefill": S.gather_logits(lg, grid, global_batch=b).float().cpu().numpy(),
+           "decode": [], "decode_ms": []}
+    for j in range(k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg, cache = dec(params, toks[:, n + j:n + j + 1], cache, torch.tensor(n + j))
+        torch.cuda.synchronize()
+        rec["decode_ms"].append(1e3 * (time.perf_counter() - t))
+        rec["decode"].append(S.gather_logits(lg, grid, global_batch=b).float().cpu().numpy())
+    rec["peak"] = torch.cuda.max_memory_allocated()
+    rec["tp"] = {name: None if f.tp is None else (f.tp.seconds, f.tp.calls, f.tp.staged_bytes)
+                 for name, f in (("prefill", pre), ("decode", dec))}
+    del params, cache, lg
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _tp_zoo_rank(world):
+    """Phases 38-40 on one of 2 ranks sharing the card: xlstm-350m's and
+    hymba-1.5b's engines on the (1 x 2) grid, then rank 0 alone the tp = 1
+    engine on the same weights (the padding cut); internvl2-2b's prefill
+    with patches and decode on the grid and at tp = 1 on rank 0; whisper-
+    tiny's training through the CLI's rank body at (1 x 2) beside the tp 1
+    run on rank 0 (:func:`_tp_train_rank`).  Rank 0 returns the tp = 1
+    records beside its own."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_grid
+    from repro_torch.models import transformer as T
+
+    tp = TP_ZOO_SERVE["tp"]
+    grid = init_grid(world, tp)
+    out = {}
+
+    def runs(cfg, run, **one):
+        def make():  # the same global tree at every call
+            return T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), tp=tp)
+
+        mine = run(torch, cfg, make, grid)
+        torch.cuda.empty_cache()
+        ref = run(torch, cfg, lambda: _unpadded(cfg, tp, make()), None, **one) \
+            if world.rank == 0 else None
+        torch.cuda.empty_cache()
+        return mine, ref
+
+    def engine(t, c, m, g, **kw):
+        return _tp_engine_run(t, c, m, g, TP_ZOO_SERVE, **kw)
+
+    for arch, (_, _, depth) in TP_ZOO_ARCHS.items():
+        cfg = get_config(arch)
+        out[arch] = runs(cfg, engine, floor=True)
+        if depth:
+            out[f"{arch}@{depth}"] = runs(dataclasses.replace(cfg, n_layers=depth), engine)
+    out[TP_VLM["arch"]] = runs(get_config(TP_VLM["arch"]), _tp_vlm_run)
+    out[TP_WHISPER["arch"]] = _tp_train_rank(world, *_tp_train_argv(TP_WHISPER, "whisper"),
+                                             TP_WHISPER)
+    return out
+
+
+def _tp_zoo_gates(what, mine, other, kernel, per_wave):
+    """Phase 38/39's launch, completion and rank-agreement gates."""
+    for r, m in enumerate((mine, other)):
+        if m["waves"] != 1 or m[kernel] != per_wave:
+            raise RuntimeError(f"{what} rank {r}: {m[kernel]} {kernel} launches in "
+                               f"{m['waves']} waves, want {per_wave} in 1")
+        if len(m["tokens"]) != TP_ZOO_SERVE["requests"]:
+            raise RuntimeError(f"{what} rank {r}: {len(m['tokens'])} requests done")
+    if mine["tokens"] != other["tokens"]:
+        raise RuntimeError(f"{what}: the two ranks generated different tokens")
+
+
+def _tp_serve_log(phase, arch, mine, ref, errs, kernel, per_wave):
+    """Phase 38/39's log lines: launches, the tp 1 comparison, times,
+    collectives and memory (rank 0's records)."""
+    mean = lambda v: sum(v) / len(v)  # noqa: E731
+    sec, calls, staged = mine["tp"]["decode"]
+    psec, pcalls, pstaged = mine["tp"]["prefill"]
+    steps = len(mine["decode_ms"])
+    same = sum(mine["tokens"][k] == ref["tokens"][k] for k in ref["tokens"])
+    log(f"phase {phase}: {arch} full width and depth, tp {TP_ZOO_SERVE['tp']} on 2 ranks "
+        f"sharing the card (gloo), f32, the {kernel} kernel: {TP_ZOO_SERVE['requests']} "
+        f"requests of {TP_ZOO_SERVE['min_prompt']}..{TP_ZOO_SERVE['max_prompt']} prompt "
+        f"tokens, {TP_ZOO_SERVE['max_new']} new; all complete on both ranks with the same "
+        f"tokens ({same} of {len(ref['tokens'])} requests token for token as the tp = 1 "
+        f"engine); {kernel} launches {mine[kernel]} in {mine['waves']} wave ({per_wave} a wave "
+        f"and rank)")
+    log(f"  against the tp = 1 engine on the same weights: prefill logits max rel diff "
+        f"{errs['prefill']:.3g}, the first {TP_ZOO_SERVE['checked']} decode steps "
+        f"{errs['decode']:.3g} (rtol {TP_RTOL}); slots whose tokens parted at a near tie "
+        f"{errs['parted'] or 'none'}")
+    log(f"  prefill {mean(mine['prefill_ms']):.1f} ms per wave (tp = 1: "
+        f"{mean(ref['prefill_ms']):.1f}); its collectives {psec:.3f} s, {pcalls} calls, "
+        f"{pstaged / 1e9:.3f} GB staged; decode {mean(mine['decode_ms'][1:]):.1f} ms per step "
+        f"(tp = 1: {mean(ref['decode_ms'][1:]):.1f}); collectives per decode step "
+        f"{sec / steps * 1e3:.1f} ms, {calls / steps:.0f} calls, {staged / steps / 1e6:.2f} MB "
+        f"staged; peak memory per rank {mine['peak'] / 2**30:.2f} GiB (tp = 1: "
+        f"{ref['peak'] / 2**30:.2f})")
+
+
+def phase_tp_zoo(torch):
+    """Phases 38-40 in one spawned group of 2 ranks sharing the card over
+    gloo (:func:`_tp_zoo_rank`), each against tp 1 on the same weights:
+
+    * 38: xlstm-350m at full width and depth behind the engine at tp 2
+      (phase 33's requests; each rank's mLSTM on dv 256 of 512, sLSTM
+      replicated): the first wave's logits and the first 4 decode steps
+      within max(5e-4, ZOO_FLOOR_X x the spread of two tp = 1 runs on the
+      first wave, kernels against plain versions), the same tokens on both
+      ranks, 20 mlstm_chunk launches a wave and rank; at 6 layers the same
+      at 5e-4; then the kernel at the rank shape against its plain
+      version, timed (ML_TP);
+    * 39: hymba-1.5b the same at full depth, 32 flash launches a wave and
+      rank (the kernel at 13 expanded heads is phase 9's shape, held there);
+    * 40: internvl2-2b's prefill with 256 patch embeddings and 4 decode
+      steps at 5e-4 relative, 24 flash launches a rank; whisper-tiny
+      trained at 1 node x tp 2 (the CLI, seeded frames): phase 34's gates.
+
+    Every gate raises."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import transformer as T
+
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    os.makedirs(TP_DIR)
+    torch.cuda.empty_cache()
+    out = run_ranks(_tp_zoo_rank, TP_ZOO_SERVE["tp"], device="cuda", timeout_s=DIST_TIMEOUT_S)
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    rec = {}
+    rel = lambda a, b: float(np.abs(a[..., :b.shape[-1]] - b).max() / np.abs(b).max())  # noqa: E731
+    for phase, (arch, (kernel, per_wave, depth)) in zip((38, 39), TP_ZOO_ARCHS.items()):
+        (mine, ref), (other, _) = out[0][arch], out[1][arch]
+        spread = rel(ref["prefill"], ref["plain_prefill"])
+        rtol = max(TP_RTOL, ZOO_FLOOR_X * spread)
+        errs = _tp_compare(mine, ref, rtol)
+        _tp_zoo_gates(arch, mine, other, kernel, per_wave)
+        _tp_serve_log(phase, arch, mine, ref, errs, kernel, per_wave)
+        log(f"  two tp = 1 runs on the first wave, the kernels against their plain versions "
+            f"(f32 sums in another order): prefill logits {spread:.3g} of scale apart; tp 2 "
+            f"held at {rtol:.3g} (max of {TP_RTOL} and {ZOO_FLOOR_X} x that)")
+        rec[arch] = {"launches": mine[kernel], "errs": errs, "spread": spread}
+        if depth:
+            cut = dataclasses.replace(get_config(arch), n_layers=depth)
+            n = sum(1 for g in T.block_groups(cut) if g.kind == "mlstm" for _ in g.layers) \
+                if cut.xlstm else depth
+            (m6, r6), (o6, _) = out[0][f"{arch}@{depth}"], out[1][f"{arch}@{depth}"]
+            errs6 = _tp_compare(m6, r6)
+            _tp_zoo_gates(f"{arch} at {depth} layers", m6, o6, kernel, n)
+            log(f"  at {depth} layers (full width): the first wave's logits {errs6['prefill']:.3g}"
+                f" and the first {TP_ZOO_SERVE['checked']} decode steps {errs6['decode']:.3g} of "
+                f"scale off the tp = 1 engine's (rtol {TP_RTOL}); {kernel} launches {m6[kernel]} "
+                f"({n} a wave and rank); tokens parted at a near tie {errs6['parted'] or 'none'}")
+            rec[arch]["errs_cut"] = errs6
+    rec["mlstm"] = phase_mlstm_timing(torch, ML_TP, "a tp 2 rank's shape of phase 38 (dv 256 "
+                                      "of 512)", 38)
+
+    (mine, ref), (other, _) = out[0][TP_VLM["arch"]], out[1][TP_VLM["arch"]]
+    errs = [rel(mine["prefill"], ref["prefill"])] + [rel(a, b) for a, b in
+                                                     zip(mine["decode"], ref["decode"])]
+    layers = get_config(TP_VLM["arch"]).n_layers
+    if max(errs) > TP_RTOL or not np.array_equal(mine["prefill"], other["prefill"]):
+        raise RuntimeError(f"{TP_VLM['arch']} at tp 2: logits off tp 1 by {errs} (rtol "
+                           f"{TP_RTOL}) or the ranks' gathered logits differ")
+    if mine["flash"] != layers or other["flash"] != layers:
+        raise RuntimeError(f"{TP_VLM['arch']}: flash launches {mine['flash']}, "
+                           f"{other['flash']} a rank, want {layers} (one a layer)")
+    sec, calls, staged = mine["tp"]["prefill"]
+    log(f"phase 40: {TP_VLM['arch']} full width and depth, tp 2 on 2 ranks, f32, flash: "
+        f"{TP_VLM['batch']} x {TP_VLM['prompt']} prompt tokens with "
+        f"{get_config(TP_VLM['arch']).num_patches} seeded patch embeddings a row spliced, then "
+        f"{TP_VLM['decode']} decode steps: logits max rel diff to tp 1 prefill {errs[0]:.3g}, "
+        f"decode {[f'{e:.3g}' for e in errs[1:]]} (rtol {TP_RTOL}); flash launches "
+        f"{mine['flash']} a rank (one a layer); prefill {mine['prefill_ms']:.1f} ms (tp = 1: "
+        f"{ref['prefill_ms']:.1f}), its collectives {sec:.3f} s, {calls} calls, "
+        f"{staged / 1e9:.3f} GB staged; decode {[round(t, 1) for t in mine['decode_ms']]} ms "
+        f"(tp = 1: {[round(t, 1) for t in ref['decode_ms']]}); peak per rank "
+        f"{mine['peak'] / 2**30:.2f} GiB (tp = 1: {ref['peak'] / 2**30:.2f})")
+    rec["vlm"] = {"launches": mine["flash"], "errs": errs}
+    rec["whisper"] = _tp_train_check(torch, [o[TP_WHISPER["arch"]] for o in out], TP_WHISPER,
+                                     40)
+    return rec
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -5106,6 +5551,8 @@ def main() -> int:
     tp_train = timed("34 tensor-parallel train", phase_tp_train)
     timed("35 serve while training on ranks", phase_dist_serve_while_training)
     timed("36 cost model on the card", phase_cost_model, flat, straggler)
+    tp_moe = timed("37 tensor-parallel MoE train", phase_tp_moe_train)
+    tp_zoo = timed("38-40 tensor-parallel xLSTM, hybrid, VLM serve; whisper train", phase_tp_zoo)
     log(f"phase times (s): {phases}; total {time.perf_counter() - t0:.1f}s")
     log(f"device memory allocated after each phase (GiB): {held}")
     # one record per specialization of the Triton kernel on the training main
@@ -5171,6 +5618,8 @@ def main() -> int:
     } for op, rec in moe["plane"].items()]
     fa_whisper = {k: fa[k] for k in ("whisper-tiny encoder", "whisper-tiny cross")}
     fa_tp = fa["qwen3-0.6b prefill, a tp 2 rank"]
+    fa_hy_tp = fa["hymba-1.5b prefill, a tp 2 rank"]
+    fa_vlm_tp = fa["internvl2-2b prefill, a tp 2 rank"]
     fa, hy = fa["qwen3-0.6b prefill"], fa["hymba-1.5b prefill"]
     records.append({
         "name": "flash_attention[causal, f32, hd 64]",
@@ -5289,6 +5738,60 @@ def main() -> int:
         "bound_by": fa_tp["bound_by"],
         "library_ms": fa_tp["library_ms"],
     })
+    # phase 37: a granite-moe-1b-a400m tp 2 rank's local plane (12 layers,
+    # expert-sharded), one launch per stage, rank and step (summed over the
+    # 4 ranks); phase 40: a whisper-tiny tp 2 rank's plane (2 ranks)
+    for arch, rec_tp in ((TP_MOE["arch"], tp_moe), (TP_WHISPER["arch"], tp_zoo["whisper"])):
+        records += [{
+            "name": f"fused_update[{arch} tp 2 rank plane {op}]",
+            "route": "triton",
+            "source": "src/repro_torch/kernels/fused_update/_triton.py",
+            "replaces": "src/repro/kernels/fused_update/kernel.py:66",
+            "launches": rec_tp["launches"][op],
+            "max_abs_err": rec["err"],
+            "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"],
+        } for op, rec in rec_tp["plane"].items()]
+    # phase 38: mlstm_chunk at a tp 2 rank's dv = 256, 20 launches a wave on
+    # each rank (the count is rank 0's); phases 39-40: flash at hymba's 13
+    # expanded heads and internvl2's 8/4 heads of a tp 2 rank (32 and 24 a
+    # wave and rank), timed at those shapes in phase 9
+    ml_tp = tp_zoo["mlstm"]
+    records.append({
+        "name": "mlstm_chunk[xlstm-350m at tp 2, a rank's prefill: f32, dk 512, dv 256, "
+                "chunk 128]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/mlstm_chunk/csrc/mlstm_chunk.cu",
+        "replaces": "src/repro/kernels/mlstm_chunk/kernel.py:99",
+        "launches": tp_zoo["xlstm-350m"]["launches"],
+        "max_abs_err": ml_tp["err"],
+        "ms": ml_tp["ms"],
+        "plain_ms": ml_tp["plain_ms"],
+        "bound_ms": ml_tp["bound_ms"],
+        "bound_by": ml_tp["bound_by"],
+        "library_ms": ml_tp["library_ms"],
+    })
+    for name, rec, launches in (
+            ("hymba-1.5b at tp 2, a rank's prefill: causal, window 1024, f32, hd 64, 13/13 "
+             "heads", fa_hy_tp, tp_zoo["hymba-1.5b"]["launches"]),
+            ("internvl2-2b at tp 2, a rank's prefill: causal, f32, hd 128, 8/4 heads",
+             fa_vlm_tp, tp_zoo["vlm"]["launches"])):
+        records.append({
+            "name": f"flash_attention[{name}]",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:99",
+            "launches": launches,
+            "max_abs_err": rec["err"],
+            "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"],
+        })
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -8,6 +8,10 @@ shared pair as ``heterogeneity`` grows.  alpha = 0 reproduces the IID
 (homogeneous-shards) data-center setting; alpha > 0 emulates EdgeAI-style
 non-IID shards.  Everything is a pure function of (seed, node, step) —
 restart-safe by construction, no state to checkpoint.
+
+For an encoder-decoder, ``enc_frames=(T_enc, d)`` adds each row's stub
+frame embeddings (the frontend's output), standard normal from the same
+(seed, step).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ class SyntheticLMConfig:
     seed: int = 0
     heterogeneity: float = 0.0
     noise: float = 0.05  # probability of a uniformly random token
+    enc_frames: tuple[int, int] | None = None  # (T_enc, d): add stub encoder frames
 
 
 class SyntheticLM:
@@ -49,7 +54,8 @@ class SyntheticLM:
             self.b[i] = (b0 + db) % v
 
     def batch(self, step: int) -> dict[str, np.ndarray]:
-        """Returns {tokens, targets}: (n_nodes * per_node_batch, seq_len)."""
+        """Returns {tokens, targets}: (n_nodes * per_node_batch, seq_len)
+        [, enc_frames (n_nodes * per_node_batch, T_enc, d) float32]."""
         c = self.cfg
         rng = np.random.default_rng((c.seed, step))
         seqs = np.empty((c.n_nodes, c.per_node_batch, c.seq_len + 1), np.int64)
@@ -63,7 +69,12 @@ class SyntheticLM:
             seqs[:, :, t + 1] = nxt
             cur = nxt
         flat = seqs.reshape(c.n_nodes * c.per_node_batch, c.seq_len + 1)
-        return {
+        out = {
             "tokens": flat[:, :-1].astype(np.int32),
             "targets": flat[:, 1:].astype(np.int32),
         }
+        if c.enc_frames is not None:
+            frames = np.random.default_rng((c.seed, step, 1)).standard_normal(
+                (flat.shape[0], *c.enc_frames))
+            out["enc_frames"] = frames.astype(np.float32)
+        return out

@@ -34,6 +34,11 @@ version's on the CPU, the launcher's allocations on the card — so a CPU
 run and a card run of the same step count alike.  :func:`count_launches`
 is the counterpart of ``count_primitive(jaxpr, "pallas_call")``.
 
+**A loop traced once**: on meta tensors the sLSTM recurrence
+(:mod:`repro_torch.models.xlstm`) runs one step of its time loop inside
+:func:`trips`, which counts that step's ops (forward, and backward through
+its autograd function) once per step of the sequence.
+
 **Collectives** are recorded where the port issues them: ``_Wire``
 (:mod:`repro_torch.core.gossip`: the distributed channels, the psum mean
 and the distributed step's metric reductions) and ``TPContext._run``
@@ -63,6 +68,7 @@ __all__ = [
     "count_launches",
     "kernel_unit",
     "record_collective",
+    "trips",
 ]
 
 
@@ -205,6 +211,7 @@ class CostRecorder(TorchDispatchMode):
         self.group_sizes = dict(group_sizes or {})
         self.memory = memory
         self._unit = 0
+        self._trips = 1
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -214,24 +221,25 @@ class CostRecorder(TorchDispatchMode):
         if self._unit:
             return out
         name = func._overloadpacket.__name__.rstrip("_")
-        io = sum(_nbytes(t) for t in _tensors((args, kwargs))) + sum(
-            _nbytes(t) for t in _tensors(out))
+        n = self._trips
+        io = n * (sum(_nbytes(t) for t in _tensors((args, kwargs))) + sum(
+            _nbytes(t) for t in _tensors(out)))
         c = self.costs
         c.naive_bytes += io
         c.naive_bytes_untripped += io
         if name in _MATERIALIZING:
             c.materialized_bytes += io
         if name in _PRODUCTS:
-            f = _product_flops(name, args, out)
+            f = n * _product_flops(name, args, out)
             c.flops += f
             c.product_flops += f
         elif name in _CONVS:
             first = out[0] if isinstance(out, (list, tuple)) else out
-            f = _conv_flops(name, args, first)
+            f = n * _conv_flops(name, args, first)
             c.flops += f
             c.product_flops += f
         elif name not in _EMPTIES:
-            c.flops += sum(float(t.numel()) for t in _tensors(out))
+            c.flops += n * sum(float(t.numel()) for t in _tensors(out))
         return out
 
     def add_unit(self, name: str, flops: float, nbytes: float) -> None:
@@ -284,6 +292,23 @@ def kernel_unit(name: str, work: Callable[[], tuple[float, float]]):
         yield
     finally:
         rec._unit -= 1
+
+
+@contextlib.contextmanager
+def trips(n: int):
+    """Count every aten op inside the block ``n`` times: the body of a loop
+    of ``n`` like iterations, traced once (the reference's jaxpr walk
+    multiplies a scan body by its trip count).  Memory is tracked as run.
+    Without a recorder it does nothing."""
+    rec = _active()
+    if rec is None:
+        yield
+        return
+    rec._trips *= n
+    try:
+        yield
+    finally:
+        rec._trips //= n
 
 
 def record_collective(op: str, group, shape, in_bytes: float, out_bytes: float) -> None:

@@ -21,10 +21,12 @@ Nothing is allocated: a meta tensor has a shape and a dtype only, the kernel
 entry points return empty meta outputs, and the dry group's collectives
 return meta tensors.  ``pod1`` is 16 nodes x tp 16 and ``pod2`` 32 x 16,
 the reference's ``make_production_mesh``; :func:`run_cell` also takes an
-explicit ``(nodes, tp)``.  The reference's MoE, xLSTM, SSM,
-encoder-decoder and VLM cells at tp 16 stop at ``check_tp``: the port runs
-them at tp = 1 only (ROADMAP.md §1, queue 2), and each records
-``status: "error"`` with that refusal.
+explicit ``(nodes, tp)``.  Every family's cells run at tp 16 but
+whisper-tiny's serve cells, which stop at ``check_tp`` and record
+``status: "error"`` naming the reference's own fault (its sharded serving
+of the encoder-decoder fails); ``long_500k`` skips where the reference
+skips it.  On meta tensors the sLSTM time loop is traced as one step that
+the cost model counts once per token (:func:`.costmodel.trips`).
 
 Records land in ``experiments/dryrun_torch/<tag>/<mesh>/<arch>__<shape>.json``
 (:mod:`.report` reads them).

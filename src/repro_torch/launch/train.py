@@ -445,14 +445,14 @@ def preset_config(name: str):
     return tiny_lm()
 
 
+def _enc_frames(cfg):
+    """The encoder-decoder's stub frame shape ``(T_enc, d)`` for the data
+    (None for a decoder-only model)."""
+    return (cfg.enc_seq, cfg.d_model) if cfg.arch_kind == "encdec" else None
+
+
 def _model_config(args):
     cfg = get_config(args.arch, smoke=args.smoke) if args.arch else preset_config(args.preset)
-    if cfg.arch_kind == "encdec":
-        # as repro's CLI: its SyntheticLM yields tokens and targets only
-        raise NotImplementedError(
-            f"--arch {args.arch}: an encoder-decoder trains on batches that carry "
-            "'enc_frames' (the frontend stub's output), and this CLI's data yields tokens "
-            "and targets only; drive train.step.build_train_step with such batches instead")
     if args.depth:
         cfg = dataclasses.replace(cfg, n_layers=args.depth)
     return cfg
@@ -568,7 +568,7 @@ def main(argv=None, *, on_step=None, serve_runtime=None, on_serve=None,
     data = SyntheticLM(SyntheticLMConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq_len,
         per_node_batch=args.per_node_batch, n_nodes=n_nodes,
-        heterogeneity=args.heterogeneity,
+        heterogeneity=args.heterogeneity, enc_frames=_enc_frames(cfg),
     ))
 
     def checkpoint(state):
@@ -779,7 +779,8 @@ def rank_main(world, argv, on_step=None, on_shrink=None, serve_runtime=None,
     def data_of(n):
         return SyntheticLM(SyntheticLMConfig(
             vocab_size=cfg.vocab_size, seq_len=args.seq_len,
-            per_node_batch=args.per_node_batch, n_nodes=n, heterogeneity=args.heterogeneity))
+            per_node_batch=args.per_node_batch, n_nodes=n, heterogeneity=args.heterogeneity,
+            enc_frames=_enc_frames(cfg)))
 
     def checkpoint(state, grid):
         t = time.perf_counter()

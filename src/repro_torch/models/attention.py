@@ -15,7 +15,8 @@ plain version on a CPU tensor).
 Cross-attention (the encoder-decoder's, ``kv_source``) projects k and v
 from the encoder's output and attends non-causally over all of it; RoPE
 never touches cross k.  With ``impl="cuda"`` it goes through the same
-flash kernel at Sq != Sk.
+flash kernel at Sq != Sk.  At tp > 1 it projects k and v for the rank's
+kv heads, as self-attention does.
 
 Decode is the reference's split-K softmax at tp = 1 in plain torch: the new
 token's k/v go into slot ``t % capacity`` of the cache (a rolling buffer
@@ -54,7 +55,15 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention import flash_attention
-from .layers import Initializer, TPContext, apply_rope, linear_init, rms_norm, tp_enabled
+from .layers import (
+    Initializer,
+    TPContext,
+    apply_rope,
+    linear_init,
+    rms_norm,
+    tp_enabled,
+    zero_pad,
+)
 
 Tree = Any
 
@@ -124,14 +133,17 @@ class AttnDims:
 
 
 def attn_init(init: Initializer, cfg: ModelConfig, tp: int = 1) -> Tree:
-    """Global parameters; q heads padded to a multiple of ``tp``."""
-    d, hd = cfg.d_model, cfg.hd
+    """Global parameters; q heads padded to a multiple of ``tp`` with zero
+    columns of ``wq`` and zero rows of ``wo`` (drawn at the real head count,
+    so that a seed gives the same model at every tp; a padded head's output
+    is masked whatever its weights)."""
+    d, hd, h = cfg.d_model, cfg.hd, cfg.n_heads
     hp = cfg.n_heads_padded(tp)
     p = {
-        "wq": linear_init(init, d, hp * hd),
+        "wq": zero_pad(linear_init(init, d, h * hd), 1, hp * hd),
         "wk": linear_init(init, d, cfg.n_kv_heads * hd),
         "wv": linear_init(init, d, cfg.n_kv_heads * hd),
-        "wo": linear_init(init, hp * hd, d),
+        "wo": zero_pad(linear_init(init, h * hd, d), 0, hp * hd),
     }
     if cfg.qk_norm:
         p["q_norm"] = init.zeros((hd,))
@@ -253,12 +265,9 @@ def attn_forward(
     if positions is None:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
     if tp_enabled(tp):
-        if kv_source is not None:
-            raise NotImplementedError(
-                "cross-attention at tp > 1 is not ported (ROADMAP.md §1, queue 2)")
         return _attn_forward_tp(x, params, cfg, tp, positions=positions, causal=causal,
                                 window=window, attn_impl=attn_impl, return_kv=return_kv,
-                                serve=serve)
+                                serve=serve, kv_source=kv_source)
     q, k, v = _project(x, params, cfg, positions, kv_source)
     out = attention_core(q, k, v, causal=causal, window=window,
                          softcap=cfg.logit_softcap, impl=attn_impl)
@@ -269,25 +278,30 @@ def attn_forward(
 
 
 def _attn_forward_tp(x, params, cfg: ModelConfig, tp: TPContext, *, positions, causal,
-                     window, attn_impl, return_kv, serve):
+                     window, attn_impl, return_kv, serve, kv_source=None):
     B, S, _ = x.shape
     dims = AttnDims.resolve(cfg, tp.size, serve=serve)
     dt, hd = x.dtype, cfg.hd
     x = tp.copy_in(x)
+    # cross-attention projects k and v from the encoder's output, for the
+    # rank's kv heads (k not rotated)
+    src = x if kv_source is None else tp.copy_in(kv_source.to(dt))
+    Sk = src.shape[1]
     # a replicated leaf used on this rank's heads only: its gradient sums
     # over the group
     wk, wv = params["wk"], params["wv"]
     if not dims.kv_sharded:
         wk, wv = tp.copy_in(wk), tp.copy_in(wv)
     q = (x @ params["wq"].to(dt)).reshape(B, S, dims.h_local, hd)
-    k = (x @ wk.to(dt)).reshape(B, S, dims.kv_local, hd)
-    v = (x @ wv.to(dt)).reshape(B, S, dims.kv_local, hd)
+    k = (src @ wk.to(dt)).reshape(B, Sk, dims.kv_local, hd)
+    v = (src @ wv.to(dt)).reshape(B, Sk, dims.kv_local, hd)
     if cfg.qk_norm:
         q = rms_norm(q, tp.copy_in(params["q_norm"]))
         k = rms_norm(k, tp.copy_in(params["k_norm"]))
     if cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        if kv_source is None:
+            k = apply_rope(k, positions, cfg.rope_theta)
     out = attention_core(q, local_kv(k, dims, tp.index), local_kv(v, dims, tp.index),
                          causal=causal, window=window, softcap=cfg.logit_softcap,
                          impl=attn_impl)

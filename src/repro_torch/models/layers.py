@@ -53,6 +53,7 @@ __all__ = [
     "mlp_init",
     "mlp_apply",
     "embedding_init",
+    "zero_pad",
     "embed_lookup",
     "lm_head_logits",
     "softmax_xent_sharded",
@@ -321,8 +322,22 @@ def _mlp(x: torch.Tensor, params: Tree, act: str) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def embedding_init(init: Initializer, vocab_padded: int, d: int) -> Tree:
-    return {"table": init.normal((vocab_padded, d), 0.02)}
+def zero_pad(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``x`` with zeros appended along ``dim`` up to size ``n``."""
+    extra = n - x.shape[dim]
+    if extra <= 0:
+        return x
+    shape = list(x.shape)
+    shape[dim] = extra
+    return torch.cat([x, x.new_zeros(shape)], dim=dim)
+
+
+def embedding_init(init: Initializer, vocab_padded: int, d: int,
+                   vocab: int | None = None) -> Tree:
+    """``(vocab_padded, d)``; with ``vocab``, rows past it are zeros (drawn
+    for ``vocab`` rows only: the padding changes no other draw)."""
+    vocab = vocab_padded if vocab is None else vocab
+    return {"table": zero_pad(init.normal((vocab, d), 0.02), 0, vocab_padded)}
 
 
 def embed_lookup(ids: torch.Tensor, table: torch.Tensor,

@@ -1,6 +1,5 @@
 """Mixture-of-Experts layer (granite-moe family): top-k router + capacity
-dispatch (the port of ``repro.models.moe`` at tensor-parallel degree 1,
-where the reference replicates the experts).
+dispatch (the port of ``repro.models.moe``).
 
 Dispatch is the reference's "running position + gather/scatter" scheme:
 every assignment's slot within its expert is the running count of that
@@ -28,6 +27,21 @@ Three points keep the port on the reference's numbers:
   (:class:`_Dispatch`, :class:`_Combine`), so the gradient is deterministic
   too.
 
+Tensor parallelism (a :class:`~repro_torch.models.layers.TPContext` of
+size > 1) shards the experts over the model group by the reference's
+first exact fit (:func:`_expert_sharding`): ``E % tp == 0`` gives
+**expert** parallelism (each rank holds ``E / tp`` whole experts and takes
+its block of the dispatch tables), ``d_ff % tp == 0`` gives **ffn**
+sharding inside every expert (``w_in``/``w_gate`` by columns, ``w_out``
+by rows), anything else leaves them **replicated**.  The router runs in
+f32 on the replicated input on every rank, so the top-k, the capacity
+slots, the aux losses and the hits over all ``E`` experts are tp = 1's;
+each rank sums its slots' outputs in ascending expert order and one
+all-reduce (``reduce_out``) joins the ranks' partial sums (none when
+replicated).  The input and the gate table enter the sharded experts
+through ``copy_in``, so the router's and the input's gradients, summed over
+the group, are whole on every rank.
+
 The layer's profiler spans (``moe_router``, ``moe_dispatch``,
 ``moe_experts``, ``moe_combine``) let a trace attribute device time to its
 parts.
@@ -42,16 +56,40 @@ import torch
 from torch.profiler import record_function
 
 from ..configs.base import ModelConfig
-from .layers import _ACTS, Initializer
+from .layers import _ACTS, Initializer, TPContext, tp_enabled
 
 Tree = Any
 
-__all__ = ["moe_init", "moe_forward", "moe_capacity", "route", "dispatch_tables"]
+__all__ = ["moe_init", "moe_shard_axes", "moe_forward", "moe_capacity", "route",
+           "dispatch_tables"]
 
 
 def moe_capacity(cfg: ModelConfig, tokens: int) -> int:
     c = math.ceil(cfg.top_k * tokens * cfg.capacity_factor / cfg.n_experts)
     return max(8, ((c + 7) // 8) * 8)  # a multiple of 8, as the reference pads
+
+
+def _expert_sharding(cfg: ModelConfig, tp: int) -> str:
+    """The reference's first exact fit: ``"expert"``, ``"ffn"`` or
+    ``"replicated"``."""
+    if tp == 1:
+        return "replicated"
+    if cfg.n_experts % tp == 0:
+        return "expert"
+    if cfg.d_ff % tp == 0:
+        return "ffn"
+    return "replicated"
+
+
+def moe_shard_axes(cfg: ModelConfig, tp: int) -> Tree:
+    """The axis of each MoE leaf split over the model group (None:
+    replicated), the reference's ``moe_specs``."""
+    mode = _expert_sharding(cfg, tp)
+    win, wout = {"expert": (0, 0), "ffn": (2, 1)}.get(mode, (None, None))
+    p = {"router": None, "w_in": win, "w_out": wout}
+    if cfg.gated_mlp:
+        p["w_gate"] = win
+    return p
 
 
 def moe_init(init: Initializer, cfg: ModelConfig) -> Tree:
@@ -167,16 +205,19 @@ def dispatch_tables(expert_idx: torch.Tensor, gate_vals: torch.Tensor, cfg: Mode
             "slots": slots, "hits": hits}
 
 
-def moe_forward(x: torch.Tensor, params: Tree, cfg: ModelConfig):
+def moe_forward(x: torch.Tensor, params: Tree, cfg: ModelConfig,
+                tp: TPContext | None = None):
     """x: (B, S, d) -> ((B, S, d), aux): aux holds the Switch load-balance
     loss ``moe_load_balance``, the router z-loss ``moe_router_z`` and the
     ``(E,)`` mask ``moe_expert_hits`` of experts that a kept assignment
-    reached."""
+    reached.  With ``tp`` the expert leaves are the rank's shards (module
+    docstring) and the output is the same on every rank of the group."""
     B, S, d = x.shape
     dt = x.dtype
     E = cfg.n_experts
     T = B * S
     xt = x.reshape(T, d)
+    mode = _expert_sharding(cfg, tp.size) if tp_enabled(tp) else "replicated"
 
     with record_function("moe_router"):
         logits, probs, expert_idx, gate_vals = route(xt, params["router"], cfg)
@@ -192,9 +233,20 @@ def moe_forward(x: torch.Tensor, params: Tree, cfg: ModelConfig):
 
     with record_function("moe_dispatch"):
         tabs = dispatch_tables(expert_idx, gate_vals, cfg)
-        C, table, slots = tabs["capacity"], tabs["table"], tabs["slots"]
+        C, table, slots, gtable = tabs["capacity"], tabs["table"], tabs["slots"], tabs["gtable"]
         aux["moe_expert_hits"] = tabs["hits"]
-        xin = _Dispatch.apply(xt, table, slots).reshape(E, C, d)
+        if mode != "replicated":
+            # a rank's experts see part of the output: the gradients of the
+            # input and of the gates sum over the group
+            xt, gtable = tp.copy_in(xt), tp.copy_in(gtable)
+        E_local = params["w_in"].shape[0]
+        if mode == "expert":
+            # the rank's block of the (E * C) buffers; the other ranks' slots
+            # read a zero row (E_local * C)
+            lo, n = tp.index * E_local * C, E_local * C
+            table, gtable = table[lo:lo + n], gtable[lo:lo + n]
+            slots = torch.where((slots >= lo) & (slots < lo + n), slots - lo, n)
+        xin = _Dispatch.apply(xt, table, slots).reshape(E_local, C, d)
 
     with record_function("moe_experts"):
         h = torch.bmm(xin, params["w_in"].to(dt))
@@ -204,8 +256,10 @@ def moe_forward(x: torch.Tensor, params: Tree, cfg: ModelConfig):
         else:
             h = _ACTS[cfg.act](h)
         y = torch.bmm(h, params["w_out"].to(dt))
-        y = y * tabs["gtable"].reshape(E, C, 1).to(dt)
+        y = y * gtable.reshape(E_local, C, 1).to(dt)
 
     with record_function("moe_combine"):
-        out = _Combine.apply(y.reshape(E * C, d).to(torch.float32), table, slots)
+        out = _Combine.apply(y.reshape(E_local * C, d).to(torch.float32), table, slots)
+        if mode != "replicated":
+            out = tp.reduce_out(out)
     return out.reshape(B, S, d).to(dt), aux

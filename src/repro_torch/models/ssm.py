@@ -1,5 +1,5 @@
 """Selective SSM (Mamba-style) branch — hymba's parallel heads (the port of
-``repro.models.ssm`` at tensor-parallel degree 1).
+``repro.models.ssm``).
 
 The recurrence ``h_t = a_t * h_{t-1} + b_t x_t`` is diagonal per channel and
 state.  It runs chunked, as in the reference: a loop over chunks carries
@@ -13,6 +13,16 @@ when the loop reaches it, so only one chunk's scan intermediates are alive
 at a time (at hymba's prefill wave a whole-sequence f32 term would take
 1.68 GB).  A length that is not a multiple of the chunk runs as one chunk,
 as in the reference.
+
+Tensor parallelism (a :class:`~repro_torch.models.layers.TPContext` of
+size > 1), the reference's scheme: the inner channels ``d_ssm_inner`` are
+column-sharded over the model group (``in_proj`` with its x and z halves
+aligned, ``conv_w``/``conv_b``, ``dt_proj``/``dt_bias``, ``A_log``, ``D``),
+since the recurrence is diagonal per channel; ``x_proj`` and ``out_proj``
+are row-sharded, each followed by one all-reduce.  The state ``h`` and the
+conv tail hold the rank's channels.  The joined ``(B, C, dt)`` features
+feed the rank's channels through ``copy_in``, so their gradient, and
+``x_proj``'s, sum over the group.
 
 ``softplus`` is ``jax.nn.softplus``, ``logaddexp(x, 0)``: ``F.softplus``
 returns ``x`` itself above its threshold of 20.
@@ -28,11 +38,12 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from ..configs.base import ModelConfig
-from .layers import Initializer, linear_init
+from .layers import Initializer, TPContext, linear_init, tp_enabled
 
 Tree = Any
 
-__all__ = ["ssm_init", "ssm_forward", "init_ssm_state", "ssm_decode_step", "softplus"]
+__all__ = ["ssm_init", "ssm_shard_axes", "ssm_forward", "init_ssm_state", "ssm_decode_step",
+           "softplus"]
 
 DT_RANK_DIV = 16
 
@@ -56,6 +67,13 @@ def ssm_init(init: Initializer, cfg: ModelConfig) -> Tree:
         "D": init.ones((ds,)),
         "out_proj": linear_init(init, ds, d),
     }
+
+
+def ssm_shard_axes() -> Tree:
+    """The axis of each SSM leaf split over the model group, the
+    reference's ``ssm_specs``."""
+    return {"in_proj": 2, "conv_w": 1, "conv_b": 0, "x_proj": 0, "dt_proj": 1, "dt_bias": 0,
+            "A_log": 0, "D": 0, "out_proj": 0}
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -117,10 +135,16 @@ def _selective_scan_chunk(a, bx, h0):
 
 
 def ssm_forward(x: torch.Tensor, params: Tree, cfg: ModelConfig, *, chunk: int = 128,
-                state: Tree | None = None, return_state: bool = False):
+                state: Tree | None = None, return_state: bool = False,
+                tp: TPContext | None = None):
     """x: (B, S, d) -> (B, S, d); with ``return_state`` also the final
-    ``{"h": (B, ds, N), "conv": (B, k-1, ds)}`` (f32), from ``state`` (or zeros)."""
+    ``{"h": (B, ds, N), "conv": (B, k-1, ds)}`` (f32), from ``state`` (or zeros).
+    With ``tp`` the channel leaves and the state are the rank's ``ds / tp``
+    channels (module docstring)."""
+    on = tp_enabled(tp)
     with record_function("ssm_forward"):
+        if on:
+            x = tp.copy_in(x)
         B, S, _ = x.shape
         dt = x.dtype
         N = cfg.ssm_state
@@ -134,7 +158,10 @@ def ssm_forward(x: torch.Tensor, params: Tree, cfg: ModelConfig, *, chunk: int =
                                     state["conv"] if state is not None else None)
         xs = F.silu(xs)
 
-        dbl = (xs @ params["x_proj"].to(dt)).to(torch.float32)
+        dbl = xs @ params["x_proj"].to(dt)
+        if on:  # the rank's channels' partial (B, C, dt) features, joined
+            dbl = tp.copy_in(tp.reduce_out(dbl))
+        dbl = dbl.to(torch.float32)
         dt_lr, Bc, Cc = torch.split(dbl, [r, N, N], dim=-1)
         delta = softplus(dt_lr @ params["dt_proj"].to(torch.float32)
                          + params["dt_bias"].to(torch.float32))  # (B, S, ds)
@@ -159,13 +186,19 @@ def ssm_forward(x: torch.Tensor, params: Tree, cfg: ModelConfig, *, chunk: int =
         y = y + params["D"].to(torch.float32)[None, None] * xs.to(torch.float32)
         y = y.to(dt) * F.silu(z)
         out = y @ params["out_proj"].to(dt)
+        if on:
+            out = tp.reduce_out(out)
     if return_state:
         return out, {"h": h, "conv": new_tail.to(torch.float32)}
     return out
 
 
-def init_ssm_state(cfg: ModelConfig, n_layers: int, batch: int, device=None) -> Tree:
+def init_ssm_state(cfg: ModelConfig, n_layers: int, batch: int, device=None,
+                   tp: int = 1) -> Tree:
+    """Zero states; at tp > 1 the rank's channels (all of them where ``tp``
+    does not divide ``d_ssm_inner``, as in the reference)."""
     ds = cfg.d_ssm_inner
+    ds = ds // tp if ds % tp == 0 else ds
     return {
         "h": torch.zeros((n_layers, batch, ds, cfg.ssm_state), dtype=torch.float32,
                          device=device),
@@ -174,7 +207,8 @@ def init_ssm_state(cfg: ModelConfig, n_layers: int, batch: int, device=None) -> 
     }
 
 
-def ssm_decode_step(x: torch.Tensor, params: Tree, state_layer: Tree, cfg: ModelConfig):
+def ssm_decode_step(x: torch.Tensor, params: Tree, state_layer: Tree, cfg: ModelConfig,
+                    tp: TPContext | None = None):
     """x: (B, 1, d); state_layer: {'h': (B, ds, N), 'conv': (B, k-1, ds)}.
     Returns ``(y, new_state)``."""
-    return ssm_forward(x, params, cfg, chunk=1, state=state_layer, return_state=True)
+    return ssm_forward(x, params, cfg, chunk=1, state=state_layer, return_state=True, tp=tp)

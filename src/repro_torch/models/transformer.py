@@ -27,20 +27,27 @@ a MoE layer's router losses sum over the layers into the training loss
 reference.
 
 Tensor parallelism (a :class:`~repro_torch.models.layers.TPContext` of
-size > 1, passed as ``tp``) covers the dense family, the blocks that are
-attention + MLP (tiny_lm, qwen3, olmo, h2o-danube's windows): the
+size > 1, passed as ``tp``) covers every family, as the reference's: the
 parameters are the rank's shards of :func:`init_params` at that tp, cut
 along :func:`param_shard_axes` (:mod:`repro_torch.interop`), the vocab
 sharded over the model group (the embedding by rows, the lm_head by
-columns, the loss and the lookup summed over the group), the serve cache
-sharded by sequence, and prefill's and decode's logits are the rank's
-vocab shard.  MoE, xLSTM, the SSM heads, the encoder-decoder and the VLM's
-patch splice raise at tp > 1 (ROADMAP.md §1, queue 2).
+columns, the loss and the lookup summed over the group; a VLM's
+``patch_embeds`` spliced after the joined lookup), attention and the MLP
+Megatron's, the MoE experts by expert or inside each expert
+(:mod:`.moe`), mLSTM on its value dimension and sLSTM replicated
+(:mod:`.xlstm`), the SSM on its channels (:mod:`.ssm`), and the
+encoder-decoder's encoder and cross-attention on the rank's heads.  The
+serve cache is sharded as the reference's ``cache_specs``: the kv cache by
+sequence, the mLSTM memory on its value columns, the SSM state on its
+channels; prefill's and decode's logits are the rank's vocab shard.  The
+encoder-decoder trains at tp > 1 but does not serve there: the
+reference's own sharded serving of it fails (:func:`check_tp`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
@@ -63,6 +70,7 @@ from .layers import (
     norm_apply,
     norm_init,
     softmax_xent_sharded,
+    zero_pad,
 )
 
 Tree = Any
@@ -167,7 +175,7 @@ def _layer_init(init: Initializer, cfg: ModelConfig, kind: str, tp: int = 1) -> 
         p["ssm"] = ssm_mod.ssm_init(init, cfg)
     if kind == "dec" and cfg.arch_kind == "encdec":
         p["cross_norm"] = norm_init(init, nt, d)
-        p["cross"] = attn.attn_init(init, cfg)
+        p["cross"] = attn.attn_init(init, cfg, tp)
     if cfg.d_ff > 0:
         p["mlp_norm"] = norm_init(init, nt, d)
         if kind == "moe":
@@ -187,21 +195,32 @@ def _groups_init(init: Initializer, cfg: ModelConfig, stack: str = "dec", tp: in
             for gi, g in enumerate(block_groups(cfg, stack=stack))}
 
 
-def check_tp(cfg: ModelConfig, tp: int) -> None:
-    """Raise unless ``cfg`` runs at tensor-parallel degree ``tp``: the dense
-    family only at tp > 1."""
+# the reference's fault that keeps the encoder-decoder from serving at tp > 1
+ENCDEC_SERVE_FAULT = (
+    "the reference's sharded serving of the encoder-decoder fails: its _encode "
+    "(src/repro/models/transformer.py:408-418) runs the encoder's self-attention with "
+    "serve=False, which shards k/v by head, while serve_specs lays the encoder's k/v "
+    "projections out replicated (TypeError: cannot reshape array of shape (2, 16, 64) into "
+    "shape (2, 16, 2, 16) at tp 2)")
+
+
+def check_tp(cfg: ModelConfig, tp: int, *, serve: bool = False) -> None:
+    """Raise unless ``cfg`` runs at tensor-parallel degree ``tp``: every
+    family trains there; the encoder-decoder does not serve at tp > 1
+    (``serve``), as the reference cannot."""
     if tp == 1:
         return
-    what = ("MoE expert sharding" if cfg.moe else "the xLSTM stack" if cfg.xlstm
-            else "the SSM heads" if cfg.ssm else "the encoder-decoder"
-            if cfg.arch_kind == "encdec" else "the VLM patch splice"
-            if cfg.family == "vlm" else None)
-    if what is not None:
+    if serve and cfg.arch_kind == "encdec":
         raise NotImplementedError(
-            f"{cfg.name} at tp={tp}: {what} is not ported at tp > 1 (ROADMAP.md §1, "
-            "queue 2); run it at tp = 1")
-    if cfg.d_ff % tp:
+            f"{cfg.name} serving at tp={tp}: {ENCDEC_SERVE_FAULT}; serve it at tp = 1 "
+            "(ROADMAP.md §3)")
+    if cfg.d_ff > 0 and not cfg.moe and cfg.d_ff % tp:
         raise ValueError(f"{cfg.name}: d_ff {cfg.d_ff} is not divisible by tp={tp}")
+    if cfg.xlstm and xlstm_mod._head_dims(cfg)[1] % tp:
+        raise ValueError(f"{cfg.name}: the mLSTM head dim {xlstm_mod._head_dims(cfg)[1]} is "
+                         f"not divisible by tp={tp}")
+    if cfg.ssm and cfg.d_ssm_inner % tp:
+        raise ValueError(f"{cfg.name}: d_ssm {cfg.d_ssm_inner} is not divisible by tp={tp}")
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -209,22 +228,26 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """One node's global parameters, on the generator's device (or
     ``device``: ``"meta"`` gives shapes and dtypes only), in the reference's
     draw order (embed, the encoder's layers and norm, layers in order, final
-    norm, lm_head), padded for tensor-parallel degree ``tp`` as the
-    reference pads them (q heads and the vocab to a multiple of ``tp``)."""
+    norm, lm_head), padded for tensor-parallel degree ``tp`` to the
+    reference's shapes (q heads and the vocab to a multiple of ``tp``).  The
+    padding is zeros and takes no draw, so the real entries are the same at
+    every tp (the reference draws the padded shapes, so its tp = 1 and tp > 1
+    inits differ).  No padded entry reaches an output: padded heads are
+    masked, padded vocab rows are never looked up and their logits are
+    masked in the loss."""
     init = Initializer(generator)
     if device is not None:
         init.device = torch.device(device)
     vp = cfg.vocab_padded(tp)
-    params: Tree = {"embed": embedding_init(init, vp, cfg.d_model)}
+    params: Tree = {"embed": embedding_init(init, vp, cfg.d_model, cfg.vocab_size)}
     if cfg.arch_kind == "encdec":
-        params["enc"] = _groups_init(init, cfg, stack="enc")
+        params["enc"] = _groups_init(init, cfg, stack="enc", tp=tp)
         params["enc_norm"] = norm_init(init, cfg.norm_type, cfg.d_model)
     params["groups"] = _groups_init(init, cfg, tp=tp)
     params["final_norm"] = norm_init(init, cfg.norm_type, cfg.d_model)
     if not cfg.tie_embeddings:
-        params["lm_head"] = {
-            "w": init.normal((cfg.d_model, vp), 1.0 / math.sqrt(cfg.d_model))
-        }
+        params["lm_head"] = {"w": zero_pad(
+            init.normal((cfg.d_model, cfg.vocab_size), 1.0 / math.sqrt(cfg.d_model)), 1, vp)}
     return params
 
 
@@ -241,19 +264,37 @@ def param_shard_axes(cfg: ModelConfig, tp: int = 1, serve: bool = False) -> Tree
     def norm(tree):
         return {k: None for k in tree}
 
+    def stacked(axes):  # the layer axis comes first
+        return {k: None if a is None else a + 1 for k, a in axes.items()}
+
     def layer(kind: str):
         init = Initializer(torch.Generator())
         init.device = torch.device("meta")
         p = _layer_init(init, cfg, kind, tp)
-        out = {"attn_norm": norm(p["attn_norm"]),
-               "attn": {k: None if a is None else a + 1
-                        for k, a in attn.attn_shard_axes(cfg, tp, serve).items()}}
+        if kind in ("mlstm", "slstm"):
+            axes = (xlstm_mod.mlstm_shard_axes() if kind == "mlstm"
+                    else {k: None for k in p[kind]})
+            return {"norm": norm(p["norm"]), kind: stacked(axes)}
+        att = stacked(attn.attn_shard_axes(cfg, tp, serve))
+        out = {"attn_norm": norm(p["attn_norm"]), "attn": att}
+        if "ssm" in p:
+            out["ssm"] = stacked(ssm_mod.ssm_shard_axes())
+        if "cross" in p:
+            out["cross_norm"] = norm(p["cross_norm"])
+            out["cross"] = dict(att)
         if "mlp" in p:
             out["mlp_norm"] = norm(p["mlp_norm"])
             out["mlp"] = {k: 2 if k in ("w_in", "w_gate") else 1 for k in p["mlp"]}
+        if "moe" in p:
+            out["mlp_norm"] = norm(p["mlp_norm"])
+            out["moe"] = stacked(moe_mod.moe_shard_axes(cfg, tp))
         return out
 
     axes: Tree = {"embed": {"table": 0}}
+    if cfg.arch_kind == "encdec":
+        axes["enc"] = {f"g{gi}": layer(g.kind)
+                       for gi, g in enumerate(block_groups(cfg, stack="enc"))}
+        axes["enc_norm"] = {k: None for k in _NORM_LEAVES[cfg.norm_type]}
     axes["groups"] = {f"g{gi}": layer(g.kind) for gi, g in enumerate(block_groups(cfg))}
     axes["final_norm"] = {k: None for k in _NORM_LEAVES[cfg.norm_type]}
     if not cfg.tie_embeddings:
@@ -290,7 +331,7 @@ def _block_fwd(x, lp, cfg: ModelConfig, g: GroupSpec, positions, *,
         h = norm_apply(x, lp["norm"], nt)
         if g.kind == "mlstm":
             out = xlstm_mod.mlstm_forward(h, lp["mlstm"], cfg, chunk=rt.mlstm_chunk,
-                                          impl=rt.mlstm_impl, return_state=serve)
+                                          impl=rt.mlstm_impl, return_state=serve, tp=tp)
         else:
             out = xlstm_mod.slstm_forward(h, lp["slstm"], cfg, return_state=serve)
         y, st = out if serve else (out, None)
@@ -304,7 +345,8 @@ def _block_fwd(x, lp, cfg: ModelConfig, g: GroupSpec, positions, *,
         a, kv = a
         entry = {"kv": kv}
     if g.has_ssm:
-        s = ssm_mod.ssm_forward(h, lp["ssm"], cfg, chunk=rt.ssm_chunk, return_state=serve)
+        s = ssm_mod.ssm_forward(h, lp["ssm"], cfg, chunk=rt.ssm_chunk, return_state=serve,
+                                tp=tp)
         if serve:
             s, entry["ssm"] = s
         x = x + 0.5 * (a + s)  # hymba: parallel heads, mean combine
@@ -314,7 +356,7 @@ def _block_fwd(x, lp, cfg: ModelConfig, g: GroupSpec, positions, *,
         c = norm_apply(x, lp["cross_norm"], nt)
         cr = attn.attn_forward(c, lp["cross"], cfg, positions=positions, causal=False,
                                window=0, attn_impl=rt.attn_impl, return_kv=serve,
-                               kv_source=enc_out)
+                               kv_source=enc_out, tp=tp, serve=serve)
         if serve:
             cr, entry["cross_kv"] = cr
         x = x + cr
@@ -322,7 +364,7 @@ def _block_fwd(x, lp, cfg: ModelConfig, g: GroupSpec, positions, *,
     if cfg.d_ff > 0:
         h2 = norm_apply(x, lp["mlp_norm"], nt)
         if g.kind == "moe":
-            y2, aux = moe_mod.moe_forward(h2, lp["moe"], cfg)
+            y2, aux = moe_mod.moe_forward(h2, lp["moe"], cfg, tp)
         else:
             y2 = mlp_apply(h2, lp["mlp"], cfg.act, tp)
         x = x + y2
@@ -389,10 +431,11 @@ def _run_groups(x, groups_params, cfg: ModelConfig, positions, rt: RuntimeConfig
     return x, aux_tot, entries
 
 
-def _encode(params: Tree, batch: dict, cfg: ModelConfig, rt: RuntimeConfig):
+def _encode(params: Tree, batch: dict, cfg: ModelConfig, rt: RuntimeConfig,
+            tp: TPContext | None = None):
     """The whisper encoder over the stub frame embeddings ``enc_frames``
     (B, T_enc, d): plus the sinusoids of 0..T_enc-1, the encoder's groups
-    non-causally, then ``enc_norm``."""
+    non-causally (on the rank's heads at tp > 1), then ``enc_norm``."""
     if "enc_frames" not in batch:
         raise ValueError(f"{cfg.name} is an encoder-decoder: the batch needs 'enc_frames' "
                          f"(B, {cfg.enc_seq}, {cfg.d_model}), the frontend stub's output")
@@ -402,7 +445,7 @@ def _encode(params: Tree, batch: dict, cfg: ModelConfig, rt: RuntimeConfig):
     pos = torch.arange(T, device=frames.device)
     x = frames + _sinusoid(pos, cfg.d_model)[None].to(dt)
     x, _, _ = _run_groups(x, params["enc"], cfg, pos[None].expand(B, T), rt, serve=False,
-                          stack="enc")
+                          stack="enc", tp=tp)
     return norm_apply(x, params["enc_norm"], cfg.norm_type)
 
 
@@ -430,7 +473,7 @@ def forward_loss(params: Tree, batch: dict, cfg: ModelConfig,
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     x = _embed(tokens, params, cfg, dt, positions, batch.get("patch_embeds"), tp)
     rt = dataclasses.replace(rt, attn_impl="torch", mlstm_impl="torch")
-    enc_out = _encode(params, batch, cfg, rt) if cfg.arch_kind == "encdec" else None
+    enc_out = _encode(params, batch, cfg, rt, tp) if cfg.arch_kind == "encdec" else None
     x, aux, _ = _run_groups(x, params["groups"], cfg, positions, rt, serve=False,
                             enc_out=enc_out, collect_rows=collect_rows, tp=tp)
     row_info = aux.pop("_row_info", None)
@@ -450,9 +493,9 @@ def forward_loss(params: Tree, batch: dict, cfg: ModelConfig,
     return total, metrics
 
 
-def _check_ctx(cfg: ModelConfig, tp: TPContext | None) -> None:
+def _check_ctx(cfg: ModelConfig, tp: TPContext | None, serve: bool = False) -> None:
     if tp is not None and tp.enabled:
-        check_tp(cfg, tp.size)
+        check_tp(cfg, tp.size, serve=serve)
 
 
 def _head(x, params, cfg: ModelConfig, dtype, tp: TPContext | None, last: bool = False):
@@ -484,8 +527,10 @@ def init_cache(cfg: ModelConfig, batch: int, target_len: int, rt: RuntimeConfig,
     attention group, and ``{"ssm": ...}`` beside it for a hybrid group and
     ``{"cross_kv": ...}`` (count, batch, enc_seq, KV, hd) for a decoder group
     of the encoder-decoder; ``{"mlstm": ...}`` or ``{"slstm": ...}`` for an
-    xLSTM group.  At tp > 1 the kv cache is the rank's sequence shard."""
-    check_tp(cfg, tp)
+    xLSTM group.  At tp > 1 each leaf is the rank's shard along
+    :func:`cache_shard_axes` (the kv cache's slots, the mLSTM memory's value
+    columns, the SSM state's channels)."""
+    check_tp(cfg, tp, serve=True)
     cache: Tree = {}
     for gi, g in enumerate(block_groups(cfg)):
         c: Tree = {}
@@ -494,9 +539,9 @@ def init_cache(cfg: ModelConfig, batch: int, target_len: int, rt: RuntimeConfig,
                                          _group_capacity(g, target_len, tp), rt.cdtype, device,
                                          tp)
         if g.has_ssm:
-            c["ssm"] = ssm_mod.init_ssm_state(cfg, g.count, batch, device)
+            c["ssm"] = ssm_mod.init_ssm_state(cfg, g.count, batch, device, tp)
         if g.kind == "mlstm":
-            c["mlstm"] = xlstm_mod.init_mlstm_state(cfg, g.count, batch, device)
+            c["mlstm"] = xlstm_mod.init_mlstm_state(cfg, g.count, batch, device, tp)
         if g.kind == "slstm":
             c["slstm"] = xlstm_mod.init_slstm_state(cfg, g.count, batch, device)
         if g.kind == "dec" and cfg.arch_kind == "encdec":
@@ -507,13 +552,20 @@ def init_cache(cfg: ModelConfig, batch: int, target_len: int, rt: RuntimeConfig,
     return cache
 
 
-def cache_shard_axes(cfg: ModelConfig) -> Tree:
+def cache_shard_axes(cfg: ModelConfig, tp: int = 1) -> Tree:
     """The counterpart of the reference's ``cache_specs``: for each leaf of
-    :func:`init_cache`'s tree the axis sharded over the model group (the kv
-    cache's slots, axis 2 after the layer and batch axes; None elsewhere).
-    The batch axis (1) splits over the nodes where the batch does."""
+    :func:`init_cache`'s tree the axis sharded over the model group (after
+    the layer and batch axes): the kv cache's slots (2), the mLSTM memory
+    ``C``'s value columns (4), the SSM state ``h``'s channels (2) and its
+    conv tail's (3); None elsewhere (a recurrent leaf whose width ``tp``
+    does not divide stays whole, as :func:`init_cache` keeps it).  The batch
+    axis (1) splits over the nodes where the batch does."""
     meta = init_cache(cfg, 1, 1, RuntimeConfig(), device="meta")
-    return {gk: {name: tree_map(lambda _: 2 if name == "kv" else None, sub)
+    dh = xlstm_mod._head_dims(cfg)[1] if cfg.xlstm else 0
+    split = {"kv": {"k": 2, "v": 2, "pos": 2},
+             "mlstm": {"C": 4 if dh % tp == 0 else None},
+             "ssm": {"h": 2, "conv": 3} if cfg.ssm and cfg.d_ssm_inner % tp == 0 else {}}
+    return {gk: {name: {leaf: split.get(name, {}).get(leaf) for leaf in sub}
                  for name, sub in c.items()} for gk, c in meta.items()}
 
 
@@ -556,11 +608,11 @@ def prefill(params: Tree, batch: dict, cfg: ModelConfig, rt: RuntimeConfig, *,
     tokens = batch["tokens"]
     B, S = tokens.shape
     target_len = target_len or S
-    _check_ctx(cfg, tp)
+    _check_ctx(cfg, tp, serve=True)
     tps = tp.size if tp is not None else 1
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     x = _embed(tokens, params, cfg, rt.cdtype, positions, batch.get("patch_embeds"), tp)
-    enc_out = _encode(params, batch, cfg, rt) if cfg.arch_kind == "encdec" else None
+    enc_out = _encode(params, batch, cfg, rt, tp) if cfg.arch_kind == "encdec" else None
     x, _, entries = _run_groups(x, params["groups"], cfg, positions, rt, serve=True,
                                 enc_out=enc_out, tp=tp)
     del enc_out
@@ -593,7 +645,7 @@ def decode_step(params: Tree, tokens: torch.Tensor, cache: Tree, t, cfg: ModelCo
     reads its cached cross k/v.  Returns ``(logits (B, Vp), cache)``; with
     ``tp`` the logits are the rank's vocab shard and the step split-K."""
     B = tokens.shape[0]
-    _check_ctx(cfg, tp)
+    _check_ctx(cfg, tp, serve=True)
     tps = tp.size if tp is not None else 1
     t = torch.as_tensor(t, device=tokens.device).to(torch.long).expand(B)
     x = _embed(tokens, params, cfg, rt.cdtype, t[:, None], tp=tp)
@@ -606,8 +658,9 @@ def decode_step(params: Tree, tokens: torch.Tensor, cache: Tree, t, cfg: ModelCo
                              f"target_len {target_len} gives {want}")
         for li, lp in enumerate(_layers(params["groups"][f"g{gi}"], g.count)):
             if not g.has_attn:
-                step = (xlstm_mod.mlstm_decode_step if g.kind == "mlstm"
-                        else xlstm_mod.slstm_decode_step)
+                # sLSTM is replicated: the same recurrence on every rank
+                step = (functools.partial(xlstm_mod.mlstm_decode_step, tp=tp)
+                        if g.kind == "mlstm" else xlstm_mod.slstm_decode_step)
                 y = _recurrent_step(step, norm_apply(x, lp["norm"], nt), lp[g.kind],
                                     cg[g.kind], li, cfg)
                 x = x + y
@@ -617,7 +670,8 @@ def decode_step(params: Tree, tokens: torch.Tensor, cache: Tree, t, cfg: ModelCo
             a, _ = attn.attn_decode_step(h, lp["attn"], layer_cache, cfg, t=t,
                                          window=g.window, grouped=rt.decode_grouped_gqa, tp=tp)
             if g.has_ssm:
-                s = _recurrent_step(ssm_mod.ssm_decode_step, h, lp["ssm"], cg["ssm"], li, cfg)
+                s = _recurrent_step(functools.partial(ssm_mod.ssm_decode_step, tp=tp), h,
+                                    lp["ssm"], cg["ssm"], li, cfg)
                 x = x + 0.5 * (a + s)
             else:
                 x = x + a
@@ -628,7 +682,7 @@ def decode_step(params: Tree, tokens: torch.Tensor, cache: Tree, t, cfg: ModelCo
             if cfg.d_ff > 0:
                 h2 = norm_apply(x, lp["mlp_norm"], nt)
                 if g.kind == "moe":
-                    y2, _ = moe_mod.moe_forward(h2, lp["moe"], cfg)
+                    y2, _ = moe_mod.moe_forward(h2, lp["moe"], cfg, tp)
                 else:
                     y2 = mlp_apply(h2, lp["mlp"], cfg.act, tp)
                 x = x + y2

@@ -1,5 +1,5 @@
 """RowTracker: from model-level touch events to plane-row dirty masks
-(``repro.sparse.tracker``, tensor-parallel degree 1).
+(``repro.sparse.tracker``).
 
 The sparse channels consume row masks over the gossip payload; on the
 flat-plane path that payload is the ``{bucket: (rows, LANES)}`` planes of a
@@ -21,9 +21,14 @@ addressable.  The tracker is the static bridge:
 Tied embeddings are tracked dense: the lm-head's softmax gradient touches
 every table row each step.
 
-The reference's sharded layouts (``shard_rank``, a segment's shard axis)
-wait for tensor parallelism: the port's layouts are unsharded, and
-:meth:`RowTracker.step_masks` refuses a ``shard_rank``.
+On a sharded layout (tensor parallelism) a segment's shape is the rank's
+local one, and so are its rows and unit sizes.  Touch inputs stay global
+(token ids over the whole vocabulary, router hits over all experts): where
+the shard axis lies inside the unit grid (the vocab-sharded embedding, an
+expert-sharded MoE slab), :meth:`RowTracker.step_masks` takes the rank's
+``shard_rank`` and slices its block of the global hot mask; an
+element-dim shard (the ffn-sharded experts) shrinks the unit size and the
+global mask applies to every rank whole.
 """
 
 from __future__ import annotations
@@ -58,8 +63,8 @@ class RowSource:
     unit_size: int
     starts: np.ndarray  # (rows,) int32
     ends1: np.ndarray  # (rows,) int32, exclusive
-    unit_grid: tuple[int, ...] = ()  # the unit grid (() -> (units,))
-    shard_dim: int | None = None  # sharded unit grids come with tensor parallelism
+    unit_grid: tuple[int, ...] = ()  # the global unit grid (() -> (units,))
+    shard_dim: int | None = None  # the unit-grid axis split over the model group
     shard_parts: int = 1
 
 
@@ -121,17 +126,22 @@ class RowTracker:
                 if seg.index not in by_index:
                     continue
                 kind, name, nu = by_index[seg.index]
-                if getattr(seg, "shard_axis", None) is not None:
-                    raise NotImplementedError(
-                        "the row tracker on the sharded plane layouts of tensor parallelism "
-                        "(tp > 1) is not ported (ROADMAP.md §1, queue 2)")
-                units = int(np.prod(seg.shape[:nu])) if seg.shape[:nu] else 1
-                unit_size = max(1, int(np.prod(seg.shape[nu:])))
+                # the rank-local shape sets the rows and the unit size; a
+                # shard axis inside the unit grid keeps the global grid
+                # (step_masks slices the rank's block), an element-dim one
+                # does not touch it
+                lshape = tuple(seg.shape)
+                units = int(np.prod(lshape[:nu])) if lshape[:nu] else 1
+                unit_size = max(1, int(np.prod(lshape[nu:])))
+                if seg.shard_axis is not None and seg.shard_axis < nu:
+                    grid, shard_dim, parts = tuple(seg.full_shape[:nu]), seg.shard_axis, layout.tp
+                else:
+                    grid, shard_dim, parts = lshape[:nu], None, 1
                 starts, ends1 = _unit_intervals(seg.rows, units, unit_size)
                 sources.append(RowSource(
                     name=name, kind=kind, bucket=key, row_start=seg.row_start, rows=seg.rows,
                     units=units, unit_size=unit_size, starts=starts, ends1=ends1,
-                    unit_grid=tuple(seg.shape[:nu])))
+                    unit_grid=grid, shard_dim=shard_dim, shard_parts=parts))
         return cls(layout, tuple(sources))
 
     @property
@@ -159,33 +169,40 @@ class RowTracker:
             }
         return self._dev[device]
 
-    def _hot(self, src: RowSource, val, device) -> torch.Tensor:
-        """Touched-unit input -> ``(units,)`` bool: an integer tensor holds
-        unit indices (scattered; out-of-range ones dropped), anything else is
-        a hit mask."""
+    def _hot(self, src: RowSource, val, device, shard_rank=None) -> torch.Tensor:
+        """Touched-unit input -> ``(local units,)`` bool: an integer tensor
+        holds indices over the global unit grid (scattered; out-of-range ones
+        dropped), anything else is a global hit mask; a source whose unit
+        grid is sharded keeps ``shard_rank``'s block."""
         total = int(np.prod(src.unit_grid)) if src.unit_grid else src.units
         val = torch.as_tensor(val).to(device)
         if not val.is_floating_point() and val.dtype != torch.bool:
             idx = val.reshape(-1).to(torch.int64)
             idx = torch.where((idx >= 0) & (idx < total), idx, total)
             hot = torch.zeros(total + 1, dtype=torch.bool, device=device)
-            return hot.index_fill_(0, idx, True)[:total]
-        hot = val.reshape(-1) if val.dtype == torch.bool else val.reshape(-1) != 0
+            hot = hot.index_fill_(0, idx, True)[:total]
+        else:
+            hot = val.reshape(-1) if val.dtype == torch.bool else val.reshape(-1) != 0
         if hot.shape[0] != total:
             raise ValueError(f"source {src.name!r}: expected {total} units, got shape "
                              f"{tuple(val.shape)}")
-        return hot
+        if src.shard_dim is None:
+            return hot
+        n = src.unit_grid[src.shard_dim] // src.shard_parts
+        return hot.reshape(src.unit_grid).narrow(src.shard_dim, int(shard_rank) * n,
+                                                 n).reshape(-1)
 
     def step_masks(self, units: dict[str, Any], *, shard_rank=None, device=None) -> dict:
         """Touch events -> ``{bucket: (rows,) bool}`` payload row masks (on
         ``device``; default: the first input's, else the CPU).  ``units``
         maps source names to touched-unit inputs; a registered source
-        missing from ``units`` is marked fully dirty (conservative).  Feed
-        the result to ``channel.mark``."""
-        if shard_rank is not None:
-            raise NotImplementedError(
-                "step_masks(shard_rank=...) is for the sharded layouts of tensor parallelism "
-                "(tp > 1), not ported (ROADMAP.md §1, queue 2)")
+        missing from ``units`` is marked fully dirty (conservative).  On a
+        sharded layout the inputs stay global and ``shard_rank`` (the
+        caller's model index) picks the rank's block.  Feed the result to
+        ``channel.mark``."""
+        if shard_rank is None and any(s.shard_dim is not None for s in self.sources):
+            raise ValueError("step_masks on a sharded layout needs shard_rank= (the caller's "
+                             "model index) to slice global touch inputs down to local rows")
         if device is None:
             first = next((v for v in units.values() if isinstance(v, torch.Tensor)), None)
             device = first.device if first is not None else torch.device("cpu")
@@ -193,7 +210,7 @@ class RowTracker:
         masks = {k: v.clone() for k, v in on["base"].items()}
         for src, (starts, ends1) in zip(self.sources, on["iv"]):
             if src.name in units:
-                hot = self._hot(src, units[src.name], device)
+                hot = self._hot(src, units[src.name], device, shard_rank)
                 c = torch.cat([torch.zeros(1, dtype=torch.int64, device=device),
                                torch.cumsum(hot.to(torch.int64), 0)])
                 rows = (c[ends1] - c[starts]) > 0

@@ -3,8 +3,10 @@
 
 Serving uses the consensus model: one parameter tree, replicated over the
 nodes and sharded over each node's model group in the serving layout
-(:func:`serve_specs`: q heads, ``wo``, the MLP and the vocab sharded, k and
-v replicated).  A request batch splits over the nodes when the node count
+(:func:`serve_specs`: q heads, ``wo``, the MLP, the experts, the mLSTM
+value columns, the SSM channels and the vocab sharded, k and v
+replicated; the encoder-decoder serves at tp = 1 only,
+:func:`~repro_torch.models.transformer.check_tp`).  A request batch splits over the nodes when the node count
 divides it, and otherwise every node takes the whole batch (the
 reference's ``_batch_axes`` fallback, hit by a single request on several
 nodes).  The KV cache is sharded by sequence over the model group and
@@ -49,11 +51,11 @@ def serve_specs(cfg: ModelConfig, grid=None, *, global_batch: int):
     """``(param shard axes, cache shard axes, batch splits)`` on ``grid``
     (None: one device): the serving layout of the parameters
     (:func:`~repro_torch.models.transformer.param_shard_axes` with
-    ``serve=True``), the cache's sequence axis, and whether the batch
-    splits over the nodes."""
+    ``serve=True``), the cache's shard axes, and whether the batch splits
+    over the nodes."""
     tp = 1 if grid is None else grid.tp
     nodes = 1 if grid is None else grid.nodes
-    return (T.param_shard_axes(cfg, tp, serve=True), T.cache_shard_axes(cfg),
+    return (T.param_shard_axes(cfg, tp, serve=True), T.cache_shard_axes(cfg, tp),
             batch_splits(global_batch, nodes))
 
 
@@ -61,7 +63,7 @@ def _setup(cfg: ModelConfig, grid, global_batch: int | None, timing: bool):
     """The step's TP context (None at tp = 1) and its rows of the batch."""
     if grid is None:
         return None, None
-    T.check_tp(cfg, grid.tp)
+    T.check_tp(cfg, grid.tp, serve=True)
     tp = TPContext(grid.model, timing=timing) if grid.tp > 1 else None
     rows = None
     if global_batch is not None and batch_splits(global_batch, grid.nodes):
@@ -137,7 +139,7 @@ def abstract_cache(cfg: ModelConfig, global_batch: int, target_len: int, tp: int
                    scfg: ServeConfig) -> Tree:
     """The cache's global shapes and dtypes as meta tensors (the dry-run
     stand-in): :func:`~repro_torch.models.transformer.init_cache`'s per-rank
-    shapes with each sequence-sharded axis scaled back by ``tp``."""
+    shapes with each sharded axis scaled back by ``tp``."""
     local = T.init_cache(cfg, global_batch, target_len, scfg.runtime, device="meta", tp=tp)
 
     def to_global(x, ax):
@@ -146,4 +148,4 @@ def abstract_cache(cfg: ModelConfig, global_batch: int, target_len: int, tp: int
             shape[ax] *= tp
         return torch.empty(shape, dtype=x.dtype, device="meta")
 
-    return tree_map(to_global, local, T.cache_shard_axes(cfg))
+    return tree_map(to_global, local, T.cache_shard_axes(cfg, tp))

@@ -218,12 +218,11 @@ def test_cli_never_falls_back_to_the_cpu():
 
 
 def test_cli_rejects_what_is_not_ported():
-    # serving while training and tp > 1 for the dense family run now
-    # (tests/test_torch_tp_cli.py); the drill and the other families stay at tp = 1
+    # serving while training and tp > 1 for every family run now
+    # (tests/test_torch_tp_cli.py, tests/test_torch_tp_zoo_*.py); the drill
+    # stays at tp = 1
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train.main(CLI + ["--steps", "1", "--tp", "2", "--failure-drill"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.main(CLI + ["--steps", "1", "--tp", "2", "--arch", "granite-moe-1b-a400m"])
 
 
 # --- launch/elastic.py against repro.launch.elastic --------------------------

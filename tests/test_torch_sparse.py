@@ -407,7 +407,8 @@ def test_tracker_sources_and_masks_match_repro(arch):
 def test_tracker_token_rows_pads_and_refusals():
     """A token id hits exactly its embedding row (d_model = LANES at the
     published width: one unit, one row); pad rows stay clean; a wrong hit
-    size and a shard rank are refused."""
+    size is refused, and a shard rank on an unsharded layout changes
+    nothing (no source's unit grid is split)."""
     cfg, _, ttr = _layouts("granite-moe-1b-a400m")
     emb = next(s for s in ttr.sources if s.name == "embed")
     masks = ttr.step_masks({"embed": torch.tensor([3, 40, 10 ** 9])})
@@ -424,8 +425,8 @@ def test_tracker_token_rows_pads_and_refusals():
     moe = next(s for s in ttr.sources if s.kind == "moe")
     with pytest.raises(ValueError, match="expected"):
         ttr.step_masks({moe.name: torch.zeros(3)})
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        ttr.step_masks({}, shard_rank=0)
+    plain, ranked = ttr.step_masks({}), ttr.step_masks({}, shard_rank=0)
+    assert all(torch.equal(plain[k], ranked[k]) for k in plain)
 
 
 def test_collect_rows_expert_hits_match_repro():

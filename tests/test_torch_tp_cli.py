@@ -54,8 +54,7 @@ def test_serve_while_training_on_ranks():
 @pytest.mark.parametrize("argv, err", [
     (["--nodes", "2", "--tp", "2"], NotImplementedError),
     (["--simulate-nodes", "2", "--tp", "2", "--serve-while-training"], ValueError),
-    (["--simulate-nodes", "2", "--tp", "2", "--arch", "granite-moe-1b-a400m"],
-     NotImplementedError),
+    (["--simulate-nodes", "2", "--tp", "2", "--failure-drill"], NotImplementedError),
 ])
 def test_refusals(argv, err):
     with pytest.raises(err):

@@ -13,7 +13,8 @@ process:
   (``global_tree_state``, the manifest's ``plane_tp``), as ``repro``'s
   ``reconcile_plane_state`` converts it; padding that differs raises;
 * the cache's global shapes (``abstract_cache``); ``--preset 100m`` is
-  ``repro``'s ``lm-100m``; what stays at tp = 1 raises, naming ROADMAP.md.
+  ``repro``'s ``lm-100m``.  (The other families' layouts are
+  ``test_torch_tp_zoo_layouts.py``'s.)
 """
 
 import dataclasses
@@ -236,11 +237,3 @@ def test_preset_100m_is_repros():
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert (got.n_layers, got.d_model, got.n_heads, got.n_kv_heads, got.d_ff,
             got.vocab_size) == (12, 768, 12, 4, 3072, 50304)
-
-
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "xlstm-350m", "hymba-1.5b",
-                                  "whisper-tiny", "internvl2-2b"])
-def test_other_families_refuse_tp(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, queue 2"):
-        T.check_tp(get_config(arch, smoke=True), 2)
-    T.check_tp(get_config(arch, smoke=True), 1)

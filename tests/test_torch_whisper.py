@@ -403,14 +403,14 @@ def test_checkpoint_round_trip_with_the_encoder(tmp_path, flat):
 
 
 def test_cli_and_engine_refuse_the_encoder_decoder():
-    """Neither the CLI's data nor the engine's requests carry frames (as in
-    the reference): both raise before any work, saying so."""
-    with pytest.raises(NotImplementedError, match="enc_frames"):
-        tlaunch.main(["--nodes", "2", "--arch", ARCH, "--smoke", "--steps", "1",
-                      "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="enc_frames"):
-        tlaunch.main(["--simulate-nodes", "2", "--arch", ARCH, "--smoke", "--steps", "1",
-                      "--device", "cpu"])
+    """The engine's requests carry no frames (as in the reference): it
+    raises before any work, saying so.  The CLI's data carries seeded stub
+    frames for an encoder-decoder, so the CLI trains it, stacked and on
+    ranks, with finite losses."""
+    for flags in (["--nodes", "2"], ["--simulate-nodes", "2"]):
+        res = tlaunch.main(flags + ["--arch", ARCH, "--smoke", "--steps", "2", "--seq-len",
+                                    "16", "--per-node-batch", "2", "--device", "cpu"])
+        assert len(res["losses"]) == 2 and all(np.isfinite(res["losses"]))
     with pytest.raises(NotImplementedError, match="enc_frames"):
         ServeEngine(TCFG, slots=2, max_prompt=8, max_new=4, params=from_numpy(_params()),
                     device="cpu")

@@ -340,16 +340,14 @@ def test_full_width_groups_and_param_count_match_jax():
 
 
 def test_unported_families_raise():
-    # every family's model is ported, the encoder-decoder's too; what still
-    # refuses it are the entry points whose inputs carry no encoder frames
-    # (the CLI's data and the engine's requests, as in the reference)
-    from repro_torch.launch import train as tlaunch
-
+    # every family's model is ported, the encoder-decoder's too, and the
+    # CLI's data carries its frames; what still refuses it are the engine,
+    # whose requests carry no encoder frames (as in the reference), and its
+    # serving at tp > 1, where the reference's own sharded serving fails
     encdec = tget_config("whisper-tiny", smoke=True)
     assert tT.block_groups(encdec)[0].kind == "dec"
     with pytest.raises(NotImplementedError, match="enc_frames"):
         ServeEngine(encdec, slots=2, max_prompt=8, max_new=4,
                     params=tT.init_params(encdec, torch.Generator()), device="cpu")
-    with pytest.raises(NotImplementedError, match="enc_frames"):
-        tlaunch.main(["--nodes", "2", "--arch", "whisper-tiny", "--smoke", "--steps", "1",
-                      "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="408-418"):
+        tT.check_tp(encdec, 2, serve=True)

@@ -42,3 +42,43 @@ def serve_tokens(vocab: int) -> np.ndarray:
 def grad_batch(vocab: int) -> dict:
     toks = np.random.default_rng(1).integers(0, vocab, (2, 17)).astype(np.int64)
     return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+
+# ---------------------------------------------------------------------------
+# the rest of the zoo at tp > 1 (tests/test_torch_tp_zoo_*.py)
+# ---------------------------------------------------------------------------
+
+# the registry's smoke configs whose sharded serving is held against
+# repro's on the (4, 2) mesh: granite-moe-1b's 4 experts shard by expert,
+# granite-moe-3b's 5 by d_ff; the VLM serves with its patch embeddings
+ZOO_SERVE = ("granite-moe-1b-a400m", "granite-moe-3b-a800m", "xlstm-350m", "hymba-1.5b",
+             "internvl2-2b")
+# every family's gradient, joined over the model group, at tp 2 and 4
+ZOO_GRAD = ("granite-moe-1b-a400m", "granite-moe-3b-a800m", "xlstm-350m", "hymba-1.5b",
+            "internvl2-2b", "whisper-tiny")
+ZOO_B, ZOO_S = 8, 16  # the zoo's serving batch (2 rows a node) and prompt
+
+
+def zoo_serve_inputs(cfg) -> dict:
+    """(B, S + 1) tokens, and the VLM's (B, P, d) patch embeddings."""
+    rng = np.random.default_rng(5)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (ZOO_B, ZOO_S + 1)).astype(np.int32)}
+    if cfg.family == "vlm":
+        out["patch_embeds"] = rng.standard_normal(
+            (ZOO_B, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def zoo_grad_batch(cfg) -> dict:
+    """A (2, 16) training batch, with the VLM's patches and the
+    encoder-decoder's frames."""
+    rng = np.random.default_rng(6)
+    toks = rng.integers(0, cfg.vocab_size, (2, 17)).astype(np.int64)
+    out = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    if cfg.family == "vlm":
+        out["patch_embeds"] = rng.standard_normal((2, cfg.num_patches, cfg.d_model)).astype(
+            np.float32)
+    if cfg.arch_kind == "encdec":
+        out["enc_frames"] = rng.standard_normal((2, cfg.enc_seq, cfg.d_model)).astype(
+            np.float32)
+    return out

@@ -31,9 +31,11 @@ def _unpadded(params, cfg, tp):
     p["embed"]["table"] = p["embed"]["table"][:v]
     if "lm_head" in p:
         p["lm_head"]["w"] = p["lm_head"]["w"][:, :v]
-    for g in p["groups"].values():
-        g["attn"]["wq"] = g["attn"]["wq"][..., :h * hd]
-        g["attn"]["wo"] = g["attn"]["wo"][:, :h * hd]
+    for g in [*p["groups"].values(), *p.get("enc", {}).values()]:
+        for name in ("attn", "cross"):
+            if name in g:
+                g[name]["wq"] = g[name]["wq"][..., :h * hd]
+                g[name]["wo"] = g[name]["wo"][:, :h * hd]
     return p
 
 
@@ -183,8 +185,9 @@ def grad_and_train_ranks(world) -> dict:
     return {"grads": grad_ranks(world), "train": train_ranks(world)}
 
 
-def train_ranks(world) -> dict:
-    """On the (2, 2) grid: TRAIN_STEPS steps of each TRAIN_CASES case on the
+def train_ranks(world, arch: str | None = None, cases=None) -> dict:
+    """On the (2, 2) grid: TRAIN_STEPS steps of each TRAIN_CASES case (or
+    ``cases``, on ``arch``'s smoke config) on the
     distributed step at tp = 2, gathered to the global state, beside rank
     0's stacked step (the port's tp = 1 step) on the same model and
     batches: the largest differences of the parameters and of the optimizer
@@ -210,9 +213,12 @@ def train_ranks(world) -> dict:
     )
     from repro_torch.utils import shard, tree_leaves, tree_map, tree_paths
 
+    from repro_torch.configs import get_config
+
     tp = 2
     grid = init_grid(world, tp)
-    cfg = tiny_lm(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=256)
+    cfg = (get_config(arch, smoke=True) if arch else
+           tiny_lm(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=256))
     layout2, layout1 = model_plane_layout(cfg, tp), model_plane_layout(cfg)
     out = {}
 
@@ -238,7 +244,7 @@ def train_ranks(world) -> dict:
         tree = {"params": state["params"], "opt": opt}
         return dict(zip(tree_paths(tree), tree_leaves(tree)))
 
-    for name, fields in TRAIN_CASES.items():
+    for name, fields in (cases or TRAIN_CASES).items():
         tcfg = TrainConfig(fused_impl="triton", **fields, schedule=ScheduleConfig(
             kind="warmup_cosine", peak_lr=3e-3, warmup_steps=1, total_steps=TRAIN_STEPS))
         flat = tcfg.flat_planes
@@ -274,7 +280,7 @@ def train_ranks(world) -> dict:
                     sum(sq(shard(host["params"], axes, tp, m, leading=1))
                         for m in range(tp)) / tp,
                     sq(host["params"]))
-            if name == "planes-decentlam":
+            if name == "planes-decentlam" and arch is None:
                 pub = WeightPublisher(layout2)
                 node0 = tree_map(lambda x: x[0], host["params"])
                 pub.offer(layout2.pack_global(node0), version=1, gap=0)
@@ -311,3 +317,151 @@ def check_snapshots(engine, pub) -> dict:
 
     pub.offer = checked
     return seen
+
+
+def _joined_grads(world, cfg, tp, batch_np):
+    """On a (world / tp, tp) grid: the loss and each leaf's gradient of
+    ``cfg``'s model (init seed 0, padded for tp) at tp, joined over the
+    model group; on rank 0 beside the tp = 1 loss and gradient of the same
+    model: per leaf the largest difference relative to the leaf's gradient
+    scale and the largest gradient on the padding.  Both run on float64
+    parameters and activations (the router, the loss and the recurrent
+    cells compute in float32 at any dtype): in float32 the tp = 1 gradient
+    of an mLSTM gate (``w_f``) is itself 1.4e-5 of its scale from the
+    float64 one, at the tolerance, so float32 would test the rounding, not
+    the sharding."""
+    import torch
+
+    from repro_torch.interop import shard, unshard
+    from repro_torch.launch.mesh import init_grid
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import TPContext
+    from repro_torch.utils import tree_leaves, tree_map, tree_paths, tree_unflatten
+
+    grid = init_grid(world, tp)
+    f64 = lambda t: t.double() if t.is_floating_point() else t  # noqa: E731
+    params = tree_map(f64, T.init_params(cfg, torch.Generator().manual_seed(0), tp=tp))
+    rt = T.RuntimeConfig(dtype="float64")
+    axes = T.param_shard_axes(cfg, tp)
+    batch = {k: f64(torch.from_numpy(v)) for k, v in batch_np.items()}
+    mine = shard(params, axes, tp, grid.model.rank)
+    leaves = [x.detach().requires_grad_() for x in tree_leaves(mine)]
+    loss, _ = T.forward_loss(tree_unflatten(mine, leaves), batch, cfg, rt,
+                             tp=TPContext(grid.model))
+    grads = tree_unflatten(mine, list(torch.autograd.grad(loss, leaves)))
+    parts = [None] * tp
+    torch.distributed.all_gather_object(parts, grads, group=grid.model.pg)
+    if world.rank:
+        return None
+    full = unshard(parts, axes)
+    p1 = _unpadded(params, cfg, tp)
+    l1 = [x.detach().requires_grad_() for x in tree_leaves(p1)]
+    loss1, _ = T.forward_loss(tree_unflatten(p1, l1), batch, cfg, rt)
+    g1 = torch.autograd.grad(loss1, l1)
+    res = {"loss": float((loss - loss1).abs() / loss1.abs())}
+    for path, a, b in zip(tree_paths(full), tree_leaves(full), g1):
+        cut = tuple(slice(0, n) for n in b.shape)
+        pad = a.clone()
+        pad[cut] = 0
+        res[path] = (float((a[cut] - b).abs().max() / b.abs().max().clamp(min=1e-30)),
+                     float(pad.abs().max()))
+    return res
+
+
+def zoo_grad_ranks(world, archs, tp) -> dict:
+    """:func:`_joined_grads` of each smoke config in ``archs`` at ``tp``."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    for arch in archs:
+        cfg = get_config(arch, smoke=True)
+        out[arch] = _joined_grads(world, cfg, tp, C.zoo_grad_batch(cfg))
+    return out
+
+
+def zoo_serve_ranks(world, npz_path: str) -> dict:
+    """On the (4, 2) grid: each ZOO_SERVE config's sharded prefill and its
+    EXTRA decode steps (fed repro's tokens) from repro's global parameters,
+    gathered, and its cache's local shapes; for the recurrent families,
+    the continuous-batching engine on the grid beside rank 0's engine on
+    one process (tp = 1); then whisper-tiny's training loss at tp 2."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.interop import from_numpy, shard
+    from repro_torch.launch.mesh import init_grid
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import TPContext
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.train import serve as S
+    from repro_torch.utils import tree_map
+
+    grid = init_grid(world, C.TP)
+    rt = T.RuntimeConfig(dtype="float32")
+    tl = C.ZOO_S + C.EXTRA
+    out = {}
+    with np.load(npz_path) as z:
+        for arch in C.ZOO_SERVE:
+            cfg = get_config(arch, smoke=True)
+            params = from_numpy(_tree(z, f"{arch}/params/"))
+            inputs = C.zoo_serve_inputs(cfg)
+            scfg = S.ServeConfig(runtime=rt, target_len=tl)
+            axes = S.serve_specs(cfg, grid, global_batch=C.ZOO_B)[0]
+            mine = shard(params, axes, C.TP, grid.model.rank)
+            pre = S.build_prefill_step(cfg, scfg, grid, global_batch=C.ZOO_B)
+            dec = S.build_decode_step(cfg, scfg, grid, target_len=tl, global_batch=C.ZOO_B)
+            batch = {"tokens": torch.from_numpy(inputs["tokens"][:, :C.ZOO_S].astype(np.int64))}
+            if "patch_embeds" in inputs:
+                batch["patch_embeds"] = torch.from_numpy(inputs["patch_embeds"])
+            lg, cache = pre(mine, batch)
+            out[f"{arch}/prefill"] = S.gather_logits(lg, grid, global_batch=C.ZOO_B).numpy()
+            out[f"{arch}/cache"] = tree_map(lambda x: tuple(x.shape), cache)
+            for j in range(C.EXTRA):
+                feed = torch.from_numpy(z[f"{arch}/feed{j}"].astype(np.int64))
+                lg, cache = dec(mine, feed, cache, torch.tensor(C.ZOO_S + j))
+                out[f"{arch}/decode{j}"] = S.gather_logits(lg, grid,
+                                                           global_batch=C.ZOO_B).numpy()
+
+            def engine(g):
+                e = ServeEngine(cfg, slots=C.ZOO_B, max_prompt=12, max_new=5, params=params,
+                                device="cpu", grid=g)
+                rng = np.random.default_rng(7)
+                for i in range(11):
+                    n = int(rng.integers(1, 13))
+                    e.submit(Request(rid=i, tokens=rng.integers(0, cfg.vocab_size, n)
+                                     .astype(np.int32), max_new_tokens=int(rng.integers(1, 6))))
+                return {c.rid: c.tokens.tolist() for c in e.run_until_drained()}
+
+            if cfg.xlstm or cfg.ssm:
+                out[f"{arch}/engine"] = engine(grid)
+                if world.rank == 0:
+                    out[f"{arch}/engine1"] = engine(None)
+        # whisper-tiny's training loss at tp 2 from repro's parameters (every
+        # node the same batch)
+        cfg = get_config("whisper-tiny", smoke=True)
+        params = from_numpy(_tree(z, "whisper-tiny/params/"))
+        mine = shard(params, T.param_shard_axes(cfg, C.TP), C.TP, grid.model.rank)
+        batch = {k: torch.from_numpy(v) for k, v in C.zoo_grad_batch(cfg).items()}
+        with torch.no_grad():
+            out["whisper-tiny/loss_tp2"] = float(
+                T.forward_loss(mine, batch, cfg, tp=TPContext(grid.model))[0])
+    return out
+
+
+# the MoE train cases: expert mode (granite-moe-1b's 4 experts) and ffn mode
+# (granite-moe-3b's 5), on planes and per leaf with the clip norm
+ZOO_TRAIN = {"granite-moe-1b-a400m": {k: TRAIN_CASES[k] for k in ("planes-decentlam",
+                                                                   "leaf-clip-dmsgd")},
+             "granite-moe-3b-a800m": {k: TRAIN_CASES[k] for k in ("planes-decentlam",
+                                                                   "leaf-clip-dmsgd")}}
+
+
+def zoo_grad_and_train_ranks(world, archs) -> dict:
+    """On 4 ranks: each of ``archs``' joined gradients at tp 2 and 4
+    (:func:`zoo_grad_ranks`, in float64) and the ZOO_TRAIN cases among
+    ``archs`` on the (2, 2) grid (:func:`train_ranks`)."""
+    out = {"grads": {tp: zoo_grad_ranks(world, archs, tp) for tp in (2, 4)}, "train": {}}
+    for arch in archs:
+        if arch in ZOO_TRAIN:
+            out["train"][arch] = train_ranks(world, arch, ZOO_TRAIN[arch])
+    return out
