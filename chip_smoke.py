@@ -29,7 +29,7 @@ result line):
    shared memory and spills (ptxas; a spill fails the phase) and its count of
    tensor-core instructions (HMMA, from ``cuobjdump -sass``); then against
    its plain version on the card: causal x window {0, 100} x GQA group
-   {1, 2, 4} x hd {64, 80, 128} x ragged Sq, Sk in {1, 77, 300} x {f32,
+   {1, 2, 4} x hd {32, 64, 80, 128} x ragged Sq, Sk in {1, 77, 300} x {f32,
    bf16}, the same for hymba's 25/5 heads at hd 64 (a GQA group of 5) and
    olmo-1b's 16/16 at hd 128, and the three main-path shapes (qwen3-0.6b
    prefill, h2o-danube-1.8b with its 4096 window, hymba-1.5b prefill with
@@ -262,16 +262,30 @@ result line):
     rank; the mLSTM kernel at a rank's dv 256 against its plain version and
     timed); internvl2-2b's prefill with 256 patch embeddings and 4 decode
     steps at tp 2 (5e-4; one flash launch a layer) and whisper-tiny trained
-    at 1 node x tp 2 through the CLI with phase 34's gates (40).
+    at 1 node x tp 2 through the CLI with phase 34's gates (40);
+41. the tensor-parallel checkpoint and drill: phase 23's arguments at
+    ``--tp 2`` on a 2 x 2 grid of 4 ranks through the CLI's rank body: 4
+    steps unbroken against 2 steps, save, ``--resume``, 2 steps (the losses
+    and every rank's tensors bit for bit, the channel's ring and ``count``
+    included), then ``--failure-drill`` 2 x 2 -> 1 x 2 (finite losses, the
+    survivors' state == ``elastic_reshape`` of the gathered state bit for
+    bit, the channel re-initialized, the leaving ranks' records);
+42. the five examples of the port (``examples/torch_*.py``) through their
+    ``main`` on the card: bias_demo (the reference tests' bounds),
+    sim_cluster (the H100 projection), quickstart (DecentLaM's consensus
+    distance below DmSGD's), train_lm (8 ranks, the drill 8 -> 4) and
+    serve_lm (a 4 x 2 grid of 8 ranks: every request, the same tokens on
+    every rank, flash launched on every rank).
 
 Phases 6 and 9 also run flash at whisper-tiny's two non-causal shapes
 (the encoder's 1500 x 1500, the cross-attention's 224 x 1500), and phase 9
-at the tp 2 rank shapes of phases 33, 39 and 40.  The line before the last
+at the tp 2 rank shapes of phases 33, 39, 40 and 42 (hd 32).  The line before the last
 is the per-kernel JSON record (the stage kernel on the per-leaf, plane,
 staleness, MoE, whisper and row-sparse paths and on tp 2 rank planes of
 qwen3-0.6b, granite-moe and whisper; flash on the qwen3-0.6b, hymba-1.5b
-and whisper-tiny serve paths and at tp 2 ranks of qwen3-0.6b, hymba-1.5b
-and internvl2-2b; mLSTM on xlstm-350m's, whole and at a tp 2 rank's dv);
+and whisper-tiny serve paths and at tp 2 ranks of qwen3-0.6b, hymba-1.5b,
+internvl2-2b and the serve_lm example; mLSTM on xlstm-350m's, whole and at
+a tp 2 rank's dv);
 the last
 line is
 ``{"ok": true, "device": {...}}``.  Triton kernels compile at first use into
@@ -327,7 +341,11 @@ FA_MAIN_SHAPES = {"qwen3-0.6b prefill": (8, 2048, 2048, 16, 8, 64, 0, True),
                   "hymba-1.5b prefill, a tp 2 rank": (8, 2048, 2048, 13, 13, 64, 1024, True),
                   # a rank of phase 40: 8 of internvl2's 16 q heads over 4 kv
                   # heads, hd 128, the 512-token prompt
-                  "internvl2-2b prefill, a tp 2 rank": (8, 512, 512, 8, 4, 128, 0, True)}
+                  "internvl2-2b prefill, a tp 2 rank": (8, 512, 512, 8, 4, 128, 0, True),
+                  # a rank of phase 42's torch_serve_lm: its node's 2 of the 8
+                  # slots, 2 of the 4 q heads over 1 of 2 kv heads, hd 32, the
+                  # 24-token prompts
+                  "serve_lm example, a (4 x 2) rank": (2, 24, 24, 2, 1, 32, 0, True)}
 # the head layouts of this slice's models beyond phase 6's product, (H, Hkv,
 # hd): hymba's GQA group of 5 and olmo-1b's MHA at hd 128
 FA_ZOO_HEADS = ((25, 5, 64), (16, 16, 128))
@@ -824,7 +842,7 @@ def phase_flash_vs_plain(torch, built):
     t0 = time.perf_counter()
     lengths = (1, 77, 300)
     for causal, window, group, hd, sq, sk, dt in itertools.product(
-            (True, False), (0, 100), (1, 2, 4), (64, 80, 128), lengths, lengths,
+            (True, False), (0, 100), (1, 2, 4), (32, 64, 80, 128), lengths, lengths,
             (torch.float32, torch.bfloat16)):
         q, k, v = _fa_inputs(torch, 2, sq, sk, 2 * group, 2, hd, dt, gen)
         err = _fa_compare(torch, q, k, v, causal, window,
@@ -850,7 +868,7 @@ def phase_flash_vs_plain(torch, built):
         del q, k, v
         torch.cuda.empty_cache()
     log(f"phase 6: flash_attention kernel == plain version on {n} cases (causal x window "
-        f"{{0, 100}} x group {{1, 2, 4}} x hd {{64, 80, 128}} x Sq, Sk in {lengths} x "
+        f"{{0, 100}} x group {{1, 2, 4}} x hd {{32, 64, 80, 128}} x Sq, Sk in {lengths} x "
         f"{{f32, bf16}}, and the same for (H, Hkv, hd) in {FA_ZOO_HEADS}; worst max |diff| f32 {worst['float32']:.3g} (tol "
         f"{FA_TOL['float32']}), bf16 {worst['bfloat16']:.3g} (tol {FA_TOL['bfloat16']})) and "
         f"at the main-path shapes {', '.join(f'{k} {v:.3g}' for k, v in main_err.items())} "
@@ -3004,28 +3022,26 @@ def _drill_rank(world, argv):
     return train.rank_main(world, argv, None, _check_shrink)
 
 
-def _check_shrink(group, gathered, state):
-    """``on_shrink`` hook of phase 23: gather the survivors' rebuilt state
-    to rank 0 and hold it against ``elastic_reshape`` of the state gathered
-    before the shrink, bit for bit (every parameter and optimizer tensor; the
-    channel state starts afresh).  Rank 0 returns ``(tensors, differing)``."""
+def _check_shrink(grid, gathered, now):
+    """``on_shrink`` hook of phases 23 and 41: the survivors' rebuilt state,
+    gathered again to rank 0 (``now``), against ``elastic_reshape`` of the
+    state gathered before the shrink, bit for bit (every parameter and
+    optimizer tensor; the channel state starts afresh).  Rank 0 returns
+    ``(tensors, differing, channel fresh)``."""
     import torch
 
     from repro_torch.train.checkpoint import elastic_reshape
-    from repro_torch.train.train_state import gather_state
     from repro_torch.utils import tree_leaves, tree_paths
 
-    now = gather_state(state, group)
     if now is None:
         return None
-    want = elastic_reshape(gathered, group.world)
+    want = elastic_reshape(gathered, grid.nodes)
     tree_a = {k: now[k] for k in ("params", "opt")}
     tree_b = {k: want[k] for k in ("params", "opt")}
     pa = dict(zip(tree_paths(tree_a), tree_leaves(tree_a)))
     pb = dict(zip(tree_paths(tree_b), tree_leaves(tree_b)))
     differ = [k for k in pb if k not in pa or not _same_bits(torch, pa[k], pb[k])]
-    fresh = all(not bool(t.any()) for k, t in zip(tree_paths(now.get("channel", {})),
-                                                   tree_leaves(now.get("channel", {}))))
+    fresh = all(not bool(t.any()) for t in tree_leaves(now.get("channel", {})))
     return len(pb), differ, fresh
 
 
@@ -5468,6 +5484,227 @@ def phase_tp_zoo(torch):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# The tensor-parallel checkpoint and drill, the examples (41-42)
+# ---------------------------------------------------------------------------
+
+# phase 41: phase 23's arguments (qwen3-0.6b at full width, 2 layers, the
+# vocabulary cut to CHECK_VOCAB, decentlam-sa at delay 1 on planes, the Triton
+# stage kernel) on a 2 x 2 grid of 4 ranks
+TP_CKPT = ["--simulate-nodes", "2", "--tp", "2"] + DIST_CKPT[2:]
+TP_CKPT_DIR = os.path.join(HERE, "build", "tp_ckpt")
+# phase 42: the examples, cut for the script's time: torch_bias_demo's
+# studies from 3000 steps to 600 (every trace has settled by step 300),
+# torch_quickstart from 60 steps to 20 (DecentLaM's consensus distance is
+# below DmSGD's from step 20 on), torch_train_lm from 120 to 10 (the drill at
+# step 5; a step of its 8 ranks sharing the card took 0.37-0.54 s)
+EXAMPLES_DIR = os.path.join(HERE, "examples")
+EX = dict(bias_steps=600, quickstart_steps=20, train_steps=10)
+EX_DIR = os.path.join(HERE, "build", "examples")
+# the reference's bias tests (tests/test_bias_propositions.py): DmSGD's
+# amplification over DSGD within 10x of Prop. 2's 25x and above 3x;
+# DecentLaM within 1.5x of DSGD and below 0.2x of DmSGD
+BIAS_AMP = (2.5, 250.0)
+
+
+def _tp_ckpt_rank(world, root, argv):
+    """Phase 41 on one of 4 ranks, through the CLI's rank body
+    (``rank_main``) with the vocabulary cut: 4 steps unbroken; 2 steps
+    checkpointed at their end (under ``root``) and resumed to step 4; each
+    rank's final parameters, optimizer and channel state against the
+    unbroken run's, bit for bit.
+    Then ``--failure-drill`` over 3 steps, 2 x 2 -> 1 x 2, checked by
+    :func:`_check_shrink`.  The stage kernel's launches are counted by op
+    over each run.  Rank 0 returns the report; the others their part."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels.fused_update.kernel import fused_stage_launch, reset_launches
+    from repro_torch.launch import train
+
+    model_config = train._model_config
+    train._model_config = lambda args: _check_config(model_config(args))
+    final, launches = {}, []
+
+    def keep(step, state, metrics):
+        if step == 3:
+            final["state"] = _host_copy(state)
+
+    def run(extra, on_step=None, on_shrink=None):
+        reset_launches()
+        out = train.rank_main(world, argv + extra, on_step, on_shrink)
+        launches.append(dict(fused_stage_launch.launches_by_op))
+        return out
+
+    ra = run(["--steps", "4"], keep)
+    straight = final.pop("state")
+    saved = run(["--steps", "2", "--ckpt-dir", root])
+    gb = None
+    if world.rank == 0:
+        gb = os.path.getsize(os.path.join(root, "step_00000002", "state.npz")) / 1e9
+    rb = run(["--steps", "4", "--ckpt-dir", root, "--resume"], keep)
+    resumed = final.pop("state")
+    differ = sorted(set(straight) ^ set(resumed)) + [
+        k for k in straight if k in resumed and not _same_bits(torch, straight[k], resumed[k])]
+    verdicts = [None] * world.world
+    dist.all_gather_object(verdicts, differ)
+    paths = sorted(straight)
+    del straight, resumed
+    torch.cuda.empty_cache()
+    rc = run(["--steps", "3", "--failure-drill"], on_shrink=_check_shrink)
+    if world.rank:
+        return {"drill": rc, "launches": launches}
+    return {"a": ra, "saved": saved, "b": rb, "drill": rc, "differ": verdicts, "gb": gb,
+            "launches": launches, "tensors": paths}
+
+
+def phase_tp_checkpoint(torch):
+    """Phase 23's arguments at ``--tp 2`` on a 2 x 2 grid of 4 ranks sharing
+    the card over gloo (qwen3-0.6b at full width, 2 layers, the vocabulary
+    cut; decentlam-sa at delay 1 on planes, the stage kernel in Triton):
+    4 steps unbroken against 2 steps, save, ``--resume``, 2 steps: the
+    losses and every rank's tensors bit for bit, the channel's ring and
+    ``count`` included; the checkpoint's GB, save and restore seconds.
+    Then ``--failure-drill`` 2 x 2 -> 1 x 2 over 3 steps: finite losses,
+    the survivors' state == ``elastic_reshape`` of the gathered state bit
+    for bit, the channel re-initialized, the leaving ranks' records.  The
+    stage kernel launched by every rank in every run."""
+    import shutil
+
+    from repro_torch.launch.mesh import run_ranks
+
+    shutil.rmtree(TP_CKPT_DIR, ignore_errors=True)
+    os.makedirs(TP_CKPT_DIR)
+    free = shutil.disk_usage(HERE).free
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    try:
+        out = run_ranks(_tp_ckpt_rank, 4, TP_CKPT_DIR, TP_CKPT, timeout_s=DIST_TIMEOUT_S)
+    finally:
+        shutil.rmtree(TP_CKPT_DIR, ignore_errors=True)
+    rep = out[0]
+    ra, rb, rc = rep["a"], rep["b"], rep["drill"]
+    if (rb["start_step"] != 2 or rep["saved"]["losses"] != ra["losses"][:2]
+            or rb["losses"] != ra["losses"][2:] or any(rep["differ"])):
+        raise RuntimeError(f"phase 41: resumed losses {rb['losses']}, unbroken {ra['losses']}; "
+                           f"tensors that differ per rank {[d[:5] for d in rep['differ']]}")
+    n_tensors, differ, fresh = rc["on_shrink"]
+    left = [r["drill"] for r in out[2:]]
+    if (not all(map(math.isfinite, rc["losses"])) or rc["drill"] != {"step": 1, "from": 2, "to": 1}
+            or rc["n_nodes"] != 1 or differ or not fresh
+            or left != [{"left_at_step": 1, "rank": 2}, {"left_at_step": 1, "rank": 3}]):
+        raise RuntimeError(f"phase 41 drill: {rc['drill']}, losses {rc['losses']} on "
+                           f"{rc['n_nodes']} nodes, {differ[:5]} differ from elastic_reshape, "
+                           f"channel fresh {fresh}, leaving ranks {left}")
+    # every rank launched each stage op in each run (unbroken, saved, resumed, drill)
+    counts = [r["launches"] for r in out]
+    ops = sorted({op for c in counts for run in c for op in run})
+    if not ops or any(not run.get(op) for c in counts for run in c for op in ops):
+        raise RuntimeError(f"phase 41: stage launches by rank and run {counts}")
+    chan = [k for k in rep["tensors"] if k.startswith("channel/")]
+    if not any(k.endswith("/count") for k in chan) or not any("/hist/" in k for k in chan):
+        raise RuntimeError(f"phase 41: the ranks' channel state holds {chan}")
+    log(f"phase 41: 2 nodes x tp 2, 2 layers, vocabulary {CHECK_VOCAB:,}, decentlam-sa at "
+        f"delay 1 on planes ({_smi()}): unbroken {ra['losses']} == 2 steps, save, --resume, "
+        f"2 steps {rb['losses']}; every rank's final state bit for bit in all "
+        f"{len(rep['tensors'])} tensors ({len(chan)} of the channel: {chan}); stage launches "
+        f"by rank, run and op {counts}")
+    log(f"  {rep['gb']:.3f} GB per checkpoint ({free / 1e9:.1f} GB free on the disk); save "
+        f"(gather to rank 0, write) {rep['saved']['save_s'] + rb['save_s']} s, restore (read "
+        f"on rank 0, scatter, to the device) {rb['restore_s']:.2f} s")
+    log(f"  --failure-drill {rc['drill']}: losses {rc['losses']} (finite) on 1 node x tp 2, "
+        f"the survivors' state == elastic_reshape of the gathered state bit for bit in "
+        f"{n_tensors} tensors, the channel re-initialized, ranks 2-3 left with {left}; "
+        f"{time.perf_counter() - t:.1f} s")
+
+
+def phase_examples(torch):
+    """The five examples of the port through their ``main`` on the card:
+    ``torch_bias_demo`` (Figs. 2-3, its studies cut to EX's steps; the
+    amplification and the ratio within the reference tests' bounds),
+    ``torch_sim_cluster`` (finite trace, the H100 projection),
+    ``torch_quickstart`` (finite losses; DecentLaM's final consensus
+    distance below DmSGD's, and the final losses side by side),
+    ``torch_train_lm`` (8 ranks sharing the card over gloo, the JAX example's
+    argv, its steps cut: finite losses, the drill 8 -> 4) and ``torch_serve_lm`` (8 ranks,
+    a 4 x 2 grid: every request complete, the same tokens on every rank,
+    the flash kernel launched on every rank).  Returns the serve run's
+    flash launches (rank 0's)."""
+    import shutil
+
+    if EXAMPLES_DIR not in sys.path:
+        sys.path.insert(0, EXAMPLES_DIR)
+    import torch_bias_demo
+    import torch_quickstart
+    import torch_serve_lm
+    import torch_sim_cluster
+    import torch_train_lm
+
+    smi, secs = _smi(), {}
+
+    def timed_main(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        secs[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    bias = timed_main("bias_demo", torch_bias_demo.main, ["--steps", str(EX["bias_steps"])])
+    traces = [v for tr in bias["traces"].values() for v in tr]
+    amp, ratio = bias["amplification"], bias["ratio"]
+    final = {a: tr[-1] for a, tr in bias["traces"].items()}
+    if not (all(map(math.isfinite, traces)) and BIAS_AMP[0] < amp < BIAS_AMP[1] and amp > 3.0
+            and ratio < 1.5 and final["decentlam"] < 0.2 * final["dmsgd"]):
+        raise RuntimeError(f"phase 42 bias_demo: amplification {amp}, ratio {ratio}, final {final}")
+    sim = timed_main("sim_cluster", torch_sim_cluster.main, [])
+    vals = [v for e in sim["trace"] for v in (e["consensus"], e["metric"])]
+    if not (sim["trace"] and all(map(math.isfinite, vals)) and "TPU" not in
+            sim["projection_label"] and sim["projection"]["wallclock_s"] > 0):
+        raise RuntimeError(f"phase 42 sim_cluster: {sim['summary']}, {sim['projection']}")
+    qs = timed_main("quickstart", torch_quickstart.main,
+                    ["--steps", str(EX["quickstart_steps"])])
+    loss = {a: r["losses"][-1] for a, r in qs.items()}
+    cons = {a: r["consensus_sq"][-1] for a, r in qs.items()}
+    if not (all(math.isfinite(v) for r in qs.values() for v in r["losses"])
+            and cons["decentlam"] < cons["dmsgd"]):
+        raise RuntimeError(f"phase 42 quickstart: final losses {loss}, consensus {cons}")
+    shutil.rmtree(EX_DIR, ignore_errors=True)
+    try:
+        tl = timed_main("train_lm", torch_train_lm.main,
+                        ["--ckpt-dir", os.path.join(EX_DIR, "train_lm"), "--timeout",
+                         str(DIST_TIMEOUT_S), "--steps", str(EX["train_steps"])])
+    finally:
+        shutil.rmtree(EX_DIR, ignore_errors=True)
+    half = EX["train_steps"] // 2
+    if not (all(map(math.isfinite, tl["losses"])) and len(tl["losses"]) == EX["train_steps"]
+            and tl["drill"] == {"step": half, "from": 8, "to": 4} and tl["n_nodes"] == 4):
+        raise RuntimeError(f"phase 42 train_lm: drill {tl['drill']}, {tl['n_nodes']} nodes, "
+                           f"losses {tl['losses'][:3]}..{tl['losses'][-3:]}")
+    sv = timed_main("serve_lm", torch_serve_lm.main, ["--timeout", str(DIST_TIMEOUT_S)])
+    toks = sv["tokens"]
+    if not (sv["shards_agree"] and len(toks) == torch_serve_lm.B
+            and all(len(t) == torch_serve_lm.GEN for t in toks)
+            and all(n > 0 for n in sv["flash_launches"])):
+        raise RuntimeError(f"phase 42 serve_lm: agree {sv['shards_agree']}, lengths "
+                           f"{[len(t) for t in toks]}, flash launches {sv['flash_launches']}")
+    log(f"phase 42: the examples on the card ({smi}), seconds {secs}")
+    log(f"  bias_demo ({EX['bias_steps']} steps a study): DmSGD amplification {amp:.1f}x "
+        f"(bounds {BIAS_AMP}), DecentLaM / DSGD {ratio:.3f}; final biases {final}")
+    log(f"  sim_cluster: {len(sim['trace'])} trace rows, summary {sim['summary']}; "
+        f"{sim['projection_label']}: {sim['projection']}")
+    log(f"  quickstart ({EX['quickstart_steps']} steps, 8 stacked nodes): final losses {loss}, "
+        f"final consensus "
+        f"{cons} (DecentLaM's below DmSGD's); DecentLaM's final loss "
+        f"{'below' if loss['decentlam'] < loss['dmsgd'] else 'not below'} DmSGD's")
+    log(f"  train_lm (8 ranks over gloo, {EX['train_steps']} steps): losses "
+        f"{tl['losses'][0]:.4f} .. "
+        f"{tl['losses'][-1]:.4f}, drill {tl['drill']}, step {tl['step_s']:.4f} s")
+    secs_by_rank = [tuple(round(x, 2) for x in r) for r in sv["seconds"]]
+    log(f"  serve_lm (4 x 2 grid of 8 ranks): {len(toks)} requests x {len(toks[0])} tokens, "
+        f"the same on every rank; flash launches by rank {sv['flash_launches']}; host seconds "
+        f"(grid, engine set up, serve) by rank {secs_by_rank}; request 0 {toks[0]}")
+    return sv["flash_launches"][0]
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -5475,6 +5712,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(HERE, "src"))
     os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(HERE, "build", "triton"))
+    # bytecode under build/pycache: where the installed packages have none
+    # cached, every spawned rank would compile torch's sources again (~5 s a
+    # group of ranks on the card's host); this process compiles them once
+    sys.pycache_prefix = os.path.join(HERE, "build", "pycache")
+    os.environ["PYTHONPYCACHEPREFIX"] = sys.pycache_prefix
 
     import torch
 
@@ -5553,6 +5795,8 @@ def main() -> int:
     timed("36 cost model on the card", phase_cost_model, flat, straggler)
     tp_moe = timed("37 tensor-parallel MoE train", phase_tp_moe_train)
     tp_zoo = timed("38-40 tensor-parallel xLSTM, hybrid, VLM serve; whisper train", phase_tp_zoo)
+    timed("41 tensor-parallel checkpoint, resume, drill", phase_tp_checkpoint)
+    ex_flash = timed("42 the examples on the card", phase_examples)
     log(f"phase times (s): {phases}; total {time.perf_counter() - t0:.1f}s")
     log(f"device memory allocated after each phase (GiB): {held}")
     # one record per specialization of the Triton kernel on the training main
@@ -5620,6 +5864,7 @@ def main() -> int:
     fa_tp = fa["qwen3-0.6b prefill, a tp 2 rank"]
     fa_hy_tp = fa["hymba-1.5b prefill, a tp 2 rank"]
     fa_vlm_tp = fa["internvl2-2b prefill, a tp 2 rank"]
+    fa_ex = fa["serve_lm example, a (4 x 2) rank"]
     fa, hy = fa["qwen3-0.6b prefill"], fa["hymba-1.5b prefill"]
     records.append({
         "name": "flash_attention[causal, f32, hd 64]",
@@ -5792,6 +6037,23 @@ def main() -> int:
             "bound_by": rec["bound_by"],
             "library_ms": rec["library_ms"],
         })
+    # phase 42: flash in torch_serve_lm's prefill on a rank of the (4 x 2)
+    # grid, one launch a layer (the count is rank 0's); the time at that
+    # shape (phase 9)
+    records.append({
+        "name": "flash_attention[serve_lm example at tp 2, a rank's prefill: causal, f32, hd 32, "
+                "2/1 heads]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:99",
+        "launches": ex_flash,
+        "max_abs_err": fa_ex["err"],
+        "ms": fa_ex["ms"],
+        "plain_ms": fa_ex["plain_ms"],
+        "bound_ms": fa_ex["bound_ms"],
+        "bound_by": fa_ex["bound_by"],
+        "library_ms": fa_ex["library_ms"],
+    })
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

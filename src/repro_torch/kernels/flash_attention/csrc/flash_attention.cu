@@ -27,8 +27,9 @@
 //   The block's q sits in shared memory (split at each fragment load); a
 //   warp keeps its output accumulator (hd / 2 floats per thread) and the
 //   16 x 32 score tile in registers for the whole key loop.  Few registers
-//   and 32-key tiles let 4 blocks (16 warps) share an SM at hd 64, 3 at hd
-//   80 and 2 at hd 128, which hides the mma and shared-memory latencies;
+//   and 32-key tiles let 4 blocks (16 warps) share an SM at hd 32 and 64, 3
+//   at hd 80 and 2 at hd 128, which hides the mma and shared-memory
+//   latencies;
 // * k and v stream in 32-key tiles through a two-stage cp.async ring in
 //   shared memory, in the inputs' own type (bf16 is converted at the
 //   fragment load; bf16 operands are exact in TF32, so their cross products
@@ -391,6 +392,8 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 template <typename T>
 cudaError_t dispatch_hd(int hd, const Params& p, cudaStream_t stream) {
   switch (hd) {
+    case 32:
+      return launch<T, 32>(p, stream);
     case 64:
       return launch<T, 64>(p, stream);
     case 80:

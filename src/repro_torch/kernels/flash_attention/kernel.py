@@ -25,7 +25,7 @@ __all__ = [
     "work",
 ]
 
-HEAD_DIMS = (64, 80, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535

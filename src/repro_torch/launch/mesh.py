@@ -24,6 +24,9 @@ tensor-parallel collectives; the **node group** (the ranks of one model
 index) carries the gossip, as the node group of a tp = 1 run does.  The
 backend rule is the world's: with fewer cards than ranks every group runs
 over gloo, its messages staged through pinned host memory.
+:func:`shrink_grid` keeps the first nodes of a grid with all their model
+ranks (the failure drill), every rank of the old grid making the new
+groups.
 
 :func:`run_ranks` spawns a group on this host (the ``spawn`` start method,
 never ``fork``), gives every rank a deadline and raises if any rank fails.
@@ -41,6 +44,7 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
+import pickle
 import queue
 import tempfile
 import time
@@ -49,9 +53,11 @@ from typing import Any, Callable
 
 import torch
 import torch.distributed as dist
+import torch.multiprocessing  # noqa: F401  (registers the tensor reductions)
+from multiprocessing.reduction import ForkingPickler
 
-__all__ = ["NodeGroup", "Grid", "pick_backend", "init_node_group", "init_grid", "subgroup",
-           "dry_grid", "n_nodes_of", "node_index", "run_ranks"]
+__all__ = ["NodeGroup", "Grid", "pick_backend", "init_node_group", "init_grid", "shrink_grid",
+           "subgroup", "dry_grid", "n_nodes_of", "node_index", "run_ranks"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,25 +179,49 @@ def init_grid(world: NodeGroup, tp: int) -> Grid:
     group a group of one, and no subgroup is made."""
     if tp < 1 or world.world % tp:
         raise ValueError(f"{world.world} ranks do not form nodes of tp={tp} ranks")
-    n = world.world // tp
-    i, m = divmod(world.rank, tp)
     if tp == 1:
         return Grid(world=world, node=world,
                     model=dataclasses.replace(world, rank=0, world=1, pg=None,
                                               members=(world.rank,), axis="model"), tp=1)
+    return _grid_groups(world, world.world // tp, tp, world.backend)
+
+
+def _grid_groups(world: NodeGroup | None, n: int, tp: int, backend: str) -> Grid | None:
+    """Make every model group, then every node group, of an ``(n x tp)``
+    grid over global ranks ``0 .. n * tp - 1``, and this rank's place on it
+    (None on a rank outside it, ``world`` None, which still enters every
+    ``new_group``)."""
+    i, m = divmod(world.rank, tp) if world is not None else (-1, -1)
     model = node = None
     for j in range(n):
         ranks = tuple(range(j * tp, (j + 1) * tp))
-        pg = dist.new_group(ranks=list(ranks), backend=world.backend)
+        pg = dist.new_group(ranks=list(ranks), backend=backend)
         if j == i:
             model = dataclasses.replace(world, rank=m, world=tp, pg=pg, members=ranks,
                                         axis="model")
     for k in range(tp):
         ranks = tuple(range(k, n * tp, tp))
-        pg = dist.new_group(ranks=list(ranks), backend=world.backend)
+        pg = dist.new_group(ranks=list(ranks), backend=backend)
         if k == m:
             node = dataclasses.replace(world, rank=i, world=n, pg=pg, members=ranks)
-    return Grid(world=world, node=node, model=model, tp=tp)
+    return None if world is None else Grid(world=world, node=node, model=model, tp=tp)
+
+
+def shrink_grid(grid: Grid, nodes: int) -> Grid | None:
+    """The grid of ``grid``'s first ``nodes`` nodes with all their model
+    ranks (global ranks ``0 .. nodes * tp - 1``, each keeping its rank), or
+    None on a rank that leaves.  ``torch.distributed.new_group`` must be
+    entered by every rank of the default group, members or not, so every
+    rank of ``grid`` (the default group's ranks) calls this: it makes the
+    survivors' world group, then every model and node group of the
+    ``(nodes x tp)`` grid in :func:`init_grid`'s order, and only then does a
+    leaving rank get its None."""
+    if not 1 <= nodes <= grid.nodes:
+        raise ValueError(f"cannot shrink {grid.nodes} nodes to {nodes}")
+    world = subgroup(grid.world, list(range(nodes * grid.tp)))
+    if grid.tp == 1:
+        return None if world is None else init_grid(world, 1)
+    return _grid_groups(world, nodes, grid.tp, grid.world.backend)
 
 
 def dry_grid(nodes: int, tp: int, *, node: int = 0, index: int = 0) -> Grid:
@@ -220,10 +250,12 @@ def node_index(group: NodeGroup) -> int:
     return group.rank
 
 
-def _rank_entry(rank, world, init_method, device, fn, args, results, timeout_s):
+def _rank_entry(rank, world, init_method, device, call_path, results, timeout_s):
     if device == "cpu":
         torch.set_num_threads(1)  # the ranks share the host's cores
     try:
+        with open(call_path, "rb") as f:
+            fn, args = pickle.load(f)
         group = init_node_group(rank, world, init_method, device=device, timeout_s=timeout_s)
         try:
             out = fn(group, *args)
@@ -240,16 +272,22 @@ def run_ranks(fn: Callable, world: int, *args, device: str = "cuda",
     """Run ``fn(group, *args)`` in ``world`` spawned processes, one per node,
     and return their results by rank.  ``fn`` and ``args`` are pickled (a
     module-level function).  The ranks rendezvous through a file store in a
-    fresh temporary directory.  A rank that raises, dies or outlives
+    fresh temporary directory, and read ``fn`` and ``args`` from a file
+    there: a spawned process takes its start arguments through a pipe that
+    the parent fills while the child imports, so large arguments there would
+    start the ranks one after another.  A rank that raises, dies or outlives
     ``timeout_s`` (None: no deadline) fails the run: the others are killed
     and a RuntimeError carries the failing rank's traceback."""
     ctx = torch.multiprocessing.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="repro_torch_group.")
     init_method = "file://" + os.path.join(tmp, "store")
+    call_path = os.path.join(tmp, "call.pkl")
+    with open(call_path, "wb") as f:
+        f.write(ForkingPickler.dumps((fn, args)))
     results = ctx.Queue()
     coll_timeout = 600.0 if timeout_s is None else float(timeout_s)
     procs = [ctx.Process(target=_rank_entry, daemon=True,
-                         args=(r, world, init_method, device, fn, args, results, coll_timeout))
+                         args=(r, world, init_method, device, call_path, results, coll_timeout))
              for r in range(world)]
     for p in procs:
         p.start()

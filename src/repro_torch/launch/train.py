@@ -14,19 +14,21 @@ at the end; ``--resume`` continues from the latest checkpoint there
 processes, one node each, gossiping over ``torch.distributed``
 (``--gossip-impl ppermute`` or ``allgather``; :mod:`repro_torch.launch.mesh`
 picks NCCL with a card per rank, else gloo).  Rank 0 gathers the state for
-checkpoints and writes them; ``--failure-drill`` shrinks the group to n/2
+checkpoints and writes them; ``--failure-drill`` shrinks the nodes to n/2
 halfway (rank 0 gathers the state and collapses it with
-``elastic_reshape``, the upper half of the ranks leave, the survivors form
-a new group and resume).  Under ``torchrun`` (``RANK`` and ``WORLD_SIZE``
-set) the same flags run this process as one rank of the launched group.
+``elastic_reshape``, the upper half of the nodes leave with all their
+model ranks, the survivors form a new grid and resume).  Under
+``torchrun`` (``RANK`` and ``WORLD_SIZE`` set) the same flags run this
+process as one rank of the launched group.
 ``--tp T`` adds tensor parallelism there: ``--simulate-nodes N --tp T``
 spawns ``N x T`` ranks laid out as ``(nodes x tp)`` (under torchrun
 ``WORLD_SIZE`` must be ``N x T``); each node's T ranks split the dense
 decoder Megatron-style and gossip their shards over the node groups.
-Checkpoints hold the global state and resume across tp through the
-manifest's ``plane_tp``.  ``--serve-while-training`` there (tp = 1) has
-rank 0 publish its node through the consensus-gated publisher, every rank
-taking part in the fleet's gap gather, and serve from the snapshots.
+Checkpoints hold the global state, the channel's included, and resume
+across tp through the manifest's ``plane_tp``.  ``--serve-while-training``
+there (tp = 1) has rank 0 publish its node through the consensus-gated
+publisher, every rank taking part in the fleet's gap gather, and serve from
+the snapshots.
 
 Examples::
 
@@ -59,6 +61,10 @@ Examples::
     PYTHONPATH=src python -m repro_torch.launch.train --simulate-nodes 4 \\
         --device cpu --arch qwen3-0.6b --smoke --steps 6 --seq-len 32 \\
         --per-node-batch 2 --fused-update --ckpt-dir build/ckpt --failure-drill
+
+    # the drill on a (2 x 2) grid: the 4 ranks shrink to 1 node x 2 model ranks
+    PYTHONPATH=src python -m repro_torch.launch.train --simulate-nodes 2 --tp 2 \\
+        --device cpu --smoke --steps 3 --failure-drill
 
     # 2 nodes x 2-way tensor parallelism: 4 ranks (on one card over gloo)
     PYTHONPATH=src python -m repro_torch.launch.train --simulate-nodes 2 --tp 2 \\
@@ -121,15 +127,13 @@ from ..train.step import TrainConfig, build_dist_train_step, build_train_step
 from ..train.train_state import (
     ensure_channel_state,
     gather_grid_state,
-    gather_state,
     global_tree_state,
     init_train_state,
     model_plane_layout,
     reconcile_plane_state,
     scatter_grid_state,
-    scatter_state,
 )
-from .mesh import init_grid, init_node_group, run_ranks, subgroup
+from .mesh import init_grid, init_node_group, run_ranks, shrink_grid
 from ..utils import resolve_device, tree_leaves, tree_map
 
 
@@ -518,13 +522,9 @@ def main(argv=None, *, on_step=None, serve_runtime=None, on_serve=None,
             raise NotImplementedError(
                 f"--tp {args.tp}: the stacked trainer (--nodes) runs at tp = 1; tensor "
                 "parallelism runs one process per rank: pass --simulate-nodes N (N x tp ranks) "
-                "or launch under torchrun (ROADMAP.md §1, queue 2)")
+                "or launch under torchrun")
         if args.serve_while_training:
             raise ValueError("--serve-while-training requires --tp 1 (as repro's)")
-        if args.failure_drill:
-            raise NotImplementedError(
-                "--failure-drill runs at tp = 1: the elastic shrink of a (nodes x tp) grid is "
-                "not ported (ROADMAP.md §1, queue 2)")
     if args.simulate_nodes or launched:
         resolve_device(args.device)  # no CUDA on a CUDA request raises here
         if launched:
@@ -671,8 +671,9 @@ def _resume_ranks(grid, ckpt_dir: str, cfg, channel, layout, flat_planes: bool) 
     latest checkpoint (elastically reshaped to the grid's node count,
     checked against the layout it was written with) and scatters it; each
     rank moves its part (its node, its model rank's shard) to its device and
-    brings it into the form the run keeps, its channel state kept where it
-    matches ``channel`` (at tp > 1 re-initialized)."""
+    brings it into the form the run keeps, each channel leaf kept where its
+    shape matches ``channel``'s, at any tp (a delay slot whole or not at
+    all), and re-initialized elsewhere."""
     host, stored = None, None
     cur_layout = layout or model_plane_layout(cfg, grid.tp)
     if grid.world.rank == 0:
@@ -723,16 +724,19 @@ def rank_main(world, argv, on_step=None, on_shrink=None, serve_runtime=None,
     trainer): the ranks laid out as ``(nodes x tp)`` (``--tp``), this rank's
     part of the state (its node, its model rank's shard), the global batch
     of every step (the rank trains on its node's rows), checkpoints
-    gathered to and written by rank 0, the failure drill (tp = 1) and
-    serving while training (tp = 1: rank 0 publishes its node and serves).
+    gathered to and written by rank 0, the failure drill (the first half of
+    the nodes go on with all their model ranks) and serving while training
+    (tp = 1: rank 0 publishes its node and serves).
     Returns the run's result (the losses are the mean over nodes, the same
     on every rank).
 
-    ``on_shrink(group, gathered, state)``, if given, runs on every survivor
-    of the drill once its state is rebuilt: ``gathered`` is the global state
-    before the shrink on rank 0 (None elsewhere), ``group`` the new group;
-    rank 0's return value is the result's ``"on_shrink"``.  ``serve_runtime``
-    and ``on_serve`` are :func:`main`'s, for rank 0's engine."""
+    ``on_shrink(grid, gathered, now)``, if given, runs on every survivor of
+    the drill once its state is rebuilt: ``grid`` is the new grid,
+    ``gathered`` the global state before the shrink and ``now`` the
+    survivors' rebuilt state gathered again, both on rank 0 (None
+    elsewhere); rank 0's return value is the result's ``"on_shrink"``.
+    ``serve_runtime`` and ``on_serve`` are :func:`main`'s, for rank 0's
+    engine."""
     args = _parse(argv)
     device = world.device
     cfg = _model_config(args)
@@ -848,23 +852,25 @@ def rank_main(world, argv, on_step=None, on_shrink=None, serve_runtime=None,
             if lead:
                 print(f"FAILURE DRILL: gather, shrink {group.world} -> {new_n}, re-form the "
                       "group, resume", flush=True)
-            gathered = gather_state(state, group)
+            cur_layout = layout or model_plane_layout(cfg, tp)
+            gathered = gather_grid_state(state, grid, cur_layout)
             del state
             host = elastic_reshape(gathered, new_n) if lead else None
             drill = {"step": step, "from": group.world, "to": new_n}
-            sub = subgroup(group, list(range(new_n)))
-            if sub is None:  # this rank leaves the fleet
-                return {"left_at_step": step, "rank": group.rank}
-            grid = init_grid(sub, 1)
-            world = group = sub
+            new_grid = shrink_grid(grid, new_n)  # every rank makes the new groups
+            if new_grid is None:  # this rank leaves the fleet
+                return {"left_at_step": step, "rank": world.rank}
+            grid = new_grid
+            world, group = grid.world, grid.node
             step_fn, channel = build(grid)
-            state = _to_device(scatter_state(host, group), device)
+            state = _to_device(scatter_grid_state(host, grid, cur_layout), device)
             del host
-            state = reconcile_plane_state(state, layout or model_plane_layout(cfg),
-                                          args.flat_planes)
+            state = reconcile_plane_state(state, cur_layout, args.flat_planes)
             state = ensure_channel_state(state, channel, layout)
             if on_shrink is not None:
-                shrunk = on_shrink(group, gathered, state)
+                now = gather_grid_state(state, grid, cur_layout)
+                shrunk = on_shrink(grid, gathered, now)
+                del now
             del gathered
             data = data_of(group.world)
             if health is not None:

@@ -188,6 +188,10 @@ class Initializer:
         self.device = generator.device
 
     def normal(self, shape, scale: float, dtype=torch.float32) -> torch.Tensor:
+        if self.device.type == "meta":
+            # shapes and dtypes only; a draw on meta tensors would load torch's
+            # Python meta kernels (seconds a process) for values that are not
+            return torch.empty(shape, dtype=dtype, device=self.device)
         t = torch.empty(shape, dtype=torch.float32, device=self.device)
         torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=self.gen)
         return t.mul_(scale).to(dtype)

@@ -186,7 +186,14 @@ def _layer_init(init: Initializer, cfg: ModelConfig, kind: str, tp: int = 1) -> 
 
 
 def _stack(trees: list[Tree]) -> Tree:
-    return tree_map(lambda *xs: torch.stack(xs, dim=0), *trees)
+    def stack(*xs):
+        if xs[0].device.type == "meta":  # shapes only: torch.stack on meta tensors
+            # loads torch._dynamo (seconds a process)
+            return torch.empty((len(xs),) + tuple(xs[0].shape), dtype=xs[0].dtype,
+                               device="meta")
+        return torch.stack(xs, dim=0)
+
+    return tree_map(stack, *trees)
 
 
 def _groups_init(init: Initializer, cfg: ModelConfig, stack: str = "dec", tp: int = 1) -> Tree:

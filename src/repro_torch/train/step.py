@@ -417,7 +417,7 @@ def _step_fn(cfg: ModelConfig, tcfg: TrainConfig, fleet, channel: GossipChannel,
             raise NotImplementedError(
                 "sparse_gossip at tp > 1 is refused, as the reference refuses it: per-rank "
                 "dirty masks make the volume telemetry vary over the model group; use dense "
-                "gossip at tp > 1 (ROADMAP.md §1, queue 2)")
+                "gossip at tp > 1")
         sharded = [a is not None for a in tree_leaves(layout.shard_axes())]
     else:
         sharded = None

@@ -40,8 +40,14 @@ optimizer buckets as stacked shard planes ``(n, tp * rows, LANES)``;
 converting the optimizer buckets from the layout the checkpoint was
 written with (the manifest's ``plane_tp``), so a checkpoint written at one
 tp resumes at another wherever both pad the model alike.  The channel
-state stays behind at tp > 1 (ring buffers of local payloads): a resume
-re-initializes it.
+state travels too, in the reference's global form: its payload-shaped
+leaves (delay rings, compression residuals, the resilience wrappers' held
+payloads) join along the payload's shard axes as the parameters and the
+optimizer buckets do, its per-node leaves (a ring's ``count``, telemetry,
+the wrappers' counters) come from model rank 0, equal on every model rank.
+A resume keeps each restored leaf whose shape matches the current
+channel's, which is where ``repro``'s ``ensure_channel_state`` keeps it
+(its global shape matches), at this tp or another.
 """
 
 from __future__ import annotations
@@ -380,16 +386,103 @@ def _model_shards(tree: Tree, n: int, tp: int) -> list:
             for m in range(tp)]
 
 
+# the channel state's payload-shaped subtrees: a compressor's residual, the
+# resilient layer's last good payload, the chaos layer's held-back payload (a
+# delay slot's ring, "hist", is one too, after its ring axis)
+_PAYLOAD_KEYS = ("comp", "lg", "prev")
+_NODE = "node"  # a per-node channel leaf: the same on every model rank of a node
+
+
+def _channel_axes(chan: dict, layout: PlaneLayout) -> Tree:
+    """Each leaf's shard axis in a channel state (counted after its node
+    axis): a payload-shaped subtree's, the payload's (a plane-form one, its
+    row axis); a ring's, one further (after its ring axis); :data:`_NODE`
+    for the per-node leaves (a ring's ``count``, telemetry, the wrappers'
+    counters and masks)."""
+    buckets = set(layout.segments)
+
+    def payload(sub, extra: int):
+        if isinstance(sub, dict) and set(sub) == buckets:
+            return {k: extra for k in sub}
+        return tree_map(lambda a: None if a is None else a + extra, layout.shard_axes())
+
+    def walk(node: dict) -> dict:
+        out = {}
+        for k, v in node.items():
+            if k in _PAYLOAD_KEYS:
+                out[k] = payload(v, 0)
+            elif k == "hist":
+                out[k] = payload(v, 1)
+            elif isinstance(v, dict):
+                out[k] = walk(v)
+            else:
+                out[k] = _NODE
+        return out
+
+    return walk(chan)
+
+
+def _get_path(tree: dict, path: str):
+    for p in path.split("/"):
+        if not isinstance(tree, dict) or p not in tree:
+            return None
+        tree = tree[p]
+    return tree
+
+
+def _join_channel(chan: dict, axes: Tree, n: int, tp: int) -> dict:
+    """The global channel state from the ``(n * tp, ...)`` leaves gathered
+    over the grid's ranks: sharded leaves joined along their axis,
+    replicated ones model rank 0's, per-node ones model rank 0's after
+    checking that every model rank holds the same."""
+    out: dict = {}
+    for path, ax in zip(tree_paths(axes), tree_leaves(axes)):
+        x = _get_path(chan, path)
+        parts = x.reshape((n, tp) + tuple(x.shape[1:]))
+        if ax == _NODE and not all(torch.equal(parts[:, 0], parts[:, m]) for m in range(1, tp)):
+            raise ValueError(f"channel/{path} differs between the model ranks of a node")
+        if ax == _NODE or ax is None:
+            _set_path(out, path, parts[:, 0].contiguous())
+        else:
+            _set_path(out, path, torch.cat([parts[:, m] for m in range(tp)], dim=ax + 1))
+    return out
+
+
+def _cut_channel(chan: dict, layout: PlaneLayout, n: int, tp: int) -> dict:
+    """Every rank's part of a global channel state, stacked ``(n * tp,
+    ...)`` in rank order: sharded leaves cut along their axis, the others
+    whole for each model rank.  A leaf that is not in the current layout's
+    form (a tree path it lacks, an axis that does not split into tp) stays
+    behind, for :func:`ensure_channel_state` to re-initialize."""
+    out: dict = {}
+    axes = _channel_axes(chan, layout)
+    for path, ax in zip(tree_paths(axes), tree_leaves(axes)):
+        x = _get_path(chan, path)
+        if not isinstance(x, torch.Tensor) or x.ndim < 1 or x.shape[0] != n:
+            continue
+        if ax == _NODE or ax is None:
+            parts = [x[i:i + 1] for i in range(n) for _ in range(tp)]
+        elif x.ndim > ax + 1 and x.shape[ax + 1] % tp == 0:
+            size = x.shape[ax + 1] // tp
+            parts = [x[i:i + 1].narrow(ax + 1, m * size, size) for i in range(n)
+                     for m in range(tp)]
+        else:
+            continue
+        _set_path(out, path, torch.cat(parts))
+    return out
+
+
 def gather_grid_state(state: Tree, grid, layout: PlaneLayout) -> Tree | None:
     """The global state on rank 0 of the grid (None elsewhere): at tp = 1
     :func:`gather_state` over the node group; at tp > 1 the global parameter
     trees and optimizer buckets (plane-form ones as stacked shard planes,
-    ``(n, tp * rows, LANES)``), without the channel state (module
-    docstring).  ``layout`` is the run's (local) plane layout, whose shard
-    axes say how each leaf joins.  Every rank calls it."""
+    ``(n, tp * rows, LANES)``) and the channel state in the same global form
+    (module docstring).  ``layout`` is the run's (local) plane layout, whose
+    shard axes say how each leaf joins.  Every rank calls it."""
     if grid.tp == 1:
         return gather_state(state, grid.node)
-    host = gather_state({k: v for k, v in state.items() if k != "channel"}, grid.world)
+    chan_axes = _channel_axes(state.get("channel", {}), layout)
+    host = gather_state(state, grid.world)
     if host is None:
         return None
     n, tp, axes = grid.nodes, grid.tp, layout.shard_axes()
@@ -399,7 +492,8 @@ def gather_grid_state(state: Tree, grid, layout: PlaneLayout) -> Tree | None:
         return tree_map(torch.Tensor.contiguous,
                         unshard(_model_shards(tree, n, tp), ax, leading=1))
 
-    out = {"step": host["step"], "params": join(host["params"], axes), "opt": {}}
+    out = {"step": host["step"], "params": join(host["params"], axes), "opt": {},
+           "channel": _join_channel(host.get("channel", {}), chan_axes, n, tp)}
     for k, v in host.get("opt", {}).items():
         out["opt"][k] = join(v, {b: 0 for b in v} if set(v) == buckets else axes)
     return out
@@ -409,11 +503,14 @@ def scatter_grid_state(host: Tree | None, grid, layout: PlaneLayout,
                        stored_layout: PlaneLayout | None = None) -> Tree:
     """This rank's part of a global state held on rank 0 of the grid (None
     elsewhere; its node axis must be the grid's node count), on the host:
-    at tp = 1 :func:`scatter_state` over the node group; at tp > 1 its
-    node's shard of the parameters and of the optimizer buckets, these in
-    tree form (``reconcile_plane_state`` then packs them), and no channel
-    state.  ``stored_layout`` is the layout the checkpoint was written with
-    (default: ``layout``'s tp).  Every rank calls it."""
+    at tp = 1 :func:`scatter_state` over the node group; at tp > 1 (or from
+    a checkpoint written at tp > 1) its node's shard of the parameters and
+    of the optimizer buckets, these in tree form (``reconcile_plane_state``
+    then packs them), and of the channel state, cut along the current
+    layout's axes (a leaf that does not cut is left out:
+    :func:`ensure_channel_state` re-initializes it).  ``stored_layout`` is
+    the layout the checkpoint was written with (default: ``layout``'s tp).
+    Every rank calls it."""
     if grid.tp == 1 and (stored_layout is None or stored_layout.tp == 1):
         return scatter_state(host, grid.node)
     world = None
@@ -432,7 +529,6 @@ def scatter_grid_state(host: Tree | None, grid, layout: PlaneLayout,
         opt = {k: per_rank(layout.unpack_global(v, dtype=torch.float32, leading=1)
                            if isinstance(v, dict) and set(v) == buckets else v)
                for k, v in host.get("opt", {}).items()}
-        world = {"step": host["step"], "params": per_rank(host["params"]), "opt": opt}
-    out = scatter_state(world, grid.world)
-    out["channel"] = {}
-    return out
+        world = {"step": host["step"], "params": per_rank(host["params"]), "opt": opt,
+                 "channel": _cut_channel(host.get("channel", {}), layout, grid.nodes, grid.tp)}
+    return scatter_state(world, grid.world)

@@ -218,11 +218,15 @@ def test_cli_never_falls_back_to_the_cpu():
 
 
 def test_cli_rejects_what_is_not_ported():
-    # serving while training and tp > 1 for every family run now
-    # (tests/test_torch_tp_cli.py, tests/test_torch_tp_zoo_*.py); the drill
-    # stays at tp = 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.main(CLI + ["--steps", "1", "--tp", "2", "--failure-drill"])
+    # serving while training, tp > 1 for every family and the drill at tp > 1
+    # run now (tests/test_torch_tp_cli.py, tests/test_torch_tp_zoo_*.py,
+    # tests/test_torch_tp_drill.py); the stacked trainer stays at tp = 1, the
+    # drill with it
+    stacked = [x for x in CLI if x not in ("--simulate-nodes", str(N), "--timeout",
+                                           str(TIMEOUT_S))]
+    with pytest.raises(NotImplementedError, match="--simulate-nodes"):
+        train.main(stacked + ["--nodes", str(N), "--steps", "1", "--tp", "2",
+                              "--failure-drill"])
 
 
 # --- launch/elastic.py against repro.launch.elastic --------------------------

@@ -145,11 +145,12 @@ def test_dist_step_2x2_matches_tp1(train, case):
         assert abs(got - want) <= 1e-5 * want + 1e-12, (got, want)
         if case == "leaf-disconnected":
             assert want > 1e-6 * whole > 0 and abs(want - whole) > 1e-3 * whole
-    for r in train:  # gather -> scatter -> reconcile gives each rank its state back
+    # gather -> scatter -> reconcile -> ensure gives each rank its state back,
+    # the channel's included
+    for r in train:
         assert r[case]["roundtrip"]
-    # an accepted difference from repro: at tp > 1 the checkpoint form holds no
-    # channel state (ring buffers of local payloads); a resume re-initializes it
-    assert res["no_channel"]
+    # the gathered (checkpoint) state holds the channel state (the telemetry)
+    assert res["channel"]
 
 
 def test_publisher_takes_the_sharded_plane_form(train):

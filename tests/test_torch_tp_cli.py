@@ -9,7 +9,7 @@ one-process-per-node trainer, on gloo CPU ranks:
   (every shipped snapshot equals node 0's weights bit for bit) and serves
   every request;
 * what stays refused: the stacked trainer at tp > 1, serving while
-  training at tp > 1.
+  training at tp > 1, a tp that does not divide the model.
 """
 
 import json
@@ -54,7 +54,11 @@ def test_serve_while_training_on_ranks():
 @pytest.mark.parametrize("argv, err", [
     (["--nodes", "2", "--tp", "2"], NotImplementedError),
     (["--simulate-nodes", "2", "--tp", "2", "--serve-while-training"], ValueError),
-    (["--simulate-nodes", "2", "--tp", "2", "--failure-drill"], NotImplementedError),
+    # the drill runs at tp > 1 (tests/test_torch_tp_drill.py); a degree below
+    # 1, or one that does not divide the model (the tiny preset's d_ff 1024
+    # at tp 3), is refused before any rank starts
+    (["--simulate-nodes", "2", "--tp", "0"], ValueError),
+    (["--simulate-nodes", "2", "--tp", "3", "--failure-drill"], ValueError),
 ])
 def test_refusals(argv, err):
     with pytest.raises(err):

@@ -356,20 +356,19 @@ def _delay0_all_algorithms(group) -> dict:
     return verdict
 
 
-def check_shrink(group, gathered, state):
-    """``on_shrink`` hook: the survivors' rebuilt state gathered again to rank
-    0 against ``elastic_reshape`` of the state gathered before the shrink;
-    rank 0 returns ``(tensors compared, paths that differ, channel fresh)``."""
+def check_shrink(grid, gathered, now):
+    """``on_shrink`` hook: the survivors' rebuilt state, gathered again to
+    rank 0 (``now``), against ``elastic_reshape`` of the state gathered
+    before the shrink; rank 0 returns ``(tensors compared, paths that
+    differ, channel fresh)``."""
     import torch
 
     from repro_torch.train.checkpoint import elastic_reshape
-    from repro_torch.train.train_state import gather_state
     from repro_torch.utils import tree_leaves, tree_paths
 
-    now = gather_state(state, group)
     if now is None:
         return None
-    want = elastic_reshape(gathered, group.world)
+    want = elastic_reshape(gathered, grid.nodes)
     ta = {k: now[k] for k in ("params", "opt")}
     tb = {k: want[k] for k in ("params", "opt")}
     pa, pb = dict(zip(tree_paths(ta), tree_leaves(ta))), dict(zip(tree_paths(tb), tree_leaves(tb)))

@@ -195,9 +195,9 @@ def train_ranks(world, arch: str | None = None, cases=None) -> dict:
     step's consensus metric beside ``repro``'s formula on the gathered
     parameters (each model rank's squared distances over its shard, the
     mean over the model group) and beside the unsharded sum.  Then the
-    gathered checkpoint state (which holds no channel state at tp > 1)
-    scattered back equals each rank's state bit for bit, and the publisher
-    takes the sharded plane form of node 0."""
+    gathered checkpoint state (the channel's included) scattered back
+    equals each rank's state bit for bit, and the publisher takes the
+    sharded plane form of node 0."""
     import torch
 
     from repro_torch.configs import tiny_lm
@@ -208,8 +208,8 @@ def train_ranks(world, arch: str | None = None, cases=None) -> dict:
     from repro_torch.serve import WeightPublisher
     from repro_torch.train.step import TrainConfig, build_dist_train_step, build_train_step
     from repro_torch.train.train_state import (
-        gather_grid_state, init_train_state, model_plane_layout, reconcile_plane_state,
-        scatter_grid_state,
+        ensure_channel_state, gather_grid_state, init_train_state, model_plane_layout,
+        reconcile_plane_state, scatter_grid_state,
     )
     from repro_torch.utils import shard, tree_leaves, tree_map, tree_paths
 
@@ -234,14 +234,17 @@ def train_ranks(world, arch: str | None = None, cases=None) -> dict:
             batch = {key: torch.from_numpy(v) for key, v in data.batch(k).items()}
             state, m = step_fn(state, batch)
             metrics.append({key: float(v) for key, v in m.items()})
+        run.channel = channel
         return state, metrics
 
-    def trees(state, layout, glob):
+    def trees(state, layout, glob, channel=False):
         opt = state.get("opt", {})
         unpack = layout.unpack_global if glob else layout.unpack
         opt = {k: unpack(v, leading=1) if isinstance(v, dict) and set(v) == set(
             layout.segments) else v for k, v in opt.items()}
         tree = {"params": state["params"], "opt": opt}
+        if channel:
+            tree["channel"] = state["channel"]
         return dict(zip(tree_paths(tree), tree_leaves(tree)))
 
     for name, fields in (cases or TRAIN_CASES).items():
@@ -254,9 +257,10 @@ def train_ranks(world, arch: str | None = None, cases=None) -> dict:
         host = gather_grid_state(state, grid, layout2)
         back = scatter_grid_state(host, grid, layout2)
         back = reconcile_plane_state(back, layout2, flat)
-        mine = trees(state, layout2, False)
-        again = trees(back, layout2, False)
-        res = {"no_channel": "channel" not in host if world.rank == 0 else True,
+        back = ensure_channel_state(back, run.channel, layout2 if flat else None)
+        mine = trees(state, layout2, False, channel=True)
+        again = trees(back, layout2, False, channel=True)
+        res = {"channel": bool(host["channel"]) if world.rank == 0 else True,
                "roundtrip": sorted(mine) == sorted(again) and all(
                    torch.equal(mine[k], again[k]) for k in mine)}
         if world.rank == 0:
@@ -465,3 +469,110 @@ def zoo_grad_and_train_ranks(world, archs) -> dict:
         if arch in ZOO_TRAIN:
             out["train"][arch] = train_ranks(world, arch, ZOO_TRAIN[arch])
     return out
+
+
+# --- channel state across a grid's checkpoint (test_torch_tp_resume.py) -------
+
+RESUME_ARGV = ["--device", "cpu", "--arch", "qwen3-0.6b", "--smoke", "--seq-len", "32",
+               "--per-node-batch", "2", "--fused-update", "--log-every", "1",
+               "--simulate-nodes", "2", "--tp", "2"]
+RESUME_CASES = {
+    "delay1-planes": ["--algorithm", "decentlam-sa", "--gossip-delay", "1", "--flat-planes"],
+    "int8-row-ef": ["--compression", "int8-row-ef"],
+}
+RESUME_STEPS = 4
+_FINAL: dict = {}
+
+
+def _keep_final(step, state, metrics):
+    """``on_step`` hook: a host copy of this rank's state at the last step."""
+    from repro_torch.utils import tree_leaves, tree_paths
+
+    if step == RESUME_STEPS - 1:
+        tree = {k: state[k] for k in ("params", "opt", "channel")}
+        _FINAL["state"] = {p: t.detach().clone() for p, t in zip(tree_paths(tree),
+                                                                  tree_leaves(tree))}
+
+
+def _channel_np(state) -> dict:
+    from repro_torch.utils import tree_leaves, tree_paths
+
+    return {p: t.numpy() for p, t in zip(tree_paths(state["channel"]),
+                                         tree_leaves(state["channel"]))}
+
+
+def resume_ranks(world, root: str) -> dict:
+    """On the (2, 2) grid, each RESUME_CASES case through the CLI's rank
+    body: RESUME_STEPS steps unbroken (checkpoints every 2 steps under
+    ``root/<case>/a``), then the step-2 checkpoint copied to ``b`` and
+    resumed to RESUME_STEPS; each rank's final parameters, optimizer and
+    channel state held bit for bit against the unbroken run's.  Then the
+    unbroken run's last (tp 2) checkpoint resumed through the trainer's
+    ``_resume_ranks`` at tp 2 (every rank) and at tp 1 (ranks 0 and 1 as 2
+    nodes): the channel state each rank holds right after, as numpy."""
+    import os
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import init_grid, subgroup
+    from repro_torch.train.step import build_dist_train_step
+    from repro_torch.train.train_state import model_plane_layout
+
+    out = {}
+    for name, extra in RESUME_CASES.items():
+        argv = RESUME_ARGV + extra + ["--steps", str(RESUME_STEPS)]
+        a, b = os.path.join(root, name, "a"), os.path.join(root, name, "b")
+        ra = train.rank_main(world, argv + ["--ckpt-dir", a, "--ckpt-every", "2"], _keep_final)
+        straight = _FINAL.pop("state")
+        if world.rank == 0:
+            shutil.copytree(os.path.join(a, "step_00000002"), os.path.join(b, "step_00000002"))
+        dist.barrier()
+        rb = train.rank_main(world, argv + ["--ckpt-dir", b, "--resume"], _keep_final)
+        resumed = _FINAL.pop("state")
+        differ = sorted(set(straight) ^ set(resumed)) + [
+            k for k in straight if k in resumed and not torch.equal(straight[k], resumed[k])]
+
+        args = train._parse(argv)
+        cfg, tcfg = train._model_config(args), train._train_config(args)
+        grid = init_grid(world, 2)
+        _, channel = build_dist_train_step(cfg, tcfg, grid)
+        layout2 = model_plane_layout(cfg, 2) if args.flat_planes else None
+        at2 = train._resume_ranks(grid, a, cfg, channel, layout2, args.flat_planes)
+        sub = subgroup(world, [0, 1])
+        at1 = None
+        if sub is not None:
+            grid1 = init_grid(sub, 1)
+            _, channel1 = build_dist_train_step(cfg, tcfg, grid1)
+            layout1 = model_plane_layout(cfg) if args.flat_planes else None
+            at1 = _channel_np(train._resume_ranks(grid1, a, cfg, channel1, layout1,
+                                                  args.flat_planes))
+        dist.barrier()
+        out[name] = {"losses": (ra["losses"], rb["losses"]), "start": rb["start_step"],
+                     "differ": differ, "tensors": len(straight),
+                     "channel": sorted(k for k in straight if k.startswith("channel/")),
+                     "at2": _channel_np(at2), "at1": at1}
+    return out
+
+
+# --- the failure drill on a (nodes x tp) grid (test_torch_tp_drill.py) --------
+
+def shrink_states(grid, gathered, now):
+    """``on_shrink`` hook: on rank 0, the global state before the shrink and
+    the survivors' rebuilt state gathered again, as flat numpy trees, and
+    the new grid's shape."""
+    from repro_torch.utils import tree_leaves, tree_paths
+
+    if now is None:
+        return None
+
+    def flat(state, parts):
+        return {part: {p: t.numpy() for p, t in zip(tree_paths(state.get(part, {})),
+                                                      tree_leaves(state.get(part, {})))}
+                for part in parts}
+
+    return {"gathered": flat(gathered, ("params", "opt", "channel")),
+            "now": flat(now, ("params", "opt", "channel")),
+            "grid": (grid.nodes, grid.tp, grid.world.world)}
