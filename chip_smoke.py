@@ -571,8 +571,10 @@ def _matmul_flops_per_step(cfg, n_nodes) -> float:
 
 
 # profiler ranges that also appear on the device timeline as annotations
-# (the scheduled profiler's steps, the port's named spans); not device work
-ANNOTATIONS = ("ProfilerStep", "slstm_recurrence", "moe_", "ssm_forward")
+# (the scheduled profiler's steps, the port's named spans: repro_torch.trace);
+# not device work
+ANNOTATIONS = ("ProfilerStep", "slstm_recurrence", "moe_", "ssm_forward", "train.", "gossip.",
+               "sync.")
 # the model's profiler spans (models/xlstm.py, ssm.py, moe.py)
 TRACE_SPANS = ("slstm_recurrence", "ssm_forward", "moe_router", "moe_dispatch", "moe_experts",
                "moe_combine")

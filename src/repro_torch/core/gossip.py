@@ -83,6 +83,7 @@ import torch
 import torch.distributed as dist
 
 from ..launch.costmodel import record_collective
+from ..trace import span
 from ..utils import tree_leaves, tree_map, tree_unflatten
 from .compression import get_compressor, wire_bytes
 from .topology import Topology
@@ -173,26 +174,27 @@ def _accumulate(out: torch.Tensor, terms, base=None) -> None:
     for bit.  Rows go one chunk of ``_MIX_COLS`` columns at a time, so that
     a group's product needs only a chunk-sized temporary."""
     n, N = out.shape
-    for c0 in range(0, N, _MIX_COLS):
-        cols = slice(c0, min(N, c0 + _MIX_COLS))
-        for i in range(n):
-            dst = out[i, cols]
-            started = base is not None
-            if started:
-                torch.mul(base[0][i, cols], float(base[1][i]), out=dst)
-            for W, src in terms:
-                js = np.flatnonzero(W[i])
-                if not len(js):
-                    continue
-                acc = torch.mul(src[js[0], cols], float(W[i, js[0]]),
-                                out=None if started else dst)
-                for j in js[1:]:
-                    acc.add_(src[j, cols], alpha=float(W[i, j]))
+    with span("gossip.mix"):
+        for c0 in range(0, N, _MIX_COLS):
+            cols = slice(c0, min(N, c0 + _MIX_COLS))
+            for i in range(n):
+                dst = out[i, cols]
+                started = base is not None
                 if started:
-                    dst.add_(acc)
-                started = True
-            if not started:
-                dst.zero_()
+                    torch.mul(base[0][i, cols], float(base[1][i]), out=dst)
+                for W, src in terms:
+                    js = np.flatnonzero(W[i])
+                    if not len(js):
+                        continue
+                    acc = torch.mul(src[js[0], cols], float(W[i, js[0]]),
+                                    out=None if started else dst)
+                    for j in js[1:]:
+                        acc.add_(src[j, cols], alpha=float(W[i, j]))
+                    if started:
+                        dst.add_(acc)
+                    started = True
+                if not started:
+                    dst.zero_()
 
 
 class GossipChannel:
@@ -363,14 +365,15 @@ class StackedChannel(GossipChannel):
         decoded, into ``dest[i]``: one node's temporaries at a time."""
         enc, dec = self._compressor.encode, self._compressor.decode
         for i in range(x32.shape[0]):
-            if self._stateful_comp:
-                msg, new = enc(x32[i], st[i])
-                st[i].copy_(new)
-                del new
-            else:
-                msg, _ = enc(x32[i], ())
-            dest[i].copy_(dec(msg, x32[i]))
-            del msg
+            with span("gossip.codec"):
+                if self._stateful_comp:
+                    msg, new = enc(x32[i], st[i])
+                    st[i].copy_(new)
+                    del new
+                else:
+                    msg, _ = enc(x32[i], ())
+                dest[i].copy_(dec(msg, x32[i]))
+                del msg
 
     def _mix_compressed(self, t: int, tree: Tree, comp: Tree) -> Tree:
         leaves = tree_leaves(tree)

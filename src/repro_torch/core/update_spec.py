@@ -42,6 +42,7 @@ from typing import Any, Callable
 
 import torch
 
+from ..trace import span
 from ..utils import tree_leaves, tree_map, tree_unflatten
 from .gossip import GossipChannel
 
@@ -597,10 +598,11 @@ def run_update(
 
         # --- COMM ----------------------------------------------------------
         if ph.comm == "gossip":
-            if isinstance(gossip, GossipChannel):
-                comp_state, mixed = gossip.apply(comp_state, payload, step_idx)
-            else:  # closure protocol: (tree, step, comp_state) -> (tree, comp_state)
-                mixed, comp_state = gossip(payload, step_idx, comp_state)
+            with span("gossip.apply"):
+                if isinstance(gossip, GossipChannel):
+                    comp_state, mixed = gossip.apply(comp_state, payload, step_idx)
+                else:  # closure protocol: (tree, step, comp_state) -> (tree, comp_state)
+                    mixed, comp_state = gossip(payload, step_idx, comp_state)
             if spec.staleness_aware:
                 gaps = node_gaps
                 if gaps is None and isinstance(gossip, GossipChannel):

@@ -43,7 +43,8 @@ through ``copy_in``, so the router's and the input's gradients, summed over
 the group, are whole on every rank.
 
 The layer's profiler spans (``moe_router``, ``moe_dispatch``,
-``moe_experts``, ``moe_combine``) let a trace attribute device time to its
+``moe_experts``, ``moe_combine``; :func:`repro_torch.trace.span`, entered
+only while a profiler records) let a trace attribute device time to its
 parts.
 """
 
@@ -53,9 +54,9 @@ import math
 from typing import Any
 
 import torch
-from torch.profiler import record_function
 
 from ..configs.base import ModelConfig
+from ..trace import span
 from .layers import _ACTS, Initializer, TPContext, tp_enabled
 
 Tree = Any
@@ -219,7 +220,7 @@ def moe_forward(x: torch.Tensor, params: Tree, cfg: ModelConfig,
     xt = x.reshape(T, d)
     mode = _expert_sharding(cfg, tp.size) if tp_enabled(tp) else "replicated"
 
-    with record_function("moe_router"):
+    with span("moe_router"):
         logits, probs, expert_idx, gate_vals = route(xt, params["router"], cfg)
         # Switch load balance + router z-loss
         me = torch.mean(probs, dim=0)
@@ -231,7 +232,7 @@ def moe_forward(x: torch.Tensor, params: Tree, cfg: ModelConfig,
             "moe_router_z": torch.mean(torch.square(torch.logsumexp(logits, dim=-1))),
         }
 
-    with record_function("moe_dispatch"):
+    with span("moe_dispatch"):
         tabs = dispatch_tables(expert_idx, gate_vals, cfg)
         C, table, slots, gtable = tabs["capacity"], tabs["table"], tabs["slots"], tabs["gtable"]
         aux["moe_expert_hits"] = tabs["hits"]
@@ -248,7 +249,7 @@ def moe_forward(x: torch.Tensor, params: Tree, cfg: ModelConfig,
             slots = torch.where((slots >= lo) & (slots < lo + n), slots - lo, n)
         xin = _Dispatch.apply(xt, table, slots).reshape(E_local, C, d)
 
-    with record_function("moe_experts"):
+    with span("moe_experts"):
         h = torch.bmm(xin, params["w_in"].to(dt))
         if "w_gate" in params:
             g = torch.bmm(xin, params["w_gate"].to(dt))
@@ -258,7 +259,7 @@ def moe_forward(x: torch.Tensor, params: Tree, cfg: ModelConfig,
         y = torch.bmm(h, params["w_out"].to(dt))
         y = y * gtable.reshape(E_local, C, 1).to(dt)
 
-    with record_function("moe_combine"):
+    with span("moe_combine"):
         out = _Combine.apply(y.reshape(E_local * C, d).to(torch.float32), table, slots)
         if mode != "replicated":
             out = tp.reduce_out(out)

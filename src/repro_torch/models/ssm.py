@@ -35,9 +35,9 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from ..configs.base import ModelConfig
+from ..trace import span
 from .layers import Initializer, TPContext, linear_init, tp_enabled
 
 Tree = Any
@@ -142,7 +142,7 @@ def ssm_forward(x: torch.Tensor, params: Tree, cfg: ModelConfig, *, chunk: int =
     With ``tp`` the channel leaves and the state are the rank's ``ds / tp``
     channels (module docstring)."""
     on = tp_enabled(tp)
-    with record_function("ssm_forward"):
+    with span("ssm_forward"):
         if on:
             x = tp.copy_in(x)
         B, S, _ = x.shape

@@ -42,6 +42,7 @@ from ..configs.base import ModelConfig
 from ..kernels.mlstm_chunk import mlstm as mlstm_op
 from ..launch.costmodel import trips
 from ..kernels.mlstm_chunk.ref import mlstm_chunked
+from ..trace import span
 from .layers import Initializer, TPContext, linear_init, tp_enabled
 
 Tree = Any
@@ -250,7 +251,7 @@ def slstm_forward(x: torch.Tensor, params: Tree, cfg: ModelConfig, *,
     else:
         hs = []
         # a named span for the profiler: the recurrence is many small launches
-        with torch.profiler.record_function("slstm_recurrence"):
+        with span("slstm_recurrence"):
             for t in range(S):
                 carry = _slstm_cell(carry, wx[:, t], r, H, dh)
                 hs.append(carry[3])

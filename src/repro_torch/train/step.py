@@ -103,7 +103,8 @@ from ..core.update_spec import node_grad_scalars, run_update, update_spec
 from ..kernels.fused_update import make_plane_stage, make_stage
 from ..models import transformer as T
 from ..models.layers import TPContext
-from ..utils import tree_leaves, tree_unflatten
+from ..trace import span
+from ..utils import tree_leaves, tree_map, tree_unflatten
 from .train_state import model_plane_layout
 
 Tree = Any
@@ -235,11 +236,11 @@ def build_dist_channel(tcfg: TrainConfig, topology, group,
     return _wrap_resilience(tcfg, channel)
 
 
-def _node_grads(params: Tree, batch: dict, cfg: ModelConfig, n_nodes: int, out=None,
+def _node_grads(params: Tree, batch: dict, cfg: ModelConfig, n_nodes: int, out: Tree,
                 rt: T.RuntimeConfig = T.RuntimeConfig(dtype="float32"), accum: int = 1,
                 row_info: list | None = None, tp: TPContext | None = None):
-    """Per-node loss and gradient, one node at a time, into a stacked f32
-    gradient tree (``out``'s leaves where given: the views of a gradient
+    """Per-node loss and gradient, one node at a time, into ``out``, a
+    stacked f32 gradient tree (on flat planes the views of a gradient
     plane).  With ``accum`` > 1 each node's rows split into ``accum``
     microbatches, and the gradient and the loss accumulate ``g += g_j /
     accum`` in f32 from zeros, as the reference's scan does, and each model
@@ -248,51 +249,57 @@ def _node_grads(params: Tree, batch: dict, cfg: ModelConfig, n_nodes: int, out=N
     each node's total, and ``{metric: (n,)}``.  With a ``row_info`` list the
     forward passes collect the MoE groups' expert hits, and node ``i``'s
     ``{"moe/g<k>": (Lg, E)}`` (the union over its microbatches) is appended
-    to it."""
+    to it.  Each microbatch's forward runs in a ``train.forward`` span, its
+    backward and the gradient's copy or sum in ``train.backward``, the
+    per-node metrics' stacking in ``train.metrics`` (:mod:`repro_torch.trace`)."""
     leaves = tree_leaves(params)
-    g_leaves = (tree_leaves(out) if out is not None else
-                [torch.empty(p.shape, dtype=torch.float32, device=p.device) for p in leaves])
+    g_leaves = tree_leaves(out)
     b = batch["tokens"].shape[0] // n_nodes
     if b % accum:
         raise ValueError(f"{b} rows per node do not split into {accum} microbatches")
     mb = b // accum
-    losses, node_metrics = [], []
+    losses, node_micro = [], []
     for i in range(n_nodes):
-        leaves_i = [p[i].detach().requires_grad_() for p in leaves]
-        params_i = tree_unflatten(params, leaves_i)
-        loss_i = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
         micro = []
         for j in range(accum):
-            lo = i * b + j * mb
-            batch_j = {k: v[lo:lo + mb] for k, v in batch.items()}
-            loss, metrics = T.forward_loss(params_i, batch_j, cfg, rt,
-                                           collect_rows=row_info is not None,
-                                           **({} if tp is None else {"tp": tp}))
-            hits = metrics.pop("_row_info", None)
-            if hits is not None:
-                hits_i = hits if j == 0 else {k: hits_i[k] + v for k, v in hits.items()}
-            micro.append({k: v.detach() for k, v in metrics.items()})
-            grads = torch.autograd.grad(loss, leaves_i)
-            if accum == 1:
+            with span("train.forward"):
+                if j == 0:
+                    leaves_i = [p[i].detach().requires_grad_() for p in leaves]
+                    params_i = tree_unflatten(params, leaves_i)
+                    loss_i = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+                lo = i * b + j * mb
+                batch_j = {k: v[lo:lo + mb] for k, v in batch.items()}
+                loss, metrics = T.forward_loss(params_i, batch_j, cfg, rt,
+                                               collect_rows=row_info is not None,
+                                               **({} if tp is None else {"tp": tp}))
+                hits = metrics.pop("_row_info", None)
+                if hits is not None:
+                    hits_i = hits if j == 0 else {k: hits_i[k] + v for k, v in hits.items()}
+                micro.append({k: v.detach() for k, v in metrics.items()})
+            with span("train.backward"):
+                grads = torch.autograd.grad(loss, leaves_i)
+                if accum == 1:
+                    for gl, gi in zip(g_leaves, grads):
+                        gl[i].copy_(gi)
+                    loss_i = loss.detach()
+                    continue
+                if j == 0:
+                    for gl in g_leaves:
+                        gl[i].zero_()
                 for gl, gi in zip(g_leaves, grads):
-                    gl[i].copy_(gi)
-                loss_i = loss.detach()
-                continue
-            if j == 0:
-                for gl in g_leaves:
-                    gl[i].zero_()
-            for gl, gi in zip(g_leaves, grads):
-                gl[i].add_(gi.to(torch.float32) / accum)
-            loss_i = loss_i + loss.detach().to(torch.float32) / accum
-            del grads
+                    gl[i].add_(gi.to(torch.float32) / accum)
+                loss_i = loss_i + loss.detach().to(torch.float32) / accum
+                del grads
         losses.append(loss_i)
+        node_micro.append(micro)
         if row_info is not None:
             row_info.append(hits_i)
-        node_metrics.append(micro[0] if accum == 1 else
-                            {k: torch.mean(torch.stack([m[k] for m in micro]))
-                             for k in micro[0]})
-    per_node = {k: torch.stack([m[k] for m in node_metrics]) for k in node_metrics[0]}
-    return tree_unflatten(params, g_leaves), {"loss": torch.stack(losses), **per_node}
+    with span("train.metrics"):
+        node_metrics = [micro[0] if accum == 1 else
+                        {k: torch.mean(torch.stack([m[k] for m in micro])) for k in micro[0]}
+                        for micro in node_micro]
+        per_node = {k: torch.stack([m[k] for m in node_metrics]) for k in node_metrics[0]}
+        return tree_unflatten(params, g_leaves), {"loss": torch.stack(losses), **per_node}
 
 
 def _consensus_sq(x: Tree, n_nodes: int) -> torch.Tensor:
@@ -328,6 +335,15 @@ def _node_grad_norms(grads: Tree, n_nodes: int, tp: TPContext | None = None,
         sq = sq - torch.stack([torch.sum(torch.square(gl.reshape(n_nodes, -1).to(torch.float32)),
                                          dim=1) for gl in replicated]).sum(0)
     return torch.sqrt(tp.all_reduce(sq))
+
+
+def _to_host(x: torch.Tensor, dev="cpu") -> torch.Tensor:
+    """``x.to(dev)``; a copy off the device to the host is a host sync, in a
+    ``sync.metrics`` span."""
+    if torch.device(dev).type == "cpu" and x.device.type not in ("cpu", "meta"):
+        with span("sync.metrics"):
+            return x.to(dev)
+    return x.to(dev)
 
 
 class _Stacked:
@@ -366,7 +382,7 @@ class _Ranks:
     def reduce(self, per_node: dict, skipped: int, gaps):
         dev = self.group.comm_device
         names = sorted(per_node)
-        sums = torch.stack([per_node[k].sum().to(device=dev, dtype=torch.float32)
+        sums = torch.stack([_to_host(per_node[k].sum().to(torch.float32), dev)
                             for k in names] + [torch.tensor(float(skipped), device=dev)])
         gap = torch.as_tensor(gaps, dtype=torch.float32).max().reshape(1).to(dev)
         self._wire.reduce(sums)
@@ -374,7 +390,7 @@ class _Ranks:
         means = {k: sums[j] / self.n for j, k in enumerate(names)}
         if self.group.dry:  # the dry run: no values to read
             return means, 0.0, 0.0
-        return means, float(sums[-1]), float(gap[0])
+        return means, float(_to_host(sums[-1])), float(_to_host(gap[0]))
 
     def consensus(self, x: Tree) -> torch.Tensor:
         """``repro``'s ``_consensus_metric``: per leaf the mean over the
@@ -387,13 +403,13 @@ class _Ranks:
         for leaf in tree_leaves(x):
             xf = leaf.to(torch.float32)
             xb = self._wire.all_reduce_(xf.clone().view(-1)).view(xf.shape) / self.n
-            sq = torch.sum((xf - xb) ** 2).reshape(1).to(comm)
+            sq = _to_host(torch.sum((xf - xb) ** 2).reshape(1), comm)
             dist.all_reduce(sq, group=self.group.pg)
             total = total + sq[0] / self.n
         if self.tp is not None and self.tp.enabled:
             # on the model group's own device (NCCL takes no host tensor)
             total = self.tp.all_reduce(total.to(self.tp.group.comm_device)) / self.tp.size
-        return total.cpu()
+        return _to_host(total)
 
 
 def _step_fn(cfg: ModelConfig, tcfg: TrainConfig, fleet, channel: GossipChannel, mean,
@@ -441,101 +457,110 @@ def _step_fn(cfg: ModelConfig, tcfg: TrainConfig, fleet, channel: GossipChannel,
         tracker = RowTracker.for_model(layout, tied_embeddings=cfg.tie_embeddings)
 
     def train_step(state: Tree, batch: dict):
+        # the phases' spans tile the step (repro_torch.trace)
         params, opt_state = state["params"], state["opt"]
         step_idx = state["step"]
         dev = tree_leaves(params)[0].device
-        lr = torch.full((), lr_fn(step_idx), dtype=torch.float32, device=dev)
-        batch = fleet.rows(batch)
-
         planes = g_planes = None
         row_info = [] if tracker is not None else None
-        if tcfg.flat_planes:
-            planes = state["planes"]
-            # every segment element is written below; the pads are zeroed
-            # (inert in the tail and in the finite guard's norms)
-            g_planes = {k: torch.empty(p.shape, dtype=torch.float32, device=dev)
-                        for k, p in planes.items()}
-            layout.zero_pads(g_planes, leading=1)
-            grads, per_node = _node_grads(params, batch, cfg, n_local,
-                                          layout.view_unpack(g_planes, leading=1), rt,
-                                          tcfg.grad_accum, row_info, tp)
-        else:
-            grads, per_node = _node_grads(params, batch, cfg, n_local, None, rt,
-                                          tcfg.grad_accum, None, tp)
+        with span("train.prepare"):
+            lr = torch.full((), lr_fn(step_idx), dtype=torch.float32, device=dev)
+            batch = fleet.rows(batch)
+            if tcfg.flat_planes:
+                planes = state["planes"]
+                # every segment element is written below; the pads are zeroed
+                # (inert in the tail and in the finite guard's norms)
+                g_planes = {k: torch.empty(p.shape, dtype=torch.float32, device=dev)
+                            for k, p in planes.items()}
+                layout.zero_pads(g_planes, leading=1)
+                g_out = layout.view_unpack(g_planes, leading=1)
+            else:
+                g_out = tree_map(lambda p: torch.empty(p.shape, dtype=torch.float32,
+                                                       device=p.device), params)
+        grads, per_node = _node_grads(params, batch, cfg, n_local, g_out, rt, tcfg.grad_accum,
+                                      row_info, tp)
 
         bad, saved = None, None
         if tcfg.finite_guard:
-            replicated = (None if sharded is None else
-                          [g for g, sh in zip(tree_leaves(grads), sharded) if not sh])
-            norms = _node_grad_norms(g_planes if planes is not None else grads, n_local, tp,
-                                     replicated)
-            if norms.device.type == "meta":  # the dry run: no node is bad
-                bad = torch.zeros(0, dtype=torch.int64)
+            with span("train.guard"):
+                replicated = (None if sharded is None else
+                              [g for g, sh in zip(tree_leaves(grads), sharded) if not sh])
+                norms = _node_grad_norms(g_planes if planes is not None else grads, n_local,
+                                         tp, replicated)
+                if norms.device.type == "meta":  # the dry run: no node is bad
+                    bad = torch.zeros(0, dtype=torch.int64)
+                else:
+                    nonfinite = ~torch.isfinite(norms)
+                    with span("sync.finite_guard"):  # one host sync a step
+                        bad = torch.nonzero(nonfinite)
+                    bad = bad.reshape(-1)
+                if bad.numel():
+                    for gl in tree_leaves(g_planes if planes is not None else grads):
+                        gl[bad] = 0.0
+                    saved = {k: [t[bad].clone() for t in tree_leaves(v)]
+                             for k, v in opt_state.items()}
+
+        with span("train.update"):
+            comp_state = state["channel"]
+            if tracker is not None:
+                # the rows this step touched: the rank's token ids and its MoE
+                # groups' expert hits, over the dense leaves' base rows
+                comp_state = channel.mark(comp_state, tracker.step_masks(
+                    {"embed": batch["tokens"], **row_info[0]}, device=dev))
+            if planes is not None:
+                new_x, new_opt, comp = run_update(
+                    spec, ocfg, x=planes, g=g_planes, state=opt_state, lr=lr,
+                    step_idx=step_idx, gossip=channel, mean=mean,
+                    comp_state=comp_state, stage=stage,
+                    scalars=plane_scalars(ocfg, layout, params, grads, stacked=True, tp=tp),
+                )
+                for k, p in planes.items():
+                    if new_x[k] is not p:
+                        # a state bucket that is the parameter plane itself
+                        # (d2's x_prev of f32 parameters) keeps the old values
+                        for v in new_opt.values():
+                            if v.get(k) is p:
+                                v[k] = p.clone()
+                        p.copy_(new_x[k])
+                new_params = params  # the views now read the new planes
+            elif tcfg.fused_update:
+                new_params, new_opt, comp = run_update(
+                    spec, ocfg, x=params, g=grads, state=opt_state, lr=lr,
+                    step_idx=step_idx, gossip=channel, mean=mean,
+                    comp_state=comp_state, stage=stage,
+                    scalars=node_grad_scalars(ocfg, params, grads, tp=tp, sharded=sharded),
+                )
             else:
-                bad = torch.nonzero(~torch.isfinite(norms)).reshape(-1)  # one host sync a step
-        if bad is not None and bad.numel():
-            for gl in tree_leaves(g_planes if planes is not None else grads):
-                gl[bad] = 0.0
-            saved = {k: [t[bad].clone() for t in tree_leaves(v)] for k, v in opt_state.items()}
+                new_params, new_opt, comp = opt.step(
+                    params, grads, opt_state, lr=lr, step_idx=step_idx,
+                    gossip=channel, mean=mean, comp_state=comp_state,
+                    scalars=node_grad_scalars(ocfg, params, grads, tp=tp, sharded=sharded),
+                )
+            del grads, g_planes, g_out
+            if saved is not None:
+                # out of place: state buckets may share buffers (d2's m_prev is m)
+                new_opt = {
+                    k: tree_unflatten(v, [t.index_put((bad,), o)
+                                          for t, o in zip(tree_leaves(v), saved[k])])
+                    for k, v in new_opt.items()
+                }
 
-        comp_state = state["channel"]
-        if tracker is not None:
-            # the rows this step touched: the rank's token ids and its MoE
-            # groups' expert hits, over the dense leaves' base rows
-            comp_state = channel.mark(comp_state, tracker.step_masks(
-                {"embed": batch["tokens"], **row_info[0]}, device=dev))
-        if planes is not None:
-            new_x, new_opt, comp = run_update(
-                spec, ocfg, x=planes, g=g_planes, state=opt_state, lr=lr,
-                step_idx=step_idx, gossip=channel, mean=mean,
-                comp_state=comp_state, stage=stage,
-                scalars=plane_scalars(ocfg, layout, params, grads, stacked=True, tp=tp),
-            )
-            for k, p in planes.items():
-                if new_x[k] is not p:
-                    # a state bucket that is the parameter plane itself
-                    # (d2's x_prev of f32 parameters) keeps the old values
-                    for v in new_opt.values():
-                        if v.get(k) is p:
-                            v[k] = p.clone()
-                    p.copy_(new_x[k])
-            new_params = params  # the views now read the new planes
-        elif tcfg.fused_update:
-            new_params, new_opt, comp = run_update(
-                spec, ocfg, x=params, g=grads, state=opt_state, lr=lr,
-                step_idx=step_idx, gossip=channel, mean=mean,
-                comp_state=comp_state, stage=stage,
-                scalars=node_grad_scalars(ocfg, params, grads, tp=tp, sharded=sharded),
-            )
-        else:
-            new_params, new_opt, comp = opt.step(
-                params, grads, opt_state, lr=lr, step_idx=step_idx,
-                gossip=channel, mean=mean, comp_state=comp_state,
-                scalars=node_grad_scalars(ocfg, params, grads, tp=tp, sharded=sharded),
-            )
-        del grads, g_planes
-        if saved is not None:
-            # out of place: state buckets may share buffers (d2's m_prev is m)
-            new_opt = {
-                k: tree_unflatten(v, [t.index_put((bad,), o) for t, o in zip(tree_leaves(v), saved[k])])
-                for k, v in new_opt.items()
+        with span("train.metrics"):
+            means, skipped, gap = fleet.reduce(per_node, 0 if bad is None else bad.numel(),
+                                               channel.node_gaps(comp))
+            metrics = {
+                # the mean over nodes of each node's total (cross entropy plus
+                # the MoE router terms) as "loss", and of xent and the router terms
+                **means,
+                "lr": lr,
+                "skipped_nonfinite": skipped,
+                # fleet-worst incident gossip gap of this round (0 on undelayed
+                # channels): the signal the serving publisher gates on
+                "gossip_gap": gap,
             }
-
-        means, skipped, gap = fleet.reduce(per_node, 0 if bad is None else bad.numel(),
-                                           channel.node_gaps(comp))
-        metrics = {
-            # the mean over nodes of each node's total (cross entropy plus
-            # the MoE router terms) as "loss", and of xent and the router terms
-            **means,
-            "lr": lr,
-            "skipped_nonfinite": skipped,
-            # fleet-worst incident gossip gap of this round (0 on undelayed
-            # channels): the signal the serving publisher gates on
-            "gossip_gap": gap,
-        }
-        if tcfg.track_consensus:
-            metrics["consensus_sq"] = fleet.consensus(planes if planes is not None
-                                                      else new_params)
+            if tcfg.track_consensus:
+                metrics["consensus_sq"] = fleet.consensus(planes if planes is not None
+                                                          else new_params)
         new_state = {"step": step_idx + 1, "params": new_params, "opt": new_opt,
                      "channel": comp}
         if planes is not None:

@@ -191,7 +191,8 @@ def test_trainer_clips_each_node_by_its_own_norm():
     data = SyntheticLM(SyntheticLMConfig(vocab_size=cfg.vocab_size, seq_len=16,
                                          per_node_batch=2, n_nodes=N, heterogeneity=0.5))
     batch = from_numpy(data.batch(0))
-    grads, _ = _node_grads(x0, batch, cfg, N)
+    grads, _ = _node_grads(x0, batch, cfg, N,
+                           tree_map(lambda a: torch.empty(a.shape, dtype=torch.float32), x0))
     state, _ = step_fn(state, batch)
 
     def tail(scalars):
