@@ -275,7 +275,18 @@ result line):
     sim_cluster (the H100 projection), quickstart (DecentLaM's consensus
     distance below DmSGD's), train_lm (8 ranks, the drill 8 -> 4) and
     serve_lm (a 4 x 2 grid of 8 ranks: every request, the same tokens on
-    every rank, flash launched on every rank).
+    every rank, flash launched on every rank);
+43. the model layer's f32 products, the 3xTF32 ``wgmma`` GEMM
+    (``kernels/gemm``), at olmo-1b's b4k and b1k shapes in its three
+    layouts (X.W, dY.W^T, X^T.dY) and the tied head's: its error against a
+    float64 product within twice cuBLAS f32's, its max gap to the plain
+    version (``gemm_plain``) within ``GEMM_TOL`` of the plain output's
+    largest value, the same bits on a second run, the launch count read
+    back; its time beside its bound, the plain version's and
+    ``torch.matmul``'s; phase 3's trainer at 2 layers with every product on
+    the kernel (its launch count above 0, none kept on ``torch.matmul``),
+    the count the kernels line records.  Every earlier phase that trains or prefills a
+    float32 model at 1,024 rows and more runs its products on it.
 
 Phases 6 and 9 also run flash at whisper-tiny's two non-causal shapes
 (the encoder's 1500 x 1500, the cross-attention's 224 x 1500), and phase 9
@@ -285,7 +296,7 @@ staleness, MoE, whisper and row-sparse paths and on tp 2 rank planes of
 qwen3-0.6b, granite-moe and whisper; flash on the qwen3-0.6b, hymba-1.5b
 and whisper-tiny serve paths and at tp 2 ranks of qwen3-0.6b, hymba-1.5b,
 internvl2-2b and the serve_lm example; mLSTM on xlstm-350m's, whole and at
-a tp 2 rank's dv);
+a tp 2 rank's dv; the GEMM at olmo-1b's b4k forward shape);
 the last
 line is
 ``{"ok": true, "device": {...}}``.  Triton kernels compile at first use into
@@ -365,6 +376,12 @@ XSERVE_ARCH = "xlstm-350m"
 # of the output's largest |value| where that exceeds 1 (at dk 512 h reaches
 # tens, and both versions sum 512-term dot products in f32 in other orders)
 ML_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+# the 3xTF32 GEMM, kernel vs plain version (the same split and k-block
+# promotion in torch): max |kernel - plain| over max |plain|.  The two differ
+# only in how the f32 sums round (the tensor cores truncate), a few 1e-7 at
+# olmo's shapes; one TF32 product in place of three errs ~1e-4 and a wrong
+# tile O(1)
+GEMM_TOL = 1e-5
 # the mLSTM main-path shape: one prefill wave of 8 slots x 4 heads, 2048
 # tokens, head dim 512, chunk 128
 ML_MAIN = dict(B=8, H=4, S=2048, dk=512, dv=512, chunk=128)
@@ -5707,6 +5724,108 @@ def phase_examples(torch):
     return sv["flash_launches"][0]
 
 
+# ---------------------------------------------------------------------------
+# the model layer's f32 products: the 3xTF32 wgmma GEMM (43)
+# ---------------------------------------------------------------------------
+
+# (M, N, K, A's major, B's major) of olmo-1b's products: b4k's 4 x 1024 and
+# b1k's 1024 tokens a node, d 2048, SwiGLU 8192, the tied 50,304 head
+GEMM_SHAPES = {
+    "b4k w_in forward (X.W)": (4096, 8192, 2048, "k", "n"),
+    "b4k w_out forward": (4096, 2048, 8192, "k", "n"),
+    "b4k wq forward": (4096, 2048, 2048, "k", "n"),
+    "b4k w_in dX (dY.W^T)": (4096, 2048, 8192, "k", "k"),
+    "b4k w_in dW (X^T.dY)": (2048, 8192, 4096, "m", "n"),
+    "b4k tied head forward (X.table^T)": (4096, 50304, 2048, "k", "k"),
+    "b4k tied head dX (dY.table)": (4096, 2048, 50304, "k", "n"),
+    "b4k tied head d(table) (dY^T.X)": (50304, 2048, 4096, "m", "n"),
+    "b1k w_in forward": (1024, 8192, 2048, "k", "n"),
+    "b1k wq forward": (1024, 2048, 2048, "k", "n"),
+    "b1k w_in dW": (2048, 8192, 1024, "m", "n"),
+}
+
+
+def phase_gemm(torch):
+    """The 3xTF32 wgmma GEMM at olmo-1b's b4k and b1k shapes, in its three
+    layouts and the tied head's: its error against a float64 product beside
+    cuBLAS f32's (TF32 off), its time beside its bound (2MNK / 164.9 TFLOP/s,
+    three TF32 products at 494.7) and beside torch.matmul f32 (library_ms),
+    the plain version's time and its max gap to the kernel, the same bits on
+    a second run, the launch count read back; then the training main path's
+    launch count.  A kernel that errs more than twice cuBLAS, strays from the
+    plain version by more than ``GEMM_TOL`` of its largest value or changes a
+    bit fails.  Returns ``{"shapes": {name: record}, "launches": n}``, n the
+    main path's launches."""
+    from repro_torch.kernels.gemm import kernel as gk
+    from repro_torch.kernels.gemm import ops
+    from repro_torch.launch import train
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("cuBLAS f32 is the yardstick here: TF32 must be off")
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    smi = _smi()
+    recs = {}
+    for name, (m, n, k, am, bm) in GEMM_SHAPES.items():
+        a = (torch.randn(m, k, device="cuda", generator=gen) if am == "k"
+             else torch.randn(k, m, device="cuda", generator=gen).t())
+        b = (torch.randn(k, n, device="cuda", generator=gen) if bm == "n"
+             else torch.randn(n, k, device="cuda", generator=gen).t())
+        ops.reset_counts()
+        got = gk.gemm_launch(a, b)
+        again = gk.gemm_launch(a, b)
+        lib = a @ b
+        ref = a.double() @ b.double()
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, again))
+        norm = float(ref.norm())
+        err = float((got.double() - ref).norm()) / norm
+        lib_err = float((lib.double() - ref).norm()) / norm
+        del again, lib, ref
+        if gk.gemm_launch.launches != 2:
+            raise RuntimeError(f"{name}: the launch count read {gk.gemm_launch.launches}, not 2")
+        if not same:
+            raise RuntimeError(f"{name}: two runs of the kernel differ")
+        if err > 2 * lib_err:
+            raise RuntimeError(f"{name}: relative error {err:.3g}, cuBLAS f32 {lib_err:.3g}")
+        plain = gk.gemm_plain(a, b)
+        plain_err = float((plain - got).abs().max())
+        plain_max = float(plain.abs().max())
+        del got, plain
+        if plain_err > GEMM_TOL * plain_max:
+            raise RuntimeError(f"{name}: max |kernel - plain| {plain_err:.3g} over "
+                               f"{GEMM_TOL} x max |plain| {plain_max:.3g}")
+        ms = _time_ms(torch, lambda: gk.gemm_launch(a, b), 10)
+        lib_ms = _time_ms(torch, lambda: a @ b, 10)
+        plain_ms = _time_ms(torch, lambda: gk.gemm_plain(a, b), 1)
+        flops, nbytes = gk.work(m, n, k)
+        bound_ms = 3 * flops / 494.7e12 * 1e3
+        log(f"phase 43: tf32x3 GEMM {name} ({m} x {n} x {k}, A {am}-major, B {bm}-major; "
+            f"{smi}): kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s f32-accurate), bound "
+            f"{bound_ms:.3f} ms by operations (3 x {flops / 1e9:.0f} GFLOP / 494.7 TFLOP/s TF32; "
+            f"{nbytes / 1e6:.0f} MB / 3.35 TB/s = {nbytes / 3.35e9:.3f} ms): {bound_ms / ms:.1%}; "
+            f"torch.matmul f32 {lib_ms:.3f} ms ({flops / lib_ms / 1e9:.1f} TFLOP/s); plain "
+            f"version {plain_ms:.3f} ms; relative error vs float64 {err:.3g} (cuBLAS f32 "
+            f"{lib_err:.3g}); max |kernel - plain| {plain_err:.3g} ({plain_err / plain_max:.3g} "
+            f"of max |plain|, tol {GEMM_TOL}); bits equal over two runs")
+        recs[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": bound_ms, "bound_by": "operations", "err": plain_err,
+                      "rel_err": err, "library_rel_err": lib_err}
+        del a, b
+        torch.cuda.empty_cache()
+    # the training main path's products (phase 3's trainer, 1,024 tokens a
+    # node, cut to 2 layers): every one through the kernel, none kept on
+    # torch.matmul
+    ops.reset_counts()
+    res = train.main(_train_argv(2, "triton", 2))
+    launches, kept = gk.gemm_launch.launches, ops.linear.matmuls
+    if launches == 0 or kept:
+        raise RuntimeError(f"main path: {launches} kernel launches, {kept} products on "
+                           "torch.matmul; want every product on the kernel")
+    log(f"phase 43: the train main path ({MAIN['arch']} at 2 layers, {res['n_nodes']} nodes, "
+        f"{len(res['losses'])} steps): {launches} kernel launches, {kept} on torch.matmul")
+    return {"shapes": recs, "launches": launches}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
         print("chip_smoke.py: src/repro_torch not found beside this script; "
@@ -5799,6 +5918,7 @@ def main() -> int:
     tp_zoo = timed("38-40 tensor-parallel xLSTM, hybrid, VLM serve; whisper train", phase_tp_zoo)
     timed("41 tensor-parallel checkpoint, resume, drill", phase_tp_checkpoint)
     ex_flash = timed("42 the examples on the card", phase_examples)
+    gemm = timed("43 tf32x3 GEMM at olmo's shapes", phase_gemm)
     log(f"phase times (s): {phases}; total {time.perf_counter() - t0:.1f}s")
     log(f"device memory allocated after each phase (GiB): {held}")
     # one record per specialization of the Triton kernel on the training main
@@ -6055,6 +6175,23 @@ def main() -> int:
         "bound_ms": fa_ex["bound_ms"],
         "bound_by": fa_ex["bound_by"],
         "library_ms": fa_ex["library_ms"],
+    })
+    # phase 43: the model layer's f32 products, timed at olmo-1b b4k's forward
+    # shape; the launches are the training main path's (phase 43's trainer),
+    # the error the max gap to the plain version
+    g = gemm["shapes"]["b4k w_in forward (X.W)"]
+    records.append({
+        "name": "tf32x3_wgmma_gemm[olmo-1b b4k w_in forward: 4096 x 8192 x 2048, f32]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/gemm/csrc/gemm_tf32x3.cu",
+        "replaces": None,
+        "launches": gemm["launches"],
+        "max_abs_err": g["err"],
+        "ms": g["ms"],
+        "plain_ms": g["plain_ms"],
+        "bound_ms": g["bound_ms"],
+        "bound_by": g["bound_by"],
+        "library_ms": g["library_ms"],
     })
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

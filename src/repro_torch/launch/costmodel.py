@@ -27,7 +27,8 @@ Outputs per program, as the reference's:
 
 **A hand-written kernel is one unit**, as ``pallas_call`` is in the
 reference: each kernel entry point (the stage executor's per-leaf or
-per-bucket call, ``flash_attention``, ``mlstm``) reports one launch with
+per-bucket call, ``flash_attention``, ``mlstm``, the model layer's ``gemm``,
+whose FLOPs count as products) reports one launch with
 the FLOPs and bytes of its kernel's ``work`` through :func:`kernel_unit`,
 and the recorder ignores the aten ops inside that call — the plain
 version's on the CPU, the launcher's allocations on the card — so a CPU
@@ -242,9 +243,11 @@ class CostRecorder(TorchDispatchMode):
             c.flops += n * sum(float(t.numel()) for t in _tensors(out))
         return out
 
-    def add_unit(self, name: str, flops: float, nbytes: float) -> None:
+    def add_unit(self, name: str, flops: float, nbytes: float, product: bool = False) -> None:
         c = self.costs
         c.flops += flops
+        if product:
+            c.product_flops += flops
         c.naive_bytes += nbytes
         c.naive_bytes_untripped += nbytes
         c.materialized_bytes += nbytes
@@ -276,17 +279,19 @@ def _active() -> CostRecorder | None:
 
 
 @contextlib.contextmanager
-def kernel_unit(name: str, work: Callable[[], tuple[float, float]]):
+def kernel_unit(name: str, work: Callable[[], tuple[float, float]], product: bool = False):
     """One launch of the hand-written kernel ``name``: under a recorder,
     ``work()``'s FLOPs and bytes are counted once and the aten ops inside
-    the block are not (its allocations still count as memory).  Without
-    one it does nothing (``work`` is not called)."""
+    the block are not (its allocations still count as memory); with
+    ``product`` the FLOPs are a matrix product's (``product_flops``, as the
+    ``mm`` the kernel stands for).  Without one it does nothing (``work`` is
+    not called)."""
     rec = _active()
     if rec is None:
         yield
         return
     flops, nbytes = work()
-    rec.add_unit(name, flops, nbytes)
+    rec.add_unit(name, flops, nbytes, product)
     rec._unit += 1
     try:
         yield

@@ -55,6 +55,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention import flash_attention
+from ..kernels.gemm import linear
 from .layers import (
     Initializer,
     TPContext,
@@ -228,9 +229,9 @@ def _project(x, params, cfg: ModelConfig, positions, kv_source=None):
     dt = x.dtype
     src = x if kv_source is None else kv_source.to(dt)
     Sk = src.shape[1]
-    q = (x @ params["wq"].to(dt)).reshape(B, S, H, hd)
-    k = (src @ params["wk"].to(dt)).reshape(B, Sk, KV, hd)
-    v = (src @ params["wv"].to(dt)).reshape(B, Sk, KV, hd)
+    q = linear(x, params["wq"].to(dt)).reshape(B, S, H, hd)
+    k = linear(src, params["wk"].to(dt)).reshape(B, Sk, KV, hd)
+    v = linear(src, params["wv"].to(dt)).reshape(B, Sk, KV, hd)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
@@ -271,7 +272,7 @@ def attn_forward(
     q, k, v = _project(x, params, cfg, positions, kv_source)
     out = attention_core(q, k, v, causal=causal, window=window,
                          softcap=cfg.logit_softcap, impl=attn_impl)
-    y = out.reshape(B, S, cfg.n_heads * cfg.hd) @ params["wo"].to(x.dtype)
+    y = linear(out.reshape(B, S, cfg.n_heads * cfg.hd), params["wo"].to(x.dtype))
     if return_kv:
         return y, (k, v)
     return y
@@ -292,9 +293,9 @@ def _attn_forward_tp(x, params, cfg: ModelConfig, tp: TPContext, *, positions, c
     wk, wv = params["wk"], params["wv"]
     if not dims.kv_sharded:
         wk, wv = tp.copy_in(wk), tp.copy_in(wv)
-    q = (x @ params["wq"].to(dt)).reshape(B, S, dims.h_local, hd)
-    k = (src @ wk.to(dt)).reshape(B, Sk, dims.kv_local, hd)
-    v = (src @ wv.to(dt)).reshape(B, Sk, dims.kv_local, hd)
+    q = linear(x, params["wq"].to(dt)).reshape(B, S, dims.h_local, hd)
+    k = linear(src, wk.to(dt)).reshape(B, Sk, dims.kv_local, hd)
+    v = linear(src, wv.to(dt)).reshape(B, Sk, dims.kv_local, hd)
     if cfg.qk_norm:
         q = rms_norm(q, tp.copy_in(params["q_norm"]))
         k = rms_norm(k, tp.copy_in(params["k_norm"]))
@@ -308,7 +309,7 @@ def _attn_forward_tp(x, params, cfg: ModelConfig, tp: TPContext, *, positions, c
     mask = dims.head_mask(tp.index, x.device)
     if mask is not None:
         out = out * mask[None, None, :, None].to(dt)
-    y = tp.reduce_out(out.reshape(B, S, dims.h_local * hd) @ params["wo"].to(dt))
+    y = tp.reduce_out(linear(out.reshape(B, S, dims.h_local * hd), params["wo"].to(dt)))
     if return_kv:
         return y, (k, v)
     return y

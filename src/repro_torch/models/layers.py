@@ -3,8 +3,10 @@ with manual tensor parallelism.
 
 Parameters are plain nested dicts of tensors with the JAX package's paths
 and layouts: a linear weight is ``(d_in, d_out)`` and is applied as
-``x @ w``.  Norm scales are stored as offsets from 1 (``x * (1 + scale)``),
-as in the reference.
+``x @ w`` (:func:`~repro_torch.kernels.gemm.linear`: a large f32 product on
+a card runs on the 3xTF32 ``wgmma`` kernel, every other on
+``torch.matmul``).  Norm scales are stored as offsets from 1 (``x * (1 +
+scale)``), as in the reference.
 
 Tensor parallelism is Megatron's, as in the reference: activations are
 replicated over the model group at block boundaries, a column-sharded
@@ -35,6 +37,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..kernels.gemm import linear
 from ..launch.costmodel import record_collective
 
 Tree = Any
@@ -312,13 +315,13 @@ def mlp_apply(x: torch.Tensor, params: Tree, act: str,
 
 def _mlp(x: torch.Tensor, params: Tree, act: str) -> torch.Tensor:
     dt = x.dtype
-    h = x @ params["w_in"].to(dt)
+    h = linear(x, params["w_in"].to(dt))
     if "w_gate" in params:
-        g = x @ params["w_gate"].to(dt)
+        g = linear(x, params["w_gate"].to(dt))
         h = _ACTS[act](g) * h
     else:
         h = _ACTS[act](h)
-    return h @ params["w_out"].to(dt)
+    return linear(h, params["w_out"].to(dt))
 
 
 # ---------------------------------------------------------------------------
@@ -361,7 +364,7 @@ def embed_lookup(ids: torch.Tensor, table: torch.Tensor,
 
 def lm_head_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (..., d); w: (d, V) -> logits (..., V)."""
-    return x @ w.to(x.dtype)
+    return linear(x, w.to(x.dtype))
 
 
 def softmax_xent_sharded(logits: torch.Tensor, targets: torch.Tensor, *,
