@@ -1,12 +1,14 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
 The port carries every architecture of the JAX package's registry
-(``repro.configs``), the encoder-decoder whisper-tiny included.
+(``repro.configs``), the encoder-decoder whisper-tiny included, and
+deepseek-v2-lite, which the JAX package does not have.
 """
 
 from __future__ import annotations
 
 from . import (
+    deepseek_v2_lite,
     granite_moe_1b_a400m,
     granite_moe_3b_a800m,
     h2o_danube_1p8b,
@@ -31,6 +33,7 @@ _MODULES = {
     "granite-moe-1b-a400m": granite_moe_1b_a400m,
     "internvl2-2b": internvl2_2b,
     "whisper-tiny": whisper_tiny,
+    "deepseek-v2-lite": deepseek_v2_lite,
 }
 
 ARCHS: dict[str, ModelConfig] = {k: m.CONFIG for k, m in _MODULES.items()}

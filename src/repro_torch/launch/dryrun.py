@@ -24,7 +24,9 @@ the reference's ``make_production_mesh``; :func:`run_cell` also takes an
 explicit ``(nodes, tp)``.  Every family's cells run at tp 16 but
 whisper-tiny's serve cells, which stop at ``check_tp`` and record
 ``status: "error"`` naming the reference's own fault (its sharded serving
-of the encoder-decoder fails); ``long_500k`` skips where the reference
+of the encoder-decoder fails), and deepseek-v2-lite's (beyond the
+reference's registry), which stop there too: latent attention has no
+tensor-parallel or serve path yet; ``long_500k`` skips where the reference
 skips it.  On meta tensors the sLSTM time loop is traced as one step that
 the cost model counts once per token (:func:`.costmodel.trips`).
 

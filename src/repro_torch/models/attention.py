@@ -56,13 +56,18 @@ import torch
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention import flash_attention
 from ..kernels.gemm import linear
+from ..trace import span
 from .layers import (
     Initializer,
     TPContext,
     apply_rope,
+    apply_rope_pairs,
     linear_init,
     rms_norm,
+    rope_freqs,
     tp_enabled,
+    yarn_freqs,
+    yarn_mscale,
     zero_pad,
 )
 
@@ -76,6 +81,9 @@ __all__ = [
     "attn_init",
     "attn_forward",
     "attention_core",
+    "mla_init",
+    "mla_forward",
+    "mla_rope",
     "attn_cross_decode",
     "attn_decode_step",
     "group_index",
@@ -189,22 +197,27 @@ def _group_full(k: torch.Tensor, n_heads: int) -> torch.Tensor:
 
 
 def attention_core(q, k, v, *, causal: bool, window: int = 0, softcap: float = 0.0,
-                   impl: str = "torch"):
-    """q: (B, Sq, H, hd); k/v: (B, Sk, Hkv, hd), unexpanded.  Scores and
-    softmax in f32.  Returns (B, Sq, H, hd)."""
+                   impl: str = "torch", scale: float | None = None):
+    """q: (B, Sq, H, hd); k: (B, Sk, Hkv, hd), v: (B, Sk, Hkv, dv),
+    unexpanded.  Scores (times ``scale``, by default 1/sqrt(hd)) and softmax
+    in f32.  Returns (B, Sq, H, dv)."""
     if impl == "cuda":
         if softcap > 0.0:
             # the reference's Pallas branch drops softcap silently; refuse it
             raise NotImplementedError(
                 "attn_impl='cuda' does not apply logit_softcap; use attn_impl='torch'"
             )
+        if scale is not None or v.shape[-1] != q.shape[-1]:
+            raise NotImplementedError("the flash kernel scales by 1/sqrt(hd) and takes v's "
+                                      "head dim equal to q's; use attn_impl='torch'")
         return flash_attention(q, k, v, causal=causal, window=window)
     if impl != "torch":
         raise ValueError(f"unknown attn_impl {impl!r}; one of {ATTN_IMPLS}")
     H = q.shape[2]
     k, v = _group_full(k, H), _group_full(v, H)
     Sq, Sk, hd = q.shape[1], k.shape[1], q.shape[-1]
-    scale = 1.0 / math.sqrt(hd)
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
     s = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) * scale
     if softcap > 0.0:
         s = softcap * torch.tanh(s / softcap)
@@ -313,6 +326,75 @@ def _attn_forward_tp(x, params, cfg: ModelConfig, tp: TPContext, *, positions, c
     if return_kv:
         return y, (k, v)
     return y
+
+
+# ---------------------------------------------------------------------------
+# Multi-head latent attention (DeepSeek-V2), training path
+# ---------------------------------------------------------------------------
+
+
+def mla_init(init: Initializer, cfg: ModelConfig) -> Tree:
+    """MLA's parameters with no q LoRA: ``wq`` (d, H (nope + rope)), ``wkv_a``
+    (d, rank + rope), the latent's RMS norm ``kv_norm`` (rank,), ``wkv_b``
+    (rank, H (nope + v)), ``wo`` (H v, d)."""
+    d, h, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    nope, rope, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "wq": linear_init(init, d, h * (nope + rope)),
+        "wkv_a": linear_init(init, d, r + rope),
+        "kv_norm": init.zeros((r,)),
+        "wkv_b": linear_init(init, r, h * (nope + dv)),
+        "wo": linear_init(init, h * dv, d),
+    }
+
+
+def mla_rope(cfg: ModelConfig, device=None) -> tuple[torch.Tensor, float, float]:
+    """``(freqs, cos_scale, softmax_scale)`` of MLA's rope slice: YaRN's
+    frequencies and factors where ``yarn_factor`` is set, else theta's, 1
+    and ``(nope + rope)^-1/2``."""
+    rope = cfg.qk_rope_head_dim
+    scale = (cfg.qk_nope_head_dim + rope) ** -0.5
+    if cfg.yarn_factor <= 0:
+        return rope_freqs(rope, cfg.rope_theta, device), 1.0, scale
+    f = cfg.yarn_factor
+    freqs = yarn_freqs(rope, cfg.rope_theta, f, cfg.yarn_original_max_pos, cfg.yarn_beta_fast,
+                       cfg.yarn_beta_slow, device)
+    cos_scale = yarn_mscale(f, cfg.yarn_mscale) / yarn_mscale(f, cfg.yarn_mscale_all_dim)
+    if cfg.yarn_mscale_all_dim:
+        scale *= yarn_mscale(f, cfg.yarn_mscale_all_dim) ** 2
+    return freqs, cos_scale, scale
+
+
+def mla_forward(x: torch.Tensor, params: Tree, cfg: ModelConfig, *,
+                positions: torch.Tensor | None = None) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d), causal (``modeling_deepseek.py``'s
+    ``DeepseekV2Attention`` with no q LoRA): ``q = x wq`` split per head into
+    nope and rope; ``[c | k_rope] = x wkv_a``, ``c`` RMS-normed and
+    ``[k_nope | v] = c wkv_b`` per head; the rope slice of q and the one
+    ``k_rope`` every head shares rotated (:func:`~.layers.apply_rope_pairs`);
+    scores over ``[nope | rope]`` times :func:`mla_rope`'s scale; ``o wo``.
+    Spans: ``mla`` holds the layer, ``mla_latent`` the latent's products and
+    norm, ``mla_core`` the scores, softmax and PV."""
+    B, S, _ = x.shape
+    h, r = cfg.n_heads, cfg.kv_lora_rank
+    nope, rope, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    dt = x.dtype
+    if positions is None:
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    with span("mla"):
+        q = linear(x, params["wq"].to(dt)).reshape(B, S, h, nope + rope)
+        with span("mla_latent"):
+            ckv = linear(x, params["wkv_a"].to(dt))
+            c = rms_norm(ckv[..., :r], params["kv_norm"])
+            kv = linear(c, params["wkv_b"].to(dt)).reshape(B, S, h, nope + dv)
+        freqs, cos_scale, scale = mla_rope(cfg, x.device)
+        q_rope = apply_rope_pairs(q[..., nope:], positions, freqs, cos_scale)
+        k_rope = apply_rope_pairs(ckv[..., None, r:], positions, freqs, cos_scale)
+        q = torch.cat([q[..., :nope], q_rope], dim=-1)
+        k = torch.cat([kv[..., :nope], k_rope.expand(B, S, h, rope)], dim=-1)
+        with span("mla_core"):
+            out = attention_core(q, k, kv[..., nope:], causal=True, scale=scale)
+        return linear(out.reshape(B, S, h * dv), params["wo"].to(dt))
 
 
 # ---------------------------------------------------------------------------

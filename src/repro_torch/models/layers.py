@@ -52,6 +52,9 @@ __all__ = [
     "norm_apply",
     "rope_freqs",
     "apply_rope",
+    "yarn_mscale",
+    "yarn_freqs",
+    "apply_rope_pairs",
     "linear_init",
     "mlp_init",
     "mlp_apply",
@@ -263,16 +266,64 @@ def rope_freqs(hd: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: (..., S, n_heads, hd); positions: (..., S) integer."""
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               freqs: torch.Tensor | None = None, cos_scale: float = 1.0) -> torch.Tensor:
+    """x: (..., S, n_heads, hd); positions: (..., S) integer.  ``freqs``
+    (hd/2,) replaces ``theta``'s inverse frequencies (YaRN's), and
+    ``cos_scale`` scales cos and sin (YaRN's attention factor)."""
     hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)  # (hd/2,)
+    if freqs is None:
+        freqs = rope_freqs(hd, theta, x.device)  # (hd/2,)
     ang = positions[..., :, None].to(torch.float32) * freqs  # (..., S, hd/2)
     cos = torch.cos(ang)[..., :, None, :]
     sin = torch.sin(ang)[..., :, None, :]
+    if cos_scale != 1.0:
+        cos, sin = cos * cos_scale, sin * cos_scale
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope_pairs(x: torch.Tensor, positions: torch.Tensor, freqs: torch.Tensor,
+                     cos_scale: float = 1.0) -> torch.Tensor:
+    """DeepSeek-V2's rope on x (..., S, n_heads, r): the r dims are read as
+    adjacent pairs (2i, 2i + 1), reordered to the evens then the odds, and
+    rotated half-split by ``freqs[i]`` (``modeling_deepseek.py``'s
+    ``apply_rotary_pos_emb``; for the scores the same as rotating each pair
+    in place)."""
+    r = x.shape[-1]
+    x = x.unflatten(-1, (r // 2, 2)).transpose(-1, -2).flatten(-2)
+    return apply_rope(x, positions, 0.0, freqs, cos_scale)
+
+
+def yarn_mscale(factor: float, mscale: float = 1.0) -> float:
+    """YaRN's magnitude correction ``0.1 mscale ln(factor) + 1`` (1 for
+    ``factor <= 1``)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_freqs(dim: int, theta: float, factor: float, original_max_pos: int,
+               beta_fast: float, beta_slow: float, device=None) -> torch.Tensor:
+    """YaRN's inverse frequencies (dim/2,) in f32: theta's own frequencies
+    (extrapolated) below the correction range of ``beta_fast`` rotations over
+    ``original_max_pos`` positions, those divided by ``factor``
+    (interpolated) above that of ``beta_slow``, a linear ramp between."""
+
+    def correction(rotations: float) -> float:
+        return dim * math.log(original_max_pos / (rotations * 2 * math.pi)) / (
+            2 * math.log(theta))
+
+    low = max(math.floor(correction(beta_fast)), 0)
+    high = min(math.ceil(correction(beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    extra = rope_freqs(dim, theta, device)
+    inter = 1.0 / (factor * theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                                   device=device) / dim))
+    ramp = torch.clamp((torch.arange(dim // 2, dtype=torch.float32, device=device) - low)
+                       / (high - low), 0, 1)
+    mask = 1.0 - ramp  # 1: extrapolate, 0: interpolate
+    return inter * (1 - mask) + extra * mask
 
 
 # ---------------------------------------------------------------------------

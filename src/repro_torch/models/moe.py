@@ -42,10 +42,31 @@ replicated).  The input and the gate table enter the sharded experts
 through ``copy_in``, so the router's and the input's gradients, summed over
 the group, are whole on every rank.
 
+DeepSeek-V2's MoE layer (``modeling_deepseek.py``'s ``DeepseekV2MoE``)
+is the same layer with four settings of the config:
+
+* ``norm_topk_prob`` False: the gates are the raw router probabilities of
+  the k chosen experts (granite renormalizes them over the k);
+* ``router_loss`` ``"seq_aux"``: the balance term is taken per sequence,
+  ``sum_e f_e P_e`` with ``f_e = count_e E / (k S)`` (the sequence's top-k
+  choices of expert ``e``, dropped or not) and ``P_e`` its mean
+  probability, averaged over the sequences; no z-loss (granite: the Switch
+  term over the microbatch plus the z-loss);
+* ``n_shared_experts``: one SwiGLU of width ``n * moe_d_ff`` that every
+  token takes, added to the routed experts' sum (span ``moe_shared``);
+* ``experts_held``: the chip holds one block of that many experts (block
+  ``block`` of ``moe_forward``, 0 by default), routes over all
+  ``n_experts`` with their capacity, and computes only its block's part of
+  the routed sum, with no exchange: what one rank of an expert-parallel
+  group computes, the tp > 1 expert mode's slicing of the dispatch tables
+  (:func:`_block_tables`) without its all-reduce.
+
+Where every expert is held (granite) the layer does no extra work.
+
 The layer's profiler spans (``moe_router``, ``moe_dispatch``,
-``moe_experts``, ``moe_combine``; :func:`repro_torch.trace.span`, entered
-only while a profiler records) let a trace attribute device time to its
-parts.
+``moe_experts``, ``moe_combine``, and ``moe_shared``;
+:func:`repro_torch.trace.span`, entered only while a profiler records) let a
+trace attribute device time to its parts.
 """
 
 from __future__ import annotations
@@ -57,12 +78,12 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..trace import span
-from .layers import _ACTS, Initializer, TPContext, tp_enabled
+from .layers import _ACTS, Initializer, TPContext, mlp_apply, mlp_init, tp_enabled
 
 Tree = Any
 
 __all__ = ["moe_init", "moe_shard_axes", "moe_forward", "moe_capacity", "route",
-           "dispatch_tables"]
+           "router_terms", "dispatch_tables"]
 
 
 def moe_capacity(cfg: ModelConfig, tokens: int) -> int:
@@ -90,18 +111,24 @@ def moe_shard_axes(cfg: ModelConfig, tp: int) -> Tree:
     p = {"router": None, "w_in": win, "w_out": wout}
     if cfg.gated_mlp:
         p["w_gate"] = win
+    if cfg.n_shared_experts:  # tp = 1 only (transformer.check_tp)
+        p["shared"] = {k: None for k in p if k != "router"}
     return p
 
 
 def moe_init(init: Initializer, cfg: ModelConfig) -> Tree:
-    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    """The router over all ``n_experts``, the held experts' weights
+    ``(experts_held, ...)`` and the shared experts' SwiGLU ``shared``."""
+    d, f, E = cfg.d_model, cfg.expert_d_ff, cfg.n_experts_held
     p = {
-        "router": init.normal((d, E), 1.0 / math.sqrt(d)),
+        "router": init.normal((d, cfg.n_experts), 1.0 / math.sqrt(d)),
         "w_in": init.normal((E, d, f), 1.0 / math.sqrt(d)),
         "w_out": init.normal((E, f, d), 1.0 / math.sqrt(f)),
     }
     if cfg.gated_mlp:
         p["w_gate"] = init.normal((E, d, f), 1.0 / math.sqrt(d))
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_init(init, d, cfg.n_shared_experts * f, cfg.gated_mlp)
     return p
 
 
@@ -155,14 +182,39 @@ class _Combine(torch.autograd.Function):
 def route(xt: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
     """The f32 router over tokens ``xt`` (T, d): ``(logits, probs,
     expert_idx, gate_vals)``, the top-k experts of each token (the lower
-    index first among ties, as ``jax.lax.top_k``) and their gates
-    renormalized over the k."""
+    index first among ties, as ``jax.lax.top_k``) and their gates,
+    renormalized over the k where ``cfg.norm_topk_prob``."""
     logits = xt.to(torch.float32) @ router.to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     expert_idx = torch.sort(probs, dim=-1, descending=True, stable=True).indices[:, :cfg.top_k]
     gate_vals = torch.gather(probs, 1, expert_idx)
-    gate_vals = gate_vals / torch.clamp(torch.sum(gate_vals, dim=-1, keepdim=True), min=1e-9)
+    if cfg.norm_topk_prob:
+        gate_vals = gate_vals / torch.clamp(torch.sum(gate_vals, dim=-1, keepdim=True), min=1e-9)
     return logits, probs, expert_idx, gate_vals
+
+
+def router_terms(logits, probs, expert_idx, cfg: ModelConfig, batch: int) -> dict:
+    """The router's loss terms: ``cfg.router_loss`` ``"switch"`` gives the
+    Switch load balance ``moe_load_balance`` (E sum_e mean probs x mean
+    chosen, over the microbatch) and the z-loss ``moe_router_z``;
+    ``"seq_aux"`` gives ``moe_load_balance`` as DeepSeek's per-sequence
+    term over the ``batch`` sequences (module docstring) and no z-loss."""
+    T, E = probs.shape
+    onehot = torch.zeros((T, E), dtype=torch.float32, device=probs.device)
+    onehot.scatter_(1, expert_idx, 1.0)
+    if cfg.router_loss == "seq_aux":
+        S = T // batch
+        f = onehot.reshape(batch, S, E).sum(1) / (S * cfg.top_k / E)
+        return {"moe_load_balance": torch.mean(torch.sum(f * probs.reshape(batch, S, E)
+                                                         .mean(1), dim=-1))}
+    if cfg.router_loss != "switch":
+        raise ValueError(f"unknown router_loss {cfg.router_loss!r}; switch or seq_aux")
+    me = torch.mean(probs, dim=0)
+    ce = torch.mean(onehot, dim=0)
+    return {
+        "moe_load_balance": E * torch.sum(me * ce),
+        "moe_router_z": torch.mean(torch.square(torch.logsumexp(logits, dim=-1))),
+    }
 
 
 def dispatch_tables(expert_idx: torch.Tensor, gate_vals: torch.Tensor, cfg: ModelConfig):
@@ -206,13 +258,24 @@ def dispatch_tables(expert_idx: torch.Tensor, gate_vals: torch.Tensor, cfg: Mode
             "slots": slots, "hits": hits}
 
 
+def _block_tables(table, gtable, slots, lo: int, n: int):
+    """The dispatch tables of the block of ``n`` buffer slots from ``lo``:
+    its slots' tokens and gates, and each token's slots in the block (the
+    other blocks' slots read a zero row, ``n``)."""
+    slots = torch.where((slots >= lo) & (slots < lo + n), slots - lo, n)
+    return table[lo:lo + n], gtable[lo:lo + n], slots
+
+
 def moe_forward(x: torch.Tensor, params: Tree, cfg: ModelConfig,
-                tp: TPContext | None = None):
-    """x: (B, S, d) -> ((B, S, d), aux): aux holds the Switch load-balance
-    loss ``moe_load_balance``, the router z-loss ``moe_router_z`` and the
-    ``(E,)`` mask ``moe_expert_hits`` of experts that a kept assignment
-    reached.  With ``tp`` the expert leaves are the rank's shards (module
-    docstring) and the output is the same on every rank of the group."""
+                tp: TPContext | None = None, *, block: int = 0):
+    """x: (B, S, d) -> ((B, S, d), aux): aux holds the router's loss terms
+    (:func:`router_terms`) and the mask ``moe_expert_hits`` of the held
+    experts that a kept assignment reached.  With ``tp`` the expert leaves
+    are the rank's shards (module docstring) and the output is the same on
+    every rank of the group.  Where the chip holds ``experts_held`` of the
+    experts, ``block`` is its index in their expert-parallel group: the
+    output is that block's part of the routed sum, plus the shared
+    experts."""
     B, S, d = x.shape
     dt = x.dtype
     E = cfg.n_experts
@@ -222,15 +285,7 @@ def moe_forward(x: torch.Tensor, params: Tree, cfg: ModelConfig,
 
     with span("moe_router"):
         logits, probs, expert_idx, gate_vals = route(xt, params["router"], cfg)
-        # Switch load balance + router z-loss
-        me = torch.mean(probs, dim=0)
-        onehot = torch.zeros((T, E), dtype=torch.float32, device=x.device)
-        onehot.scatter_(1, expert_idx, 1.0)
-        ce = torch.mean(onehot, dim=0)
-        aux = {
-            "moe_load_balance": E * torch.sum(me * ce),
-            "moe_router_z": torch.mean(torch.square(torch.logsumexp(logits, dim=-1))),
-        }
+        aux = router_terms(logits, probs, expert_idx, cfg, B)
 
     with span("moe_dispatch"):
         tabs = dispatch_tables(expert_idx, gate_vals, cfg)
@@ -241,12 +296,13 @@ def moe_forward(x: torch.Tensor, params: Tree, cfg: ModelConfig,
             # input and of the gates sum over the group
             xt, gtable = tp.copy_in(xt), tp.copy_in(gtable)
         E_local = params["w_in"].shape[0]
-        if mode == "expert":
-            # the rank's block of the (E * C) buffers; the other ranks' slots
-            # read a zero row (E_local * C)
-            lo, n = tp.index * E_local * C, E_local * C
-            table, gtable = table[lo:lo + n], gtable[lo:lo + n]
-            slots = torch.where((slots >= lo) & (slots < lo + n), slots - lo, n)
+        if E_local != E:
+            # a tp rank's block of the (E * C) buffers, or the chip's held one
+            b = tp.index if mode == "expert" else block
+            table, gtable, slots = _block_tables(table, gtable, slots, b * E_local * C,
+                                                 E_local * C)
+            if mode != "expert":
+                aux["moe_expert_hits"] = tabs["hits"][b * E_local:(b + 1) * E_local]
         xin = _Dispatch.apply(xt, table, slots).reshape(E_local, C, d)
 
     with span("moe_experts"):
@@ -263,4 +319,8 @@ def moe_forward(x: torch.Tensor, params: Tree, cfg: ModelConfig,
         out = _Combine.apply(y.reshape(E_local * C, d).to(torch.float32), table, slots)
         if mode != "replicated":
             out = tp.reduce_out(out)
-    return out.reshape(B, S, d).to(dt), aux
+    out = out.reshape(B, S, d).to(dt)
+    if "shared" in params:
+        with span("moe_shared"):
+            out = out + mlp_apply(x, params["shared"], cfg.act)
+    return out, aux

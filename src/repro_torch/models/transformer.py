@@ -24,7 +24,13 @@ hd)) beside the self-attention kv.  A hybrid layer
 runs attention and the SSM on the same normed input and adds their mean;
 a MoE layer's router losses sum over the layers into the training loss
 (``xent + router_aux_weight * load_balance + 1e-3 * z``), as in the
-reference.
+reference (DeepSeek's ``seq_aux`` router: ``xent + router_aux_weight *
+load_balance``).  A MoE model's ``first_dense_layers`` leading layers are
+dense (kind ``"dense"``, an MLP of width ``d_ff``; its experts take
+``moe_d_ff``), and a config with ``kv_lora_rank`` set attends with
+multi-head latent attention (:func:`~.attention.mla_forward`), in training
+only: MLA has no serve cache and no tensor-parallel path yet
+(:func:`check_tp`).
 
 Tensor parallelism (a :class:`~repro_torch.models.layers.TPContext` of
 size > 1, passed as ``tp``) covers every family, as the reference's: the
@@ -136,7 +142,7 @@ def _layer_kind(cfg: ModelConfig, i: int) -> str:
         return "slstm" if i in cfg.slstm_layers() else "mlstm"
     if cfg.ssm:
         return "hybrid"
-    if cfg.moe:
+    if cfg.moe and i >= cfg.first_dense_layers:
         return "moe"
     return "dense"
 
@@ -170,7 +176,8 @@ def _layer_init(init: Initializer, cfg: ModelConfig, kind: str, tp: int = 1) -> 
         return {"norm": norm_init(init, nt, d), "mlstm": xlstm_mod.mlstm_init(init, cfg)}
     if kind == "slstm":
         return {"norm": norm_init(init, nt, d), "slstm": xlstm_mod.slstm_init(init, cfg)}
-    p = {"attn_norm": norm_init(init, nt, d), "attn": attn.attn_init(init, cfg, tp)}
+    p = {"attn_norm": norm_init(init, nt, d),
+         "attn": attn.mla_init(init, cfg) if cfg.mla else attn.attn_init(init, cfg, tp)}
     if kind == "hybrid":
         p["ssm"] = ssm_mod.ssm_init(init, cfg)
     if kind == "dec" and cfg.arch_kind == "encdec":
@@ -213,10 +220,21 @@ ENCDEC_SERVE_FAULT = (
 
 def check_tp(cfg: ModelConfig, tp: int, *, serve: bool = False) -> None:
     """Raise unless ``cfg`` runs at tensor-parallel degree ``tp``: every
-    family trains there; the encoder-decoder does not serve at tp > 1
-    (``serve``), as the reference cannot."""
+    family of the reference trains there; the encoder-decoder does not serve
+    at tp > 1 (``serve``), as the reference cannot.  Latent attention (MLA)
+    trains at tp = 1 only and serves nowhere: its latent kv cache, its decode
+    step and its sharding (with those of the shared experts and of a chip's
+    held block of experts) are not ported (ROADMAP.md)."""
+    if cfg.mla and serve:
+        raise NotImplementedError(
+            f"{cfg.name} serving: multi-head latent attention has no serve path (its latent "
+            "kv cache and decode step are not ported; ROADMAP.md); train it at tp = 1")
     if tp == 1:
         return
+    if cfg.mla or cfg.n_shared_experts or cfg.experts_held:
+        raise NotImplementedError(
+            f"{cfg.name} at tp={tp}: multi-head latent attention, shared experts and a held "
+            "block of experts have no tensor-parallel path (ROADMAP.md); train it at tp = 1")
     if serve and cfg.arch_kind == "encdec":
         raise NotImplementedError(
             f"{cfg.name} serving at tp={tp}: {ENCDEC_SERVE_FAULT}; serve it at tp = 1 "
@@ -272,7 +290,8 @@ def param_shard_axes(cfg: ModelConfig, tp: int = 1, serve: bool = False) -> Tree
         return {k: None for k in tree}
 
     def stacked(axes):  # the layer axis comes first
-        return {k: None if a is None else a + 1 for k, a in axes.items()}
+        return {k: stacked(a) if isinstance(a, dict) else None if a is None else a + 1
+                for k, a in axes.items()}
 
     def layer(kind: str):
         init = Initializer(torch.Generator())
@@ -282,7 +301,8 @@ def param_shard_axes(cfg: ModelConfig, tp: int = 1, serve: bool = False) -> Tree
             axes = (xlstm_mod.mlstm_shard_axes() if kind == "mlstm"
                     else {k: None for k in p[kind]})
             return {"norm": norm(p["norm"]), kind: stacked(axes)}
-        att = stacked(attn.attn_shard_axes(cfg, tp, serve))
+        att = ({k: None for k in p["attn"]} if cfg.mla
+               else stacked(attn.attn_shard_axes(cfg, tp, serve)))
         out = {"attn_norm": norm(p["attn_norm"]), "attn": att}
         if "ssm" in p:
             out["ssm"] = stacked(ssm_mod.ssm_shard_axes())
@@ -344,9 +364,12 @@ def _block_fwd(x, lp, cfg: ModelConfig, g: GroupSpec, positions, *,
         y, st = out if serve else (out, None)
         return x + y, {}, ({g.kind: st} if serve else None)
     h = norm_apply(x, lp["attn_norm"], nt)
-    a = attn.attn_forward(h, lp["attn"], cfg, positions=positions, causal=g.kind != "enc",
-                          window=g.window, attn_impl=rt.attn_impl, return_kv=serve, tp=tp,
-                          serve=serve)
+    if cfg.mla:  # training only (check_tp refuses serving)
+        a = attn.mla_forward(h, lp["attn"], cfg, positions=positions)
+    else:
+        a = attn.attn_forward(h, lp["attn"], cfg, positions=positions, causal=g.kind != "enc",
+                              window=g.window, attn_impl=rt.attn_impl, return_kv=serve, tp=tp,
+                              serve=serve)
     entry = None
     if serve:
         a, kv = a
@@ -463,7 +486,8 @@ def forward_loss(params: Tree, batch: dict, cfg: ModelConfig,
     VLM, enc_frames (B, T_enc, d) for the encoder-decoder].  Returns
     ``(total, metrics)``: the total is the cross entropy plus the MoE router
     terms, ``xent + router_aux_weight * moe_load_balance +
-    1e-3 * moe_router_z`` (both zero without MoE layers), and the metrics
+    1e-3 * moe_router_z`` (both zero without MoE layers; no z term with the
+    ``seq_aux`` router, whose ``moe_router_z`` stays zero), and the metrics
     are ``xent`` and the two router terms.  Activations compute in
     ``rt.cdtype``: the embedding table and the lm_head (or tied) weights are
     cast to it where the reference casts them, and every layer casts its
@@ -489,7 +513,9 @@ def forward_loss(params: Tree, batch: dict, cfg: ModelConfig,
         logits.reshape(B * S, -1), batch["targets"].reshape(-1), vocab_size=cfg.vocab_size,
         tp=tp,
     )
-    if cfg.moe:
+    if cfg.moe and cfg.router_loss == "seq_aux":
+        total = loss + cfg.router_aux_weight * aux["moe_load_balance"]
+    elif cfg.moe:
         total = (loss + cfg.router_aux_weight * aux["moe_load_balance"]
                  + 1e-3 * aux["moe_router_z"])
     else:  # the router terms are zeros: the reference's sum is the cross entropy
@@ -501,8 +527,7 @@ def forward_loss(params: Tree, batch: dict, cfg: ModelConfig,
 
 
 def _check_ctx(cfg: ModelConfig, tp: TPContext | None, serve: bool = False) -> None:
-    if tp is not None and tp.enabled:
-        check_tp(cfg, tp.size, serve=serve)
+    check_tp(cfg, tp.size if tp is not None else 1, serve=serve)
 
 
 def _head(x, params, cfg: ModelConfig, dtype, tp: TPContext | None, last: bool = False):

@@ -26,8 +26,10 @@ The names, by module:
   ``sync.finite_guard`` (the guard's ``nonzero``), ``sync.metrics`` (a
   metric read off the device);
 * the models' ``moe_router``, ``moe_dispatch``, ``moe_experts``,
-  ``moe_combine`` (``models/moe.py``), ``ssm_forward`` (``models/ssm.py``)
-  and ``slstm_recurrence`` (``models/xlstm.py``).
+  ``moe_combine``, ``moe_shared`` (``models/moe.py``), ``mla`` with
+  ``mla_latent`` and ``mla_core`` inside it (``models/attention.py``),
+  ``ssm_forward`` (``models/ssm.py``) and ``slstm_recurrence``
+  (``models/xlstm.py``).
 
 The dotted prefixes keep a span's name apart from every kernel's.
 """

@@ -27,6 +27,7 @@ from repro.models.layers import TPContext
 from repro.serve import Request as JRequest
 from repro.serve import ServeEngine as JServeEngine
 from repro_torch.configs import get_config as tget_config
+from repro_torch.configs.base import reference_fields
 from repro_torch.configs import tiny_lm as ttiny_lm
 from repro_torch.interop import from_numpy, to_numpy
 from repro_torch.models import transformer as tT
@@ -58,7 +59,7 @@ def _rts(impl, grouped=False):
 
 def _setup(name, seed=0):
     jcfg, tcfg = CONFIGS[name]
-    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    assert dataclasses.asdict(jcfg) == reference_fields(tcfg)
     params = jax.device_get(jT.init_params(jax.random.key(seed), jcfg))
     toks = np.random.default_rng(seed).integers(0, jcfg.vocab_size, (2, S + 1)).astype(np.int32)
     return jcfg, tcfg, params, toks

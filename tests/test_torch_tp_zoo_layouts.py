@@ -11,8 +11,8 @@ in one process:
 * the row tracker on sharded layouts: the port's counterpart of
   ``test_tracker_sharded_layout_slices_rank_block``, and a granite-moe
   layout's sources in both modes;
-* ``check_tp`` takes every registry family at tp 2 but the
-  encoder-decoder's serving, which raises naming the reference's fault;
+* ``check_tp`` takes every registry family of the reference at tp 2 but
+  the encoder-decoder's serving, which raises naming the reference's fault;
 * the dry run of every family on a small meta grid, its model-group
   all-reduces counted at ``TPContext._run`` (MoE, mLSTM and SSM included);
   whisper's serve cells are error records naming the fault and ``main``
@@ -180,7 +180,9 @@ def test_tracker_sources_on_a_moe_tp_layout_match_repro(arch):
             np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
 
 
-@pytest.mark.parametrize("arch", sorted(ARCHS))
+# deepseek-v2-lite's latent attention trains at tp = 1 only and does not
+# serve (tests/test_torch_deepseek.py holds check_tp's refusals)
+@pytest.mark.parametrize("arch", sorted(set(ARCHS) - {"deepseek-v2-lite"}))
 def test_check_tp_takes_every_family(arch):
     cfg = get_config(arch, smoke=True)
     T.check_tp(cfg, 2)
